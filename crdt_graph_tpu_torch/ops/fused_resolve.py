@@ -1,0 +1,90 @@
+"""The node-frame row gather, one hop or two (merge stage 2).
+
+``plane_rows(plane, idx)`` is ``plane[idx]`` for an int64 ``plane[R, C]``
+and int32 ``idx[T]``; ``plane_rows2(plane, idx, hop_col)`` also follows
+each gathered row's ``hop_col`` entry to a second row of the same plane
+(zeros where that hop is negative).  The merge gathers every per-node
+column through the canonical-source-row index in one sweep of this plane.
+
+Each wrapper runs its CUDA kernel (``csrc/plane_rows.cu``, the port of
+the reference's Pallas ``fused_resolve._kernel`` / ``_kernel2``) on CUDA
+tensors and its plain PyTorch twin on CPU tensors — the twins are the
+statement of what the kernels compute (the reference's ``_lax_rows`` /
+``_lax_rows2``, JAX's index clamp included).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import kernels
+from .indexing import take
+
+
+def plain_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Twin of kernel 1: ``plane[idx]`` with JAX's wrap-then-clamp."""
+    return take(plane, idx)
+
+
+def plain_rows2(plane: torch.Tensor, idx: torch.Tensor,
+                hop_col: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Twin of kernel 2: ``g = plane[idx]``; ``g2 = plane[clip(hop, 0,
+    R-1)]`` with ``hop = g[:, hop_col]``, zeroed where ``hop < 0``."""
+    g = take(plane, idx)
+    hop = g[:, hop_col]
+    g2 = plane[hop.clamp(0, plane.shape[0] - 1)]
+    return g, torch.where((hop >= 0)[:, None], g2, 0)
+
+
+def _check(plane: torch.Tensor, idx: torch.Tensor) -> None:
+    if plane.dtype != torch.int64 or plane.dim() != 2 or \
+            not plane.is_contiguous() or plane.shape[0] < 1:
+        raise ValueError("plane must be a contiguous non-empty int64 [R, C]")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or \
+            not idx.is_contiguous():
+        raise ValueError("idx must be a contiguous int32 [T]")
+    if idx.device != plane.device:
+        raise ValueError("plane and idx must share a device")
+
+
+def _launch(plane, idx, hop_col):
+    from ..kernels import build
+    _check(plane, idx)
+    lib = build.load()
+    r, c = plane.shape
+    t = idx.shape[0]
+    out = torch.empty((t, c), dtype=torch.int64, device=plane.device)
+    out2 = None if hop_col is None else torch.empty_like(out)
+    if t:
+        build.check(lib.crdt_plane_rows(
+            plane.data_ptr(), r, c, idx.data_ptr(), t, out.data_ptr(),
+            None if out2 is None else out2.data_ptr(),
+            0 if hop_col is None else int(hop_col),
+            build.stream_ptr(plane.device)), "crdt_plane_rows")
+        kernels.launches["plane_rows" if out2 is None else
+                         "plane_rows2"] += 1
+    return out, out2
+
+
+def plane_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``plane[idx]``: the CUDA kernel on CUDA tensors, the twin on CPU
+    tensors (any other device raises)."""
+    if plane.device.type == "cpu":
+        return plain_rows(plane, idx)
+    if plane.device.type != "cuda":
+        raise ValueError(f"unsupported device {plane.device}")
+    return _launch(plane, idx, None)[0]
+
+
+def plane_rows2(plane: torch.Tensor, idx: torch.Tensor,
+                hop_col: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-hop sweep (see :func:`plain_rows2`): the CUDA kernel on
+    CUDA tensors, the twin on CPU tensors."""
+    if plane.device.type == "cpu":
+        return plain_rows2(plane, idx, hop_col)
+    if plane.device.type != "cuda":
+        raise ValueError(f"unsupported device {plane.device}")
+    if not 0 <= hop_col < plane.shape[1]:
+        raise ValueError(f"hop_col {hop_col} outside the plane")
+    return _launch(plane, idx, hop_col)

@@ -1,0 +1,807 @@
+"""The batched semilattice join: N operations → converged node table.
+
+The port of ``crdt_graph_tpu.ops.merge`` (the JAX reference) for its
+production mode: a vouched batch (``PackedOps.arrays()`` with the derived
+slot hints) merged with ``hints="exhaustive"``.  The same packed columns
+give the same ``NodeTable``, field for field and dtype for dtype; the
+reference's module docstring states the algorithm (RGA order as the DFS
+pre-order of the min-ancestor forest, Euler tour, run-contracted list
+ranking), and the stage numbers in the comments below are its stages.
+
+What changes on the way from JAX to PyTorch:
+
+- ``lax.while_loop`` / ``lax.cond`` become Python loops and branches on a
+  predicate read back from the device; each read is counted in
+  :data:`host_syncs`.  Every loop keeps the reference's trip cap and
+  convergence test.
+- JAX clamps out-of-range gather indices and drops out-of-range scatter
+  targets; every index below is in range by construction or clamped
+  explicitly, and every scatter drops its targets explicitly
+  (``ops.indexing``).  Scatters whose indices may repeat are reductions
+  (``amin``, ``index_add_``), exact under any write order.
+- The v5e-only int64 bit splitting goes: Hopper has native int64, so the
+  node-frame paths stay one i64 plane (split + repack is the identity).
+- The 3-key sibling sort becomes one sort of a packed int64 key.
+- The four Pallas kernels of the path (the node-frame plane gathers, the
+  tour prefix sums, the run expansion) are hand-written CUDA kernels on
+  the card (``ops.fused_resolve``, ``ops.tour_scan``, ``ops.mono_gather``)
+  and their plain PyTorch twins on the CPU.
+
+Of the reference's construction legs only the production one is here:
+the slot-hinted resolution with the fused two-hop node frame.  The
+``auto``/``join`` hint modes and their sort+join fallback are not ported
+yet (ROADMAP.md, PyTorch/CUDA port queue).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..codec.packed import KIND_ADD, KIND_DELETE, MAX_TS
+from ..utils import hostenv
+from . import fused_resolve, mono_gather, tour_scan
+from .indexing import add_drop, min_drop, set_drop
+
+# Per-op result statuses (sequential parity; see the reference docstring).
+APPLIED = 0
+ALREADY_APPLIED = 1   # duplicate add / repeat delete / edit under tombstone
+NOT_FOUND = 2         # anchor or delete target missing from its branch
+INVALID_PATH = 3      # empty path, missing intermediate, or prefix mismatch
+PAD = 4
+
+BIG = MAX_TS          # sorts-after-everything timestamp sentinel
+IPOS = 2**31 - 1      # "no position" / +inf for int32 positions
+
+S_CAP_DEFAULT = 1 << 16   # crowded-sibling sort width
+R_CAP_DEFAULT = 1 << 15   # run-pipeline compact width
+S_CAP2_DEFAULT = 1 << 12  # second (tiny) compact levels
+R_CAP2_DEFAULT = 1 << 12
+
+SLOT_HINTS = ("parent_sl", "at_sl", "anchor_psl", "dup_row")
+# the columns this merge reads; the rest of a batch (the position hints,
+# parent_ts) never leaves the host
+MERGE_COLS = ("kind", "ts", "anchor_ts", "depth", "paths", "value_ref",
+              "pos", "ts_rank") + SLOT_HINTS + (
+                  "win_row", "parent_row", "crowd_slot", "crowd_cpos")
+PORT_QUEUE = ("ROADMAP.md, 'PyTorch/CUDA port' queue item 1 (the auto/join "
+              "hint modes with their sort+join fallback)")
+
+# Device→host reads of loop and branch predicates since the last reset:
+# each is one stream synchronisation on the card.
+host_syncs = 0
+
+
+def _env_cap(name: str, default: int) -> int:
+    """Compact-path width, overridable by the same environment names as
+    the reference (``GRAFT_S_CAP``, ``GRAFT_R_CAP``, ``GRAFT_S_CAP2``,
+    ``GRAFT_R_CAP2``), read at call time."""
+    v = os.environ.get(name)
+    return int(v) if v else default
+
+
+def _read(x: torch.Tensor):
+    """A 0-d predicate or count on the host (one counted sync)."""
+    global host_syncs
+    host_syncs += 1
+    return x.item()
+
+
+@dataclasses.dataclass
+class NodeTable:
+    """The converged tree as tensors over M = N + 2 slots (slot 0 the
+    root, slots 1..N nodes, slot M-1 a null sink) — the reference's
+    ``NodeTable`` with the same fields and dtypes."""
+
+    ts: torch.Tensor           # i64[M] node timestamp (0 = root, BIG unused)
+    parent: torch.Tensor       # i32[M] tree-parent slot (root: itself)
+    depth: torch.Tensor        # i32[M]
+    value_ref: torch.Tensor    # i32[M] host value-table index, -1 none
+    paths: torch.Tensor        # i64[M, D] full materialised path
+    exists: torch.Tensor       # bool[M] slot holds a real, valid node
+    tombstone: torch.Tensor    # bool[M] node itself deleted
+    dead: torch.Tensor         # bool[M] some strict ancestor deleted
+    visible: torch.Tensor      # bool[M] exists & ~tombstone & ~dead
+    doc_index: torch.Tensor    # i32[M] position in document order
+    order: torch.Tensor        # i32[M] slots of existing nodes in order
+    visible_order: torch.Tensor  # i32[M] slots of visible nodes in order
+    num_nodes: torch.Tensor    # i32 count of existing nodes
+    num_visible: torch.Tensor  # i32 count of visible nodes
+    status: torch.Tensor       # i8[N] per-op status (batch order)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.ts.shape[0]) - 2
+
+    @property
+    def null_slot(self) -> int:
+        return int(self.ts.shape[0]) - 1
+
+
+FIELDS = tuple(f.name for f in dataclasses.fields(NodeTable))
+
+
+def _ceil_log2(n: int) -> int:
+    return max(1, math.ceil(math.log2(max(2, n))))
+
+
+def _pack_u(h: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Two int32 halves → one int64 (the reference's ``_pack_u``)."""
+    return (h.to(torch.int64) << 32) | (l.to(torch.int64) & 0xFFFFFFFF)
+
+
+def _fix_and(ok, ptr, cap: int):
+    """AND of ``ok`` over every ancestor along ``ptr`` chains, by pointer
+    doubling with early exit and a static trip cap (reference
+    ``_fix_and``)."""
+    live, i = True, 0
+    while live and i < cap and _read(torch.any(~ok)):
+        ok = ok & ok[ptr]
+        ptr2 = ptr[ptr]
+        live = _read(torch.any(ptr2 != ptr))
+        ptr, i = ptr2, i + 1
+    return ok
+
+
+def _fix_min(val, ptr, active: bool, cap: int):
+    """MIN of ``val`` over self and every ancestor along ``ptr`` chains;
+    skipped when ``active`` is false (reference ``_fix_min``)."""
+    live, i = active, 0
+    while live and i < cap:
+        val = torch.minimum(val, val[ptr])
+        ptr2 = ptr[ptr]
+        live = _read(torch.any(ptr2 != ptr))
+        ptr, i = ptr2, i + 1
+    return val
+
+
+def _probe_sum(*arrs) -> int:
+    """Stage-cut checksum (``probe=k``): the reference's fingerprint of
+    the same arrays, as a Python int in int32 range."""
+    from ..bench.honest import fingerprint, wrap_i32
+    return wrap_i32(int(fingerprint(arrs)))
+
+
+def _acc(acc: int, *arrs) -> int:
+    """``acc`` plus the checksum of ``arrs``, wrapping like int32."""
+    from ..bench.honest import wrap_i32
+    return wrap_i32(acc + _probe_sum(*arrs))
+
+
+def _sib_links(kp, gg, neg, M: int):
+    """Sibling links from a sort by ``(kp, gg, neg)`` at the input width;
+    rows with ``neg == IPOS`` are padding (slot maps to M, writes drop).
+
+    The reference's 3-key ``lax.sort`` becomes ONE sort of a packed
+    int64 key: real parents are below M ≤ 2^30 and padding keys clamp to
+    M (still last), the group bit sits below, and the biased ``neg``
+    fills the low 32 bits.  Rows with equal keys are identical, so the
+    sort needs no stability."""
+    kpc = torch.clamp(kp.to(torch.int64), max=M)
+    key = (kpc << 33) | (gg.to(torch.int64) << 32) | \
+        (neg.to(torch.int64) + 2**31)
+    skey = torch.sort(key).values
+    s_parent = skey >> 33
+    s_neg = (skey & 0xFFFFFFFF) - 2**31
+    s_slot = torch.where(s_neg == IPOS, M, -s_neg)
+    same_parent = (s_parent[1:] == s_parent[:-1]) & (s_slot[1:] < M)
+    sib = set_drop(torch.full((M,), -1, dtype=torch.int32, device=kp.device),
+                   s_slot[:-1], torch.where(same_parent, s_slot[1:], -1))
+    s_start = torch.cat([torch.ones(1, dtype=torch.bool, device=kp.device),
+                         ~same_parent])
+    fc_tgt = torch.where(s_start & (s_slot < M), s_parent, M)
+    fc = set_drop(torch.full((M,), -1, dtype=torch.int32, device=kp.device),
+                  fc_tgt, s_slot)
+    return sib, fc
+
+
+def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
+            probe: Optional[int], acc: Optional[int]):
+    """Stages 3-13 from the resolution tuple (reference ``_finish``, its
+    fused slot-hint leg with every round-7 cut on)."""
+    kind = ops["kind"]
+    dev = kind.device
+    ts = ops["ts"].to(torch.int64)
+    anchor_ts = ops["anchor_ts"].to(torch.int64)
+    depth = ops["depth"].to(torch.int32)
+    paths = ops["paths"].to(torch.int64)
+    value_ref = ops["value_ref"].to(torch.int32)
+    pos = ops["pos"].to(torch.int32)
+    N = kind.shape[0]
+    D = paths.shape[1]
+    M = N + 2
+    ROOT = 0
+    NULL = M - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    slot_ids = torch.arange(M, **i32)
+    cols = torch.arange(D, **i32)[None, :]
+    is_add = kind == KIND_ADD
+    is_del = kind == KIND_DELETE
+    (op_slot, op_is_dup, is_node_slot, node_row,
+     pp_slot, at_slot, pp_found, at_found) = sel
+    single_w = no_deletes
+
+    # ---- 3. Node frame: every per-node field is the canonical source
+    # row's op field, gathered through ``node_row`` in ONE plane sweep;
+    # with ``parent_row`` on the plane the same sweep also fetches each
+    # node's parent row (the second hop) — kernel 2, ``plane_rows2``.
+    nsr = torch.where(is_node_slot, node_row, 0)
+    dsv_src = _pack_u((depth << 1) | (anchor_ts == 0).to(torch.int32),
+                      value_ref)
+    pa = _pack_u((pp_slot << 1) | pp_found.to(torch.int32),
+                 (at_slot << 1) | at_found.to(torch.int32))
+    ap_src = _pack_u(ops["anchor_psl"].to(torch.int32), pos)
+    extra = [ap_src[:, None], ts[:, None]]
+    fused2 = "parent_row" in ops
+    if fused2:
+        extra.append(ops["parent_row"].to(torch.int64)[:, None])
+    HOP_COL = 2 + len(extra) - 1
+    plane = torch.cat([dsv_src[:, None], pa[:, None]] + extra + [paths],
+                      dim=1).contiguous()
+    nsr = nsr.to(torch.int32).contiguous()
+    if fused2:
+        g, g2 = fused_resolve.plane_rows2(plane, nsr, HOP_COL)
+    else:
+        g, g2 = fused_resolve.plane_rows(plane, nsr), None
+    k = 2 + len(extra)
+    dsv, pa_g, claimed_raw = g[:, 0], g[:, 1], g[:, k:]
+    ap_g, ts_g = g[:, 2], g[:, 3]
+    node_ts = torch.where(is_node_slot, ts_g, BIG)
+    node_ts[ROOT] = 0
+    node_pos = torch.where(is_node_slot,
+                           (ap_g & 0xFFFFFFFF).to(torch.int32), IPOS)
+    ansl = torch.where(is_node_slot, (ap_g >> 32).to(torch.int32),
+                       NULL << 1)
+    node_depth = torch.where(is_node_slot, (dsv >> 33).to(torch.int32), 0)
+    node_depth[ROOT] = 0
+    node_anchor_is_sentinel = is_node_slot & (((dsv >> 32) & 1) != 0)
+    node_value_ref = torch.where(is_node_slot,
+                                 (dsv & 0xFFFFFFFF).to(torch.int32), -1)
+    claimed = torch.where(is_node_slot[:, None], claimed_raw, 0)
+    null2 = _pack_u(torch.tensor(NULL << 1, **i32),
+                    torch.tensor(NULL << 1, **i32))
+    pa_n = torch.where(is_node_slot, pa_g, null2)
+    pf_pack = (pa_n >> 32).to(torch.int32)
+    af_pack = (pa_n & 0xFFFFFFFF).to(torch.int32)
+    pslot, pfound = pf_pack >> 1, (pf_pack & 1) != 0
+    aslot, afound = af_pack >> 1, (af_pack & 1) != 0
+    d_tslot, d_tfound = at_slot, at_found
+    dp_slot, dp_found = pp_slot, pp_found
+    pslot[ROOT] = ROOT
+
+    # full materialised path: the claimed anchor path with the node's
+    # own timestamp at depth-1
+    col = torch.clamp(node_depth - 1, 0, D - 1)
+    put = (cols == col[:, None]) & (node_depth[:, None] > 0)
+    fp = torch.where(put, node_ts[:, None], claimed)
+
+    # ---- 5. Local validity: claimed prefix == the parent's materialised
+    # path, anchor a sibling, depths chain.
+    if fused2:
+        # parent frame from the second hop: the parent's claimed path
+        # with its own timestamp at its depth-1 (zeroed when the parent
+        # is the root, unresolved or absent)
+        pvalid = is_node_slot & (g[:, HOP_COL] >= 0)
+        par_depth = torch.where(pvalid, (g2[:, 0] >> 33).to(torch.int32), 0)
+        pc = torch.where(pvalid[:, None], g2[:, k:], 0)
+        pts = torch.where(pvalid, g2[:, 3], 0)
+        put_p = (cols == torch.clamp(par_depth - 1, 0, D - 1)[:, None]) & \
+            (par_depth[:, None] > 0)
+        par = torch.where(put_p, pts[:, None], pc)
+    else:
+        # parent path + depth in one [M, D+1] row gather through pslot
+        pplane = fused_resolve.plane_rows(
+            torch.cat([fp, node_depth[:, None].to(torch.int64)],
+                      dim=1).contiguous(), pslot.contiguous())
+        par, par_depth = pplane[:, :D], pplane[:, D].to(torch.int32)
+    prefix_ok = torch.all(
+        torch.where(cols < node_depth[:, None] - 1, claimed == par, True),
+        dim=1)
+    depth_ok = (node_depth >= 1) & (node_depth <= D) & \
+        (node_depth == par_depth + 1)
+    parent_ok = pfound & depth_ok & prefix_ok
+    anchor_parent = ansl >> 1
+    anchor_ok = node_anchor_is_sentinel | \
+        (afound & (anchor_parent == pslot) & (aslot != ROOT))
+    local_ok = is_node_slot & (node_ts > 0) & parent_ok & anchor_ok
+    local_ok[ROOT] = True
+    if probe is not None:
+        acc = _acc(acc, local_ok, parent_ok, fp)
+        if probe == 2:
+            return acc
+
+    # ---- 6. Validity cascades along the anchor forest; 6b. anchor
+    # cycles (only when some anchor has a larger slot).
+    order_parent = torch.where(node_anchor_is_sentinel, pslot, aslot)
+    order_parent[ROOT] = ROOT
+    order_parent[NULL] = NULL
+    op_l = order_parent.long()
+    cascade_ok = _fix_and(local_ok | ~is_node_slot, op_l,
+                          _ceil_log2(M) + 1)
+    up_edge = torch.any(is_node_slot & ~node_anchor_is_sentinel &
+                        (aslot != NULL) & (aslot >= slot_ids))
+    if _read(up_edge):
+        p = op_l
+        for _ in range(_ceil_log2(M) + 1):
+            p = p[p]
+        acyclic = (p == ROOT) | (p == NULL)
+    else:
+        acyclic = torch.ones(M, dtype=torch.bool, device=dev)
+    valid = cascade_ok & acyclic & is_node_slot
+    valid[ROOT] = True
+    parent_eff = torch.where(valid, pslot, NULL).to(torch.int32)
+    parent_eff[ROOT] = ROOT
+    if probe is not None:
+        acc = _acc(acc, valid, parent_eff)
+        if probe == 3:
+            return acc
+
+    # ---- 7. Deletes (statically absent under the no-deletes promise):
+    # the target's materialised path, depth and validity arrive in one
+    # row gather of an [M, D+1] plane — kernel 1, ``plane_rows``.
+    if no_deletes:
+        deleted = torch.zeros(M, dtype=torch.bool, device=dev)
+        anc_del = torch.full((M,), IPOS, **i32)
+        dead = torch.zeros(M, dtype=torch.bool, device=dev)
+    else:
+        tplane = torch.cat(
+            [fp, ((node_depth.to(torch.int64) << 1) |
+                  valid.to(torch.int64))[:, None]], dim=1).contiguous()
+        tg = fused_resolve.plane_rows(tplane, d_tslot.contiguous())
+        t_depth = (tg[:, D] >> 1).to(torch.int32)
+        t_valid = (tg[:, D] & 1) != 0
+        d_depth_ok = (depth >= 1) & (depth <= D) & (t_depth == depth)
+        d_path_ok = torch.all(
+            torch.where(cols < depth[:, None], paths == tg[:, :D], True),
+            dim=1)
+        d_ok = is_del & d_tfound & (d_tslot != ROOT) & t_valid & \
+            d_depth_ok & d_path_ok
+        d_tgt = torch.where(d_ok, d_tslot, NULL)
+        deleted = set_drop(torch.zeros(M, dtype=torch.bool, device=dev),
+                           d_tgt, True)
+        deleted[NULL] = False
+        del_pos = min_drop(torch.full((M,), IPOS, **i32), d_tgt, pos)
+        del_pos[NULL] = IPOS
+        # ---- 8. Dead-subtree propagation down tree-parent chains
+        pe = parent_eff.long()
+        anc_del = torch.where(deleted[pe], del_pos[pe], IPOS)
+        anc_del = _fix_min(anc_del, pe, _read(torch.any(d_ok)),
+                           _ceil_log2(D) + 1)
+        dead = valid & (anc_del < IPOS)
+    if probe is not None:
+        acc = _acc(acc, deleted, dead, anc_del)
+        if probe == 4:
+            return acc
+
+    # ---- 9. The order forest: each node's T* parent is the nearest node
+    # on its anchor chain with a smaller slot — pointer-halving chase,
+    # finished by binary lifting for walkers the trip cap leaves behind.
+    in_forest = valid & is_node_slot
+    mptr0 = torch.where(node_anchor_is_sentinel | ~in_forest, -1, aslot)
+    mptr = mptr0
+    nsv_cap = _ceil_log2(M) + 2
+    i = 0
+    while i < nsv_cap and _read(torch.any((mptr >= 0) & (mptr > slot_ids))):
+        m = torch.where(mptr >= 0, mptr, NULL).long()
+        unresolved = (mptr >= 0) & (mptr > slot_ids)
+        mptr = torch.where(unresolved, mptr[m], mptr)
+        i += 1
+    nsa_unresolved = (mptr >= 0) & (mptr > slot_ids)
+    if probe == 41:
+        return _acc(acc, mptr, nsa_unresolved)
+    if _read(torch.any(nsa_unresolved)):
+        up0 = torch.where(mptr0 >= 0, mptr0, ROOT).to(torch.int32)
+        up0[ROOT] = ROOT
+        ups, mns = [up0.long()], [up0]
+        k_levels = _ceil_log2(M)
+        for _ in range(1, k_levels):
+            pu, pm = ups[-1], mns[-1]
+            ups.append(pu[pu])
+            mns.append(torch.minimum(pm, pm[pu]))
+        cur = slot_ids.long()
+        for kk in reversed(range(k_levels)):
+            skip = nsa_unresolved & (mns[kk][cur] >= slot_ids)
+            cur = torch.where(skip, ups[kk][cur], cur)
+        ans = up0[cur]
+        lifted = torch.where(ans == ROOT, -1, ans)
+        mptr = torch.where(nsa_unresolved, lifted, mptr)
+    star_parent = torch.where(mptr >= 0, mptr, pslot)
+    star_sentinel = mptr < 0
+    if probe == 42:
+        return _acc(acc, star_parent, star_sentinel)
+
+    # Sibling sort → Euler-tour successor pointers: children of p are
+    # child-branch T* roots (group 0), then same-branch T* children
+    # (group 1), each group slot-DESCENDING.  Only crowded parents (≥ 2
+    # children) need sorting, so they are compacted to a small width.
+    order_parent = torch.where(in_forest, star_parent, order_parent)
+    order_parent[ROOT] = ROOT
+    order_parent[NULL] = NULL
+    ggrp = torch.where(star_sentinel, 0, 1).to(torch.int8)
+    skey = torch.where(in_forest, order_parent, NULL).to(torch.int32)
+    neg_slot = torch.where(in_forest, -slot_ids, IPOS).to(torch.int32)
+    S_CAP = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT)
+    crowd_hinted = no_deletes and "crowd_slot" in ops and \
+        "crowd_cpos" in ops and hostenv.flag_on("GRAFT_CROWD_HINTS")
+    if S_CAP >= M:
+        sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
+    else:
+        if crowd_hinted:
+            pad_f = torch.zeros(1, dtype=torch.bool, device=dev)
+            crowded = torch.cat([pad_f, ops["crowd_slot"] != 0, pad_f])
+            cc = ops["crowd_cpos"].to(torch.int32)
+            cpos = torch.cat([torch.full((1,), -1, **i32), cc, cc[N - 1:N]])
+            n_crowded_t = cc[N - 1] + 1
+        else:
+            par = torch.where(in_forest, order_parent, M)
+            cnt = add_drop(M, par)
+            crowded = in_forest & (cnt[torch.clamp(par, max=M - 1).long()]
+                                   >= 2)
+            cpos = torch.cumsum(crowded.to(torch.int32), 0,
+                                dtype=torch.int32) - 1
+            n_crowded_t = cpos[M - 1] + 1
+
+        def fc_singletons(fc):
+            """The singleton first-child overlay (every uncrowded
+            parent's one child)."""
+            single = in_forest & ~crowded
+            return set_drop(fc, torch.where(single, order_parent, M),
+                            torch.where(single, slot_ids, -1))
+
+        def br_compact(cap):
+            """The compact sibling branch at width ``cap`` ≥ n_crowded:
+            the k-th crowded row is the first index where ``cpos``
+            reaches k (a binary search per compact slot)."""
+            ks = torch.arange(cap, **i32)
+            src = torch.searchsorted(cpos, ks, right=False)
+            valid_k = ks < n_crowded_t
+            srcc = torch.clamp(src, max=M - 1)
+            kp = torch.where(valid_k, skey[srcc], IPOS)
+            gg = torch.where(valid_k, ggrp[srcc], 0).to(torch.int8)
+            neg = torch.where(valid_k, neg_slot[srcc], IPOS)
+            sib, fc = _sib_links(kp, gg, neg, M)
+            return sib, fc_singletons(fc)
+
+        def br_single():
+            """ALL crowded rows share one (parent, group) key, so their
+            order is slot-descending: sib_next is the previous crowded
+            slot (a running max), the key's first child the largest."""
+            # running max of the crowded slots = the last crowded slot at
+            # or before each row: the c-th crowded slot, c the count so
+            # far (one cumsum and a scatter, not a cummax)
+            c = torch.cumsum(crowded.to(torch.int32), 0, dtype=torch.int32)
+            kth = set_drop(torch.full((M,), -1, **i32),
+                           torch.where(crowded, c - 1, M), slot_ids)
+            pc = torch.where(c > 0, kth[torch.clamp(c - 1, min=0)], -1)
+            prev = torch.cat([torch.full((1,), -1, **i32), pc[:-1]])
+            sib = torch.where(crowded, prev, -1).to(torch.int32)
+            head = torch.max(torch.where(crowded, slot_ids, -1))
+            gkey = torch.clamp(torch.max(torch.where(crowded, skey, -1)),
+                               0, M - 1)
+            fc = torch.full((M,), -1, **i32).scatter(
+                0, gkey.reshape(1).long(), head.reshape(1).to(torch.int32))
+            return sib, fc_singletons(fc)
+
+        gi = ggrp.to(torch.int32)
+        one_group = (n_crowded_t > 0) & \
+            (torch.min(torch.where(crowded, skey, IPOS)) ==
+             torch.max(torch.where(crowded, skey, -1))) & \
+            (torch.min(torch.where(crowded, gi, IPOS)) ==
+             torch.max(torch.where(crowded, gi, -1)))
+        S_CAP2 = _env_cap("GRAFT_S_CAP2", S_CAP2_DEFAULT)
+        if _read(one_group):
+            sib_next, first_child = br_single()
+        else:
+            n_crowded = _read(n_crowded_t)
+            if S_CAP2 < S_CAP and n_crowded <= S_CAP2:
+                sib_next, first_child = br_compact(S_CAP2)
+            elif n_crowded <= S_CAP:
+                sib_next, first_child = br_compact(S_CAP)
+            else:
+                sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
+    sib_next[ROOT] = -1
+    first_child[NULL] = -1
+    if probe == 43:
+        return _acc(acc, sib_next, first_child)
+
+    # ---- 10. Euler tour: enter(v) = token v, exit(v) = token M + v;
+    # leaf exits are skipped (zero weight), parked tokens self-loop.
+    T = 2 * M
+    tok = torch.arange(T, **i32)
+    in_tour = in_forest.clone()
+    in_tour[ROOT] = True
+    up = torch.where(order_parent == slot_ids, M + slot_ids,
+                     M + order_parent)
+    chain_next = torch.where(sib_next >= 0, sib_next, up)
+    is_leaf = first_child < 0
+    enter_succ = torch.where(~in_tour, slot_ids,
+                             torch.where(is_leaf, chain_next, first_child))
+    exit_succ = torch.where(~in_tour | is_leaf, M + slot_ids, chain_next)
+    succ = torch.cat([enter_succ, exit_succ]).to(torch.int32)
+    if probe is not None:
+        acc = _acc(acc, succ, sib_next, first_child)
+        if probe == 5:
+            return acc
+
+    # ---- 11. Masks.
+    exists = valid & is_node_slot
+    tomb = deleted & exists
+    dead = dead & exists
+    visible = exists & ~tomb & ~dead
+
+    # ---- 12. Document ranks by run contraction + weighted Wyllie.  The
+    # run-id prefix sum and the weight lanes are kernel 3
+    # (``prefix_sums``); the run→token expansion is kernel 4
+    # (``monotone_gather``).
+    fwd = succ[:-1] == tok[1:]
+    bwd = succ[1:] == tok[:-1]
+    loop_ = succ == tok
+    same_run = fwd | bwd | (loop_[:-1] & loop_[1:])
+    boundary = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          ~same_run])
+    w_lanes = torch.stack(
+        [exists.to(torch.int32)] if single_w else
+        [exists.to(torch.int32), visible.to(torch.int32)]).contiguous()
+    rid_incl, w_incl = tour_scan.prefix_sums(
+        boundary.to(torch.int32).contiguous(), w_lanes)
+    rid = rid_incl - 1
+    z1 = torch.zeros(1, **i32)
+    cse_doc = torch.cat([z1, w_incl[0]])
+    cse_vis = cse_doc if single_w else torch.cat([z1, w_incl[1]])
+    rid_m = rid[:M].contiguous()
+
+    def runs_full():
+        """T-wide run starts (each run has exactly one start token); a
+        run ends where the next begins."""
+        run_s = set_drop(torch.full((T,), IPOS, **i32),
+                         torch.where(boundary, rid, T), tok)
+        next_s = torch.cat([run_s[1:], torch.full((1,), IPOS, **i32)])
+        run_e = torch.where(run_s == IPOS, 0,
+                            torch.where(next_s == IPOS, T - 1, next_s - 1))
+        return run_s, run_e.to(torch.int32)
+
+    def expand(run_s_w, run_e_w):
+        """Per-run chain data at width w → Wyllie → the [4|7, M] token
+        expansion (direction, weight-window bounds, suffix weights)."""
+        w = run_s_w.shape[0]
+        run_s_l = run_s_w.long()
+        run_fwd = succ[torch.clamp(run_s_l, max=T - 1)] == run_s_l + 1
+        run_tail = torch.where(run_fwd, run_e_w, run_s_w).long()
+        tail_succ = succ[torch.clamp(run_tail, max=T - 1)].long()
+        run_terminal = tail_succ == run_tail
+        rid_of = lambda x: rid[torch.clamp(x, max=T - 1)]  # noqa: E731
+        run_next = torch.where(run_terminal, rid_of(run_tail),
+                               rid_of(tail_succ))
+        run_s_c = torch.clamp(run_s_l, max=M)
+        run_e1_c = torch.clamp(run_e_w.long() + 1, max=M)
+        a = torch.where(run_terminal, 0, cse_doc[run_e1_c] - cse_doc[run_s_c])
+        b = None if single_w else torch.where(
+            run_terminal, 0, cse_vis[run_e1_c] - cse_vis[run_s_c])
+        p = torch.clamp(run_next, max=w - 1).long()
+        live, it, cap = True, 0, _ceil_log2(w) + 1
+        while live and it < cap:
+            a = a + a[p]
+            if b is not None:
+                b = b + b[p]
+            p2 = p[p]
+            live = _read(torch.any(p2 != p))
+            p, it = p2, it + 1
+        out = min(w, M)
+        per_run = torch.stack([
+            run_fwd[:out].to(torch.int32),
+            cse_doc[run_s_c[:out]], cse_doc[run_e1_c[:out]], a[:out],
+        ] + ([] if single_w else [
+            cse_vis[run_s_c[:out]], cse_vis[run_e1_c[:out]], b[:out],
+        ])).to(torch.int32).contiguous()
+        return mono_gather.monotone_gather(per_run, rid_m)
+
+    R_CAP = _env_cap("GRAFT_R_CAP", R_CAP_DEFAULT)
+    if R_CAP >= T:
+        ex = expand(*runs_full())
+    else:
+        n_runs = _read(rid[T - 1]) + 1
+
+        def compact(cap):
+            """The run pipeline at width ``cap`` ≥ n_runs: run k's first
+            token is a binary search over the nondecreasing ``rid``."""
+            ks = torch.arange(cap, **i32)
+            ss = torch.searchsorted(rid, ks, right=False)
+            run_s_w = torch.where(ks < n_runs, ss, IPOS)
+            next_s = torch.cat([run_s_w[1:],
+                                torch.full((1,), IPOS, dtype=run_s_w.dtype,
+                                           device=dev)])
+            run_e_w = torch.where(run_s_w == IPOS, 0,
+                                  torch.where(next_s == IPOS, T - 1,
+                                              next_s - 1))
+            return expand(run_s_w.to(torch.int32), run_e_w.to(torch.int32))
+
+        R_CAP2 = _env_cap("GRAFT_R_CAP2", R_CAP2_DEFAULT)
+        if R_CAP2 < R_CAP and n_runs <= R_CAP2:
+            ex = compact(R_CAP2)
+        elif n_runs <= R_CAP:
+            ex = compact(R_CAP)
+        else:
+            ex = expand(*runs_full())
+    if probe is not None:
+        acc = _acc(acc, ex)
+        if probe == 6:
+            return acc
+
+    # E(tok) = weight at-or-after tok along the chain; ranks read at
+    # ENTER tokens (0..M-1).
+    rf_m = ex[0] != 0
+
+    def rank_of(ws_m, we1_m, a_m, cse):
+        within = torch.where(rf_m, cse[:M] - ws_m, we1_m - cse[1:M + 1])
+        e_tok = a_m - within
+        return e_tok[ROOT] - e_tok
+
+    def order_frame(mask, dense):
+        """Rank→slot frame scatter (ranks are unique per mask)."""
+        return set_drop(torch.full((M,), NULL, **i32),
+                        torch.where(mask, dense, M), slot_ids)
+
+    doc_dense = rank_of(ex[1], ex[2], ex[3], cse_doc)
+    doc_index = torch.where(exists, doc_dense, IPOS).to(torch.int32)
+    order = order_frame(exists, doc_dense)
+    if single_w:
+        visible_order = order          # no deletes: visible ≡ exists
+    else:
+        vis_dense = rank_of(ex[4], ex[5], ex[6], cse_vis)
+        visible_order = order_frame(visible, vis_dense)
+    if probe is not None:
+        acc = _acc(acc, doc_index, order, visible_order)
+        if probe == 7:
+            return acc
+
+    # ---- 13. Sequential-parity statuses per op.
+    status = torch.full((N,), PAD, dtype=torch.int8, device=dev)
+    a_slot = op_slot.long()
+    a_sentinel = ts <= 0
+    if no_deletes:
+        meta_s = valid.to(torch.int32) | (parent_ok.to(torch.int32) << 1)
+        a_meta = meta_s[a_slot]
+        a_valid = (a_meta & 1) != 0
+        a_parent_ok = (a_meta & 2) != 0
+        # valid[pslot] (the NOT_FOUND/INVALID_PATH split) is read only
+        # when some non-sentinel add is invalid
+        if _read(torch.any(is_add & ~a_sentinel & ~a_valid)):
+            a_grand = valid[pslot.long()][a_slot]
+            invalid = torch.where(a_parent_ok & a_grand, NOT_FOUND,
+                                  INVALID_PATH)
+        else:
+            invalid = INVALID_PATH       # never selected
+        a_status = torch.where(
+            a_sentinel | (a_valid & op_is_dup), ALREADY_APPLIED,
+            torch.where(a_valid, APPLIED, invalid))
+        status = torch.where(is_add, a_status.to(torch.int8), status)
+    else:
+        meta = (valid.to(torch.int32)
+                | (parent_ok.to(torch.int32) << 1)
+                | (valid[pslot.long()].to(torch.int32) << 2))
+        a_meta = meta[a_slot]
+        a_valid = (a_meta & 1) != 0
+        a_parent_ok = (a_meta & 2) != 0
+        a_grandvalid = (a_meta & 4) != 0
+        a_absorbed = a_valid & (anc_del[a_slot] < pos)
+        a_status = torch.where(
+            a_sentinel | (a_valid & (op_is_dup | a_absorbed)),
+            ALREADY_APPLIED,
+            torch.where(a_valid, APPLIED,
+                        torch.where(a_parent_ok & a_grandvalid, NOT_FOUND,
+                                    INVALID_PATH)))
+        status = torch.where(is_add, a_status.to(torch.int8), status)
+        dts = d_tslot.long()
+        d_parent_ok = (depth == 1) | \
+            ((depth >= 2) & dp_found & ((meta[dp_slot.long()] & 1) != 0))
+        d_anc_absorbed = d_ok & (anc_del[dts] < pos)
+        d_repeat = d_ok & (del_pos[dts] < pos)
+        d_target_later = d_ok & (node_pos[dts] > pos)
+        d_sentinel = (ts == 0) & d_parent_ok
+        d_status = torch.where(
+            d_sentinel | d_anc_absorbed | (d_repeat & ~d_target_later),
+            ALREADY_APPLIED,
+            torch.where(d_ok & ~d_target_later, APPLIED,
+                        torch.where(d_target_later | d_parent_ok,
+                                    NOT_FOUND, INVALID_PATH)))
+        status = torch.where(is_del, d_status.to(torch.int8), status)
+
+    return NodeTable(
+        ts=node_ts, parent=parent_eff, depth=node_depth,
+        value_ref=node_value_ref, paths=fp, exists=exists, tombstone=tomb,
+        dead=dead, visible=visible, doc_index=doc_index, order=order,
+        visible_order=visible_order,
+        num_nodes=torch.sum(exists).to(torch.int32),
+        num_visible=torch.sum(visible).to(torch.int32),
+        status=status)
+
+
+def _resolve(ops: Dict[str, torch.Tensor]):
+    """Stages 1-2 of the slot-hinted exhaustive mode: every reference
+    resolves elementwise from the host-derived slot hints; the winner
+    frame is the host-elected ``win_row`` (or, without it, the
+    scatter-min over ranked rows)."""
+    kind = ops["kind"]
+    dev = kind.device
+    ts = ops["ts"].to(torch.int64)
+    N = kind.shape[0]
+    M = N + 2
+    NULL = M - 1
+    is_add = kind == KIND_ADD
+    rank = ops["ts_rank"].to(torch.int32)
+    is_real_add = is_add & (ts > 0) & (ts < BIG)
+    has_rank = is_real_add & (rank >= 0) & (rank < N)
+    op_slot = torch.where(has_rank, rank + 1, NULL).to(torch.int32)
+    if "win_row" in ops:
+        pad = torch.full((1,), IPOS, dtype=torch.int32, device=dev)
+        win = torch.cat([pad, ops["win_row"].to(torch.int32), pad])
+    else:
+        row_idx = torch.arange(N, dtype=torch.int32, device=dev)
+        win = min_drop(torch.full((M,), IPOS, dtype=torch.int32, device=dev),
+                       torch.where(has_rank, op_slot, M), row_idx)
+    op_is_dup = (ops["dup_row"] != 0) & has_rank
+    is_node_slot = win < N
+    pf = ops["parent_sl"].to(torch.int32)
+    af = ops["at_sl"].to(torch.int32)
+    return (op_slot, op_is_dup, is_node_slot, win,
+            pf >> 1, af >> 1, (pf & 1) != 0, (af & 1) != 0)
+
+
+def host_no_deletes(kind) -> bool:
+    """The host-side check behind the no-deletes specialisation: True
+    only for a host-resident kind column with no Delete row."""
+    if isinstance(kind, torch.Tensor):
+        if kind.device.type != "cpu":
+            return False
+        kind = kind.numpy()
+    return isinstance(kind, np.ndarray) and \
+        not bool(np.any(kind == KIND_DELETE))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    names another.  With no card and no explicit device this raises —
+    it never falls back to the CPU quietly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain "
+                "PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def materialize(ops: Dict, hints: str = "exhaustive", device=None,
+                probe: Optional[int] = None):
+    """ops arrays (``codec.packed.PackedOps.arrays()``: numpy columns, or
+    tensors) → :class:`NodeTable` on ``device`` (default: the card).
+
+    ``hints="exhaustive"`` trusts the producer's hint coverage, as the
+    reference does for vouched batches; the batch must carry the derived
+    slot hints.  ``probe=k`` (1-7, and the stage-5 sub-cuts 41-43) stops
+    after stage k and returns the reference's cumulative checksum
+    instead of a table."""
+    if hints != "exhaustive":
+        raise NotImplementedError(
+            f"hints={hints!r} is not ported yet; only 'exhaustive' is. "
+            f"See {PORT_QUEUE}.")
+    if not all(k in ops for k in SLOT_HINTS + ("ts_rank",)):
+        raise NotImplementedError(
+            "a batch without the derived slot hints (PackedOps.arrays() of "
+            f"a vouched batch) needs the sort+join construction; see "
+            f"{PORT_QUEUE}.")
+    dev = resolve_device(device)
+    no_deletes = host_no_deletes(ops["kind"])
+    from ..convert import ops_from_numpy
+    t_ops = ops_from_numpy({k: ops[k] for k in MERGE_COLS if k in ops}, dev)
+    if t_ops["kind"].shape[0] + 2 > 2**30:
+        raise ValueError("op count exceeds the 2^30 - 2 slot space")
+    sel = _resolve(t_ops)
+    acc = _probe_sum(*sel) if probe is not None else None
+    if probe == 1:
+        return acc
+    return _finish(t_ops, sel, no_deletes, probe, acc)

@@ -1,0 +1,48 @@
+"""The run-to-token rank expansion (merge stage 6).
+
+``monotone_gather(values, rid)`` is ``values[:, rid]`` for i32
+``values[V, R]`` and i32 ``rid[T]``; in the merge ``rid`` is the
+nondecreasing run id of each enter token.  On CUDA tensors it runs
+``csrc/mono_gather.cu`` (the port of the reference's Pallas
+``mono_gather._kernel``); on CPU tensors its plain twin (the reference's
+``_lax_gather``, JAX's index clamp included).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .indexing import jax_index
+
+
+def plain_gather(values: torch.Tensor, rid: torch.Tensor) -> torch.Tensor:
+    """Twin: ``values[:, rid]`` with JAX's wrap-then-clamp."""
+    return values[:, jax_index(rid, values.shape[1])]
+
+
+def monotone_gather(values: torch.Tensor, rid: torch.Tensor) -> torch.Tensor:
+    """``values[:, rid]``: the CUDA kernel on CUDA tensors, the twin on
+    CPU tensors (any other device raises)."""
+    if values.device.type == "cpu":
+        return plain_gather(values, rid)
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    from ..kernels import build
+    if values.dtype != torch.int32 or values.dim() != 2 or \
+            not values.is_contiguous() or values.shape[0] < 1 or \
+            values.shape[1] < 1:
+        raise ValueError("values must be a contiguous non-empty int32 [V, R]")
+    if rid.dtype != torch.int32 or rid.dim() != 1 or \
+            not rid.is_contiguous() or rid.device != values.device:
+        raise ValueError("rid must be a contiguous int32 [T] on the "
+                         "values' device")
+    lib = build.load()
+    v, r = values.shape
+    t = rid.shape[0]
+    out = torch.empty((v, t), dtype=torch.int32, device=values.device)
+    if t:
+        build.check(lib.crdt_monotone_gather(
+            values.data_ptr(), v, r, rid.data_ptr(), t, out.data_ptr(),
+            build.stream_ptr(values.device)), "crdt_monotone_gather")
+        kernels.launches["monotone_gather"] += 1
+    return out

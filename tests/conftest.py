@@ -49,6 +49,10 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 gate (-m 'not slow'); run ad hoc "
         "for acceptance-scale workloads (e.g. the 1M-op serving soak)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's kernels); skips "
+        "without one")
 
 
 @_pytest.fixture(autouse=True)
