@@ -10,15 +10,21 @@ package; the modules it needs from there are copies (``core``, ``codec``,
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``), where each kernel's plain PyTorch twin runs instead.
+``init(replica)`` builds a replica engine (``engine.TpuTree``) whose bulk
+merges run on the card; ``CRDTree`` is the sequential oracle.
 """
+from .core import timestamp
 from .core.errors import (AlreadyApplied, CRDTError, CheckpointError,
                           InvalidPathError, NotFound, OperationFailedError)
 from .core.operation import Add, Batch, Delete, Operation
+from .core.tree import CRDTree, DONE, TAKE
+from .engine import TpuTree, init
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Add", "AlreadyApplied", "Batch", "CRDTError", "CheckpointError",
-    "Delete", "InvalidPathError", "NotFound", "Operation",
-    "OperationFailedError",
+    "Add", "AlreadyApplied", "Batch", "CRDTError", "CRDTree",
+    "CheckpointError", "DONE", "Delete", "InvalidPathError", "NotFound",
+    "Operation", "OperationFailedError", "TAKE", "TpuTree", "init",
+    "timestamp",
 ]

@@ -3,7 +3,8 @@
     python -m crdt_graph_tpu_torch.bench.profile [--ops N] [--replicas R]
 
 Runs the config-5 chain join (``workloads.chain_workload``) through
-``ops.merge.materialize`` on the CUDA device and reports, as one JSON
+``ops.merge.materialize`` in the vouched ``hints="exhaustive"`` mode on
+the CUDA device and reports, as one JSON
 line (also written to ``build/profile_merge.json``):
 
 - ``stage_ms``: the honest p50 of the ``probe=k`` cut for k = 1..7 and of
@@ -62,18 +63,20 @@ def run(n_ops: int, n_replicas: int, repeats: int = 7) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     out["h2d_ms"] = sorted(times)[len(times) // 2]
 
+    def merge_once(probe=None):
+        return merge.materialize(arrs, hints="exhaustive", device=dev,
+                                 probe=probe)
+
     stage = {}
     for k in (1, 2, 3, 4, 5, 6, 7, None):
-        fn = (lambda k=k: torch.tensor(merge.materialize(arrs, device=dev,
-                                                         probe=k))) \
-            if k is not None else (lambda: merge.materialize(arrs,
-                                                             device=dev))
+        fn = (lambda k=k: torch.tensor(merge_once(k))) \
+            if k is not None else merge_once
         stage["full" if k is None else str(k)] = \
             honest.time_with_readback(fn, repeats=repeats)["p50_ms"]
     out["stage_ms"] = stage
 
     merge.host_syncs = 0
-    merge.materialize(arrs, device=dev)
+    merge_once()
     torch.cuda.synchronize()
     out["host_syncs"] = merge.host_syncs
 
@@ -83,7 +86,7 @@ def run(n_ops: int, n_replicas: int, repeats: int = 7) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
-            merge.materialize(arrs, device=dev)
+            merge_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}

@@ -1,14 +1,16 @@
 """State carried across between the two packages.
 
 This system's "weights" are data: a packed op batch going in and a
-``NodeTable`` coming out.  These functions move both between numpy (what
-the JAX package takes and returns on the host) and the port's tensors,
-column for column with the dtypes unchanged, so the two packages'
-results compare field by field.
+``NodeTable`` coming out, and a replica's state (its op log, clocks and
+cursor).  These functions move them between numpy (what the JAX package
+takes and returns on the host) and the port's tensors, column for column
+with the dtypes unchanged, so the two packages' results compare field by
+field.  A replica's binary checkpoint (``engine.write_packed_npz``) is
+the same file in both packages and restores in either.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -40,3 +42,31 @@ def table_from_numpy(d, device) -> NodeTable:
         (lambda f: getattr(d, f))
     return NodeTable(**{
         f: torch.from_numpy(np.array(get(f))).to(device) for f in FIELDS})
+
+
+LOG_COLS = ("kind", "ts", "parent_ts", "anchor_ts", "depth", "paths",
+            "value_ref", "pos", "parent_pos", "anchor_pos", "target_pos",
+            "ts_rank")
+
+
+def replica_state_to_numpy(tree) -> Dict[str, Any]:
+    """A replica engine's state as numpy arrays and plain values: clocks,
+    cursor, the applied log's packed columns (its real rows), its value
+    table and the last apply's applied mask.  Reads only the engine's
+    public surface, so it takes a replica of either package."""
+    p = tree.packed_state()
+    n = p.num_ops
+    out: Dict[str, Any] = {
+        "replica": int(tree.replica_id),
+        "timestamp": int(tree.timestamp),
+        "cursor": tuple(int(c) for c in tree.cursor),
+        "clocks": {int(r): int(tree.last_replica_timestamp(r))
+                   for r in np.unique(p.ts[:n] >> 32).tolist()},
+        "log_length": int(tree.log_length),
+        "values": list(p.values),
+        "last_applied_mask": (None if tree.last_applied_mask is None else
+                              np.asarray(tree.last_applied_mask, bool)),
+    }
+    for k in LOG_COLS:
+        out["log_" + k] = np.asarray(getattr(p, k))[:n]
+    return out

@@ -1,5 +1,8 @@
-"""Operation model shared with the reference package (copies)."""
-from . import operation, timestamp
+"""The sequential oracle (``CRDTree``) and the operation model — copies
+of the reference package's ``core``, so the port holds its engine to
+the same oracle with no JAX installed."""
+from . import node, operation, timestamp
 from .errors import (AlreadyApplied, CRDTError, InvalidPath, InvalidPathError,
                      NotFound, OperationFailedError)
 from .operation import Add, Batch, Delete, Operation
+from .tree import CRDTree, DONE, TAKE, init

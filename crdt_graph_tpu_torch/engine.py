@@ -1,0 +1,1196 @@
+"""The replica engine: an array-backed CRDTree on the card.
+
+The port of the reference package's ``engine`` (``TpuTree``).  The
+replica keeps its state the semilattice way — the state IS the operation
+set, and the tree is a materialised view — and two materialisation paths
+share that state, split by delta size:
+
+- **Batched merge** (``ops.merge.materialize``) for large deltas —
+  anti-entropy catch-up, bulk merges — on the replica's device: the card
+  unless the caller names another.  The device is resolved once, at
+  construction, and every bulk merge runs there; there is no quiet CPU
+  fallback.
+- **Host mirror** (``host_tree.HostTree``) for small deltas
+  (``DELTA_THRESHOLD``) and every interactive read: the reference's own
+  per-op application on mutable slot arrays, so a 1-op delta on an
+  n-op document costs O(delta).  It runs on the host on every platform,
+  exactly as in the reference; after a bulk merge the mirror is rebuilt
+  from the ``NodeTable`` in one vectorised pass.
+
+API parity: method names and semantics mirror the oracle ``CRDTree``
+(``core.tree``) and the reference engine — local edits stamp
+``replica_id * 2**32 + counter`` timestamps and move the cursor, remote
+``apply`` does not, ``operations_since`` serves pull-based anti-entropy,
+redelivery is absorbed, and a failing remote batch raises without
+mutating state.  ``TpuTree`` is a MUTABLE container.
+
+Not ported yet (ROADMAP.md, 'PyTorch/CUDA port queue'): the native wire
+codec (the engine takes the reference's own no-native paths), op-log
+tiering, the WAL, the persisted materialization (matz) and
+``checkpoint_tiered``/``restore_tiered``; those entry points raise
+``NotImplementedError``.  The reference's ops-axis route (several
+devices sharing one merge) is off on one device and gives the same table
+there, so every merge here is the single-device ``materialize``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import struct
+import zipfile
+import zlib
+from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .codec import json_codec
+from .codec import packed as packed_mod
+from .codec.packed import DEFAULT_MAX_DEPTH, PackedOps
+from .core import operation as op_mod
+from .core import timestamp as ts_mod
+from .core.errors import (CheckpointError, InvalidPathError, NotFound,
+                          OperationFailedError)
+from .core.operation import Add, Batch, Delete, Operation
+from .host_tree import NIL, HostTree
+from .oplog import (EMPTY_BATCH_BYTES, TIERING_QUEUE, OpLog, PackedBatch,
+                    ViewSpanBatch)
+from .ops import merge as merge_mod
+from .ops import view as view_mod
+from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
+
+# deltas at or under this many leaves apply host-side in O(delta); larger
+# ones re-materialise through the batched merge
+DELTA_THRESHOLD = 256
+
+
+def _mode(p: PackedOps) -> Optional[str]:
+    """Merge hint mode for a packed batch: "exhaustive" when this
+    engine's own ingest vouched for hint completeness (pack/concat
+    provenance — auto and exhaustive are then semantically identical,
+    and exhaustive runs neither the sort nor the join); the verified
+    auto mode (None) otherwise, e.g. for a restored checkpoint whose
+    hint columns were defaulted.
+
+    A violated vouch silently mis-resolves references (that is the
+    mode's contract), so ``GRAFT_DEBUG_VOUCH=1`` arms the reference's
+    host-side tripwire: every vouched batch is re-audited before it
+    reaches the exhaustive mode, and its cached slot hints are checked
+    against a fresh derivation."""
+    if not p.hints_vouched:
+        return None
+    if os.environ.get("GRAFT_DEBUG_VOUCH"):
+        if not packed_mod.verify_hints(p):
+            raise RuntimeError(
+                "hints_vouched batch failed the host hint audit — a "
+                "producer (pack/concat/restore) broke the vouch "
+                "invariant; the exhaustive mode would silently "
+                "mis-resolve")
+        if p.slot_hints is not None:
+            fresh = packed_mod.derive_slot_hints(
+                {k: getattr(p, k) for k in
+                 ("kind", "ts", "parent_ts", "anchor_ts", "depth",
+                  "paths", "parent_pos", "anchor_pos", "target_pos",
+                  "ts_rank")})
+            if any(not np.array_equal(p.slot_hints.get(k), fresh[k])
+                   for k in fresh):
+                raise RuntimeError(
+                    "cached slot-hint columns diverge from the audited "
+                    "base columns — stale derivation cache; the fused "
+                    "exhaustive resolution would silently mis-resolve")
+    return "exhaustive"
+
+
+class StaleNodeView(RuntimeError):
+    """A TableNode outlived the state it points into.
+
+    Mirror slots are append-only, so views survive host-path edits; a
+    bulk merge compacts and reassigns slots, and using a view across one
+    would silently read a DIFFERENT node, so it fails loudly instead.
+    Re-fetch with ``tree.get(node.path)``."""
+
+
+class TableNode:
+    """Read-only node view over the host mirror — the engine-side
+    counterpart of the oracle ``Node`` facade: value, timestamp, path
+    accessors and visible-children traversal, resolved from the mirror's
+    slot arrays without any device round-trip.  A bulk merge invalidates
+    views (see :class:`StaleNodeView`)."""
+
+    __slots__ = ("_tree", "_slot", "_gen")
+
+    def __init__(self, tree: "TpuTree", slot: int):
+        self._tree = tree
+        self._slot = slot
+        self._gen = tree._generation
+
+    def _check(self) -> None:
+        if self._gen != self._tree._generation:
+            raise StaleNodeView(
+                "node view predates the last bulk merge; re-fetch it "
+                "with tree.get(path)")
+
+    def _mirror(self) -> HostTree:
+        self._check()
+        return self._tree._ensure_mirror()
+
+    @property
+    def timestamp(self) -> int:
+        m = self._mirror()
+        if self.is_root or self._slot < 0:
+            return 0
+        return int(m.ts[self._slot])
+
+    @property
+    def path(self) -> Tuple[int, ...]:
+        if self._slot < 0:
+            # the one shared branch-head sentinel answers () wherever it
+            # was reached (oracle parity, core/node.py sentinel)
+            return ()
+        return self._mirror().path_of(self._slot)
+
+    @property
+    def is_root(self) -> bool:
+        return self._slot == 0
+
+    @property
+    def is_deleted(self) -> bool:
+        """Tombstoned directly OR gone with a deleted ancestor branch."""
+        if self._slot < 0:
+            return True      # the branch-head sentinel IS a tombstone
+        m = self._mirror()
+        return bool(m.tomb[self._slot]) or m.is_dead(self._slot)
+
+    @property
+    def value(self) -> Any:
+        """Value unless deleted or root."""
+        m = self._mirror()
+        if self.is_root or self.is_deleted:
+            return None
+        return m.values[int(m.value_ref[self._slot])]
+
+    def children(self) -> List["TableNode"]:
+        """Visible children in document order."""
+        return [TableNode(self._tree, s) for s in self._child_slots()]
+
+    def _child_slots(self):
+        m = self._mirror()
+        if not self.is_root and self.is_deleted:
+            return iter(())
+        return m.iter_visible_children(self._slot)
+
+    # -- traversal combinators over THIS node's children ------------------
+
+    def foldl(self, func: Callable[["TableNode", Any], Any],
+              acc: Any) -> Any:
+        for s in self._child_slots():
+            acc = func(TableNode(self._tree, s), acc)
+        return acc
+
+    def foldr(self, func: Callable[["TableNode", Any], Any],
+              acc: Any) -> Any:
+        for s in reversed(list(self._child_slots())):
+            acc = func(TableNode(self._tree, s), acc)
+        return acc
+
+    def map(self, func: Callable[["TableNode"], Any]) -> List[Any]:
+        return [func(TableNode(self._tree, s)) for s in self._child_slots()]
+
+    def filter_map(self, func: Callable[["TableNode"], Any]) -> List[Any]:
+        out = []
+        for s in self._child_slots():
+            v = func(TableNode(self._tree, s))
+            if v is not None:
+                out.append(v)
+        return out
+
+    def loop(self, func: Callable[["TableNode", Any], Tuple[str, Any]],
+             acc: Any) -> Any:
+        """Left fold with early exit: ``func`` returns ("take", acc) to
+        continue or ("done", acc) to stop."""
+        for s in self._child_slots():
+            step, acc = func(TableNode(self._tree, s), acc)
+            if step == "done":
+                return acc
+        return acc
+
+    def find(self, pred: Callable[["TableNode"], bool]
+             ) -> Optional["TableNode"]:
+        """First CHAIN member matching ``pred`` — tombstones are
+        candidates too, as in the reference's raw ``find``."""
+        m = self._mirror()
+        if not self.is_root and self.is_deleted:
+            return None
+        for s in m.iter_siblings(self._slot):
+            n = TableNode(self._tree, s)
+            if pred(n):
+                return n
+        return None
+
+    def head(self) -> Optional["TableNode"]:
+        for s in self._child_slots():
+            return TableNode(self._tree, s)
+        return None
+
+    def last(self) -> Optional["TableNode"]:
+        out = None
+        for s in self._child_slots():
+            out = s
+        return TableNode(self._tree, out) if out is not None else None
+
+    def descendant(self, path: Sequence[int]) -> Optional["TableNode"]:
+        """Node at ``path`` relative to this node, by child timestamps:
+        can land ON a tombstone but not descend through one."""
+        if not path:
+            return None
+        m = self._mirror()
+        if not self.is_root and self.is_deleted:
+            return None
+        cur = self._slot
+        for i, ts in enumerate(path):
+            if i > 0 and m.tomb[cur]:
+                return None
+            s = m.ts2slot.get(int(ts))
+            if s is None or m.parent[s] != cur:
+                return None
+            cur = s
+        return TableNode(self._tree, int(cur))
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, TableNode) and other._slot == self._slot \
+            and other._tree is self._tree and other._gen == self._gen
+
+    def __hash__(self) -> int:
+        return hash((id(self._tree), self._slot, self._gen))
+
+    def __repr__(self) -> str:
+        if self.is_root:
+            return "TableNode(root)"
+        try:
+            return (f"TableNode(ts={self.timestamp}, path={self.path}, "
+                    f"value={self.value!r})")
+        except StaleNodeView:
+            return f"TableNode(stale, slot={self._slot})"
+
+
+class TpuTree:
+    """Array-backed replica whose bulk merges run on ``device`` (see the
+    module docstring).  ``device=None`` is the card; with no card it
+    raises, and ``device="cpu"`` runs the kernels' plain twins."""
+
+    def __init__(self, replica: int, max_depth: int = DEFAULT_MAX_DEPTH,
+                 device=None):
+        self.device = merge_mod.resolve_device(device)
+        self._replica = replica
+        self._timestamp = ts_mod.make(replica, 0)
+        self._cursor: Tuple[int, ...] = (0,)
+        self._log = OpLog()
+        self._replicas: dict = {}
+        self._last_operation: Operation = Batch(())
+        self._max_depth = max_depth
+        self._table: Optional[NodeTable] = None
+        self._packed: Optional[PackedOps] = None
+        self._mirror: Optional[HostTree] = None
+        self._batch_depth = 0
+        # bumped whenever mirror slots are reassigned (bulk merges)
+        self._generation = 0
+        # per-leaf applied mask of the last successful apply
+        self._last_applied_mask: Optional[np.ndarray] = None
+
+    # -- identity / clocks -------------------------------------------------
+
+    @property
+    def replica_id(self) -> int:
+        return self._replica
+
+    @property
+    def id(self) -> int:
+        return self._replica
+
+    @property
+    def timestamp(self) -> int:
+        return self._timestamp
+
+    @property
+    def cursor(self) -> Tuple[int, ...]:
+        return self._cursor
+
+    @property
+    def last_operation(self) -> Operation:
+        return self._last_operation
+
+    @property
+    def last_applied_mask(self) -> Optional[np.ndarray]:
+        """Boolean per-leaf mask over the last successful
+        ``apply``/``apply_packed`` batch, in submitted order: True where
+        the leaf APPLIED, False where it absorbed as a duplicate."""
+        return self._last_applied_mask
+
+    @property
+    def log_length(self) -> int:
+        return len(self._log)
+
+    def next_timestamp(self) -> int:
+        return self._timestamp + 1
+
+    def last_replica_timestamp(self, replica: int) -> int:
+        return self._replicas.get(replica, 0)
+
+    # -- the materialised view ---------------------------------------------
+
+    def _materialize(self, p: PackedOps) -> NodeTable:
+        """One bulk merge of a candidate packing, on this replica's
+        device, in the hint mode its provenance allows."""
+        return merge_mod.materialize(p.arrays(), hints=_mode(p),
+                                     device=self.device)
+
+    def table(self) -> NodeTable:
+        """The converged node table (host numpy), re-materialised lazily
+        from the op log.  A bulk ingest parks the DEVICE table here after
+        reading back only its status slice; the full host copy is paid
+        on first read of the document, then cached."""
+        if self._table is None:
+            self._table = self._materialize(self._ensure_packed())
+        if not isinstance(self._table.status, np.ndarray):
+            self._table = view_mod.to_host(self._table)
+        return self._table
+
+    def _ensure_mirror(self) -> HostTree:
+        """The host mirror, built lazily: from the table when one is
+        materialised, through the bulk merge for big logs, by sequential
+        replay for small ones."""
+        if self._mirror is None:
+            if self._table is None and len(self._log) <= DELTA_THRESHOLD:
+                m = HostTree(self._max_depth)
+                for op in self._log:
+                    if isinstance(op, Add):
+                        m.apply_add(op.ts, tuple(op.path), op.value)
+                    else:
+                        m.apply_delete(tuple(op.path))
+                m.journal.clear()
+                self._mirror = m
+            else:
+                self._mirror = HostTree.from_table(
+                    self.table(), self._ensure_packed().values,
+                    self._max_depth)
+        return self._mirror
+
+    def _stale_device(self) -> None:
+        """Host-path edit: the device view no longer matches the log;
+        the mirror (and outstanding views) stay valid."""
+        self._table = None
+        self._packed = None
+
+    def _invalidate(self) -> None:
+        """Full invalidation: slots will be reassigned — views go stale."""
+        self._table = None
+        self._packed = None
+        self._mirror = None
+        self._generation += 1
+
+    # -- remote application ------------------------------------------------
+
+    def apply(self, operation: Operation) -> "TpuTree":
+        """Apply a remote operation/batch atomically; cursor unmoved.
+
+        Small deltas (≤ DELTA_THRESHOLD leaves) apply sequentially on the
+        host mirror, rolled back via the undo journal on failure, with
+        SEQUENCE semantics; large deltas go through :meth:`_apply_bulk`
+        (host-first when small relative to the document, the bulk merge
+        over the whole candidate log otherwise), with SET semantics for a
+        valid add set.  Duplicates and edits under deleted branches are
+        absorbed; any NotFound/InvalidPath raises and leaves the replica
+        untouched."""
+        leaves = list(op_mod.iter_leaves(operation))
+        if not leaves:
+            self._last_operation = Batch(())
+            self._last_applied_mask = np.zeros(0, dtype=bool)
+            return self
+        if len(leaves) <= DELTA_THRESHOLD:
+            applied = self._apply_host(leaves)
+        else:
+            applied = self._apply_bulk(leaves)
+        self._last_operation = (
+            applied[0] if len(leaves) == 1 and applied
+            else Batch(tuple(applied)))
+        # the clock advances once per Add carrying our own replica id —
+        # absorbed duplicates and remote-delivered ones included
+        own_adds = sum(1 for op in leaves
+                       if isinstance(op, Add)
+                       and ts_mod.replica_id(op.ts) == self._replica)
+        self._timestamp += own_adds
+        return self
+
+    def enable_log_tiering(self, dir: str, **kw) -> "TpuTree":
+        self._log.enable_tiering(dir, **kw)      # not ported yet: raises
+        return self
+
+    def begin_commit(self) -> tuple:
+        """Snapshot the pre-commit state one commit's rollback needs."""
+        return (len(self._log), self._timestamp, dict(self._replicas),
+                self._last_operation)
+
+    def rollback_commit(self, saved: tuple) -> None:
+        """Undo everything since :meth:`begin_commit`: truncate the log,
+        restore clocks and provenance, invalidate the view."""
+        n0, timestamp, replicas, last_op = saved
+        self._log.truncate(n0)
+        self._timestamp = timestamp
+        self._replicas = replicas
+        self._last_operation = last_op
+        self._invalidate()
+
+    def log_view(self):
+        """A reference-stable :class:`~crdt_graph_tpu_torch.oplog.LogView`
+        of the applied log."""
+        return self._log.view(self._max_depth)
+
+    def _apply_host(self, leaves: List[Operation]) -> List[Operation]:
+        """Sequential host-path apply; the first failure rolls everything
+        back and raises (the oracle stops there too)."""
+        m = self._ensure_mirror()
+        sp = m.savepoint()
+        applied: List[Operation] = []
+        mask = np.zeros(len(leaves), dtype=bool)
+        for i, op in enumerate(leaves):
+            if isinstance(op, Add):
+                st = m.apply_add(op.ts, tuple(op.path), op.value)
+            else:
+                st = m.apply_delete(tuple(op.path))
+            if st == NOT_FOUND:
+                m.rollback(sp)
+                raise OperationFailedError(op)
+            if st == INVALID_PATH:
+                m.rollback(sp)
+                raise InvalidPathError(f"invalid path in {op!r}")
+            if st == APPLIED:
+                applied.append(op)
+                mask[i] = True
+        self._record(applied)
+        self._last_applied_mask = mask
+        if applied:
+            self._stale_device()
+        if self._batch_depth == 0:
+            m.journal.clear()
+        return applied
+
+    def _apply_bulk(self, leaves: List[Operation]) -> List[Operation]:
+        """Bulk (> DELTA_THRESHOLD) apply: a delta that is small against
+        the document tries the O(delta) host mirror first (what causally
+        ordered anti-entropy delivers); only when sequential application
+        fails, or the delta rivals the document, does it take the bulk
+        merge's set-join over log+delta."""
+        if len(leaves) < max(4 * DELTA_THRESHOLD, len(self._log) // 8):
+            try:
+                return self._apply_host(leaves)
+            except (OperationFailedError, InvalidPathError):
+                pass    # rolled back; retry as an unordered set
+        return self._apply_kernel(leaves)
+
+    def apply_wire(self, payload) -> "TpuTree":
+        """Remote apply straight from wire JSON (str or bytes).  The
+        native column parser is not ported, so this is the reference's
+        no-native path: decode to op objects, then :meth:`apply`."""
+        text = payload.decode() if isinstance(payload, bytes) else payload
+        return self.apply(json_codec.loads(text))
+
+    def apply_packed(self, pnew: PackedOps) -> "TpuTree":
+        """Remote apply from already-packed columns."""
+        # below the bulk crossover, keep apply()'s sequence-semantics
+        # routing (host path / host-first)
+        if not self.packed_route(pnew.num_ops):
+            return self.apply(op_mod.from_list(packed_mod.unpack(pnew)))
+        p = self.prepare_packed(pnew)
+        return self.finish_packed(pnew, p, self._materialize(p))
+
+    def packed_route(self, n: int) -> bool:
+        """True when a packed delta of ``n`` leaves takes the bulk merge;
+        False routes through :meth:`apply`'s object path."""
+        return n >= max(4 * DELTA_THRESHOLD, len(self._log) // 8)
+
+    def prepare_packed(self, pnew: PackedOps) -> PackedOps:
+        """Stage 1 of the staged bulk apply: the candidate column set
+        (current log ∪ delta) whose merge yields the new view."""
+        return packed_mod.concat(self._ensure_packed(), pnew)
+
+    def finish_packed(self, pnew: PackedOps, p: PackedOps,
+                      table: NodeTable) -> "TpuTree":
+        """Stage 2 of the staged bulk apply: per-op status check, clock
+        bookkeeping, columnar log commit, and view parking.  Only the
+        delta's status slice is read back from the device table.  Raises
+        exactly what :meth:`apply` raises, leaving the replica
+        untouched."""
+        n = pnew.num_ops
+        n0 = len(self._log)
+        st = table.status[n0:n0 + n]
+        st = st.cpu().numpy() if not isinstance(st, np.ndarray) else st
+        failing = np.nonzero((st == NOT_FOUND) | (st == INVALID_PATH))[0]
+        if failing.size:
+            k = int(failing[0])
+            bad = packed_mod.unpack_rows(pnew, k, k + 1)[0]
+            if st[k] == NOT_FOUND:
+                raise OperationFailedError(bad)
+            raise InvalidPathError(f"invalid path in {bad!r}")
+
+        # vectorized clocks: LAST-APPLIED-WINS per replica, and a Delete
+        # updates the TARGET timestamp's replica (the packed ts column
+        # holds exactly that per kind)
+        kind = pnew.kind[:n]
+        ts_col = pnew.ts[:n]
+        idx = np.nonzero(st == APPLIED)[0]
+        ts_eff = ts_col[idx]
+        rids = ts_eff >> 32
+        uniq, inv = np.unique(rids, return_inverse=True)
+        last = np.zeros(uniq.size, np.int64)
+        np.maximum.at(last, inv, np.arange(idx.size))
+        for k in range(uniq.size):
+            self._replicas[int(uniq[k])] = int(ts_eff[last[k]])
+
+        if idx.size == n:
+            self._log.extend_packed(pnew)
+            self._last_operation = PackedBatch(pnew)
+            self._commit_view(True, p, table)
+        elif idx.size:
+            sel = packed_mod.select_rows(pnew, idx)
+            self._log.extend_packed(sel)
+            self._last_operation = PackedBatch(sel)
+            self._commit_view(False, p, table)
+        else:
+            self._last_operation = Batch(())
+        # own-op clock: every own-replica Add in the BATCH advances it
+        self._timestamp += int(np.sum(
+            (kind == packed_mod.KIND_ADD) &
+            ((ts_col >> 32) == self._replica)))
+        self._last_applied_mask = np.asarray(st == APPLIED)
+        return self
+
+    def apply_packed_chunked(self, pnew: PackedOps,
+                             chunk_ops: int) -> "TpuTree":
+        """:meth:`apply_packed` with the work split into row chunks of at
+        most ``chunk_ops`` leaves.  Atomic: a failing chunk rolls the
+        log, clocks and view back to the pre-call state, then the whole
+        batch is retried single-shot.  On success the converged state
+        equals the single-shot apply."""
+        n = pnew.num_ops
+        if n <= chunk_ops or not self.packed_route(n):
+            return self.apply_packed(pnew)
+        n0 = len(self._log)
+        saved = (self._timestamp, dict(self._replicas),
+                 self._last_operation)
+        masks: List[np.ndarray] = []
+        try:
+            for s in range(0, n, chunk_ops):
+                chunk = packed_mod.select_rows(
+                    pnew, np.arange(s, min(s + chunk_ops, n)))
+                self.apply_packed(chunk)
+                masks.append(self._last_applied_mask)
+        except (OperationFailedError, InvalidPathError):
+            self._log.truncate(n0)
+            (self._timestamp, self._replicas,
+             self._last_operation) = saved
+            self._invalidate()
+            return self.apply_packed(pnew)
+        mask = np.concatenate(masks) if masks else np.zeros(0, bool)
+        applied = int(mask.sum())
+        if applied == n:
+            self._last_operation = PackedBatch(pnew)
+        elif applied:
+            self._last_operation = PackedBatch(
+                packed_mod.select_rows(pnew, np.nonzero(mask)[0]))
+        else:
+            self._last_operation = Batch(())
+        self._last_applied_mask = mask
+        return self
+
+    def _apply_kernel(self, leaves: List[Operation]) -> List[Operation]:
+        p = packed_mod.concat(self._ensure_packed(),
+                              packed_mod.pack(leaves,
+                                              max_depth=self._max_depth))
+        table = self._materialize(p)
+        n0 = len(self._log)
+        st = table.status[n0:n0 + len(leaves)].cpu().numpy()
+        failing = np.nonzero((st == NOT_FOUND) | (st == INVALID_PATH))[0]
+        if failing.size:
+            # the FIRST failing op in batch order, by its own error
+            k = int(failing[0])
+            if st[k] == NOT_FOUND:
+                raise OperationFailedError(leaves[k])
+            raise InvalidPathError(f"invalid path in {leaves[k]!r}")
+        applied = [op for op, s in zip(leaves, st) if s == APPLIED]
+        self._commit(applied, len(leaves) == len(applied), p, table)
+        self._last_applied_mask = np.asarray(st == APPLIED)
+        return applied
+
+    def _record(self, applied: List[Operation]) -> None:
+        for op in applied:
+            ts = op_mod.op_timestamp(op)
+            if ts is not None:
+                self._replicas[ts_mod.replica_id(ts)] = ts
+        self._log.extend(applied)
+
+    def _commit(self, applied: List[Operation], all_applied: bool,
+                p: PackedOps, table: NodeTable) -> None:
+        self._record(applied)
+        if applied:
+            self._commit_view(all_applied, p, table)
+
+    def _commit_view(self, all_applied: bool, p: PackedOps,
+                     table: NodeTable) -> None:
+        """A fully-applied batch's candidate packing == the new log
+        packing, so the view is reused (mirror slots are reassigned —
+        outstanding views go stale); a partial apply re-materialises
+        from the log on next read."""
+        if all_applied:
+            self._table, self._packed = table, p
+            self._mirror = None
+            self._generation += 1
+        else:
+            self._invalidate()
+
+    # -- local edits -------------------------------------------------------
+
+    def add(self, value: Any) -> "TpuTree":
+        return self.add_after(self._cursor, value)
+
+    def add_after(self, path: Sequence[int], value: Any) -> "TpuTree":
+        op = Add(self.next_timestamp(), tuple(path), value)
+        self._apply_local(op)
+        return self
+
+    def add_branch(self, value: Any) -> "TpuTree":
+        self.add(value)
+        self._cursor = self._cursor + (0,)
+        return self
+
+    def delete(self, path: Sequence[int]) -> "TpuTree":
+        path = tuple(path)
+        prev_path = self._predecessor_path(path)
+        self._apply_local(Delete(path))
+        if self._slot_at(prev_path) is not None or prev_path == path:
+            self._cursor = prev_path
+        return self
+
+    def batch(self, funcs: Iterable[Callable[["TpuTree"], "TpuTree"]]
+              ) -> "TpuTree":
+        """Atomic local batch; accumulated last_operation like the
+        oracle."""
+        log_len0 = len(self._log)
+        saved = (self._timestamp, self._cursor,
+                 dict(self._replicas), self._last_operation)
+        m0 = self._ensure_mirror()
+        sp = m0.savepoint()
+        self._last_operation = Batch(())
+        acc: List[Operation] = []
+        self._batch_depth += 1
+        try:
+            for f in funcs:
+                f(self)
+                acc.extend(op_mod.to_list(self._last_operation))
+        except Exception:
+            self._log.truncate(log_len0)
+            (self._timestamp, self._cursor,
+             self._replicas, self._last_operation) = saved
+            if self._mirror is m0 and len(m0.journal) >= sp:
+                # every edit since the savepoint was host-path
+                m0.rollback(sp)
+                self._stale_device()
+            else:
+                # a bulk merge replaced the mirror mid-batch
+                self._invalidate()
+            raise
+        finally:
+            self._batch_depth -= 1
+        if self._batch_depth == 0 and self._mirror is not None:
+            self._mirror.journal.clear()
+        self._last_operation = Batch(tuple(acc))
+        return self
+
+    def _apply_local(self, op: Operation) -> None:
+        saved_cursor = self._cursor
+        self.apply(op)
+        ts = op_mod.op_timestamp(op)
+        # cursor follows local edits; absorbed ops leave it in place
+        if ts is not None and isinstance(op, (Add, Delete)):
+            if op_mod.to_list(self._last_operation):
+                self._cursor = tuple(op.path[:-1]) + (ts,)
+            else:
+                self._cursor = saved_cursor
+
+    def _predecessor_path(self, path: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Predecessor for post-delete cursor placement, matching the
+        reference's search: the nearest visible predecessor, or the first
+        tombstone of a leading tombstone run, or the target's own path
+        when it heads the chain."""
+        m = self._ensure_mirror()
+        if path and path[-1] == 0:
+            # the branch-head sentinel: the delete absorbs, cursor stays
+            return path
+        idx = m.get_slot(tuple(path))
+        if idx is not None and m.tomb[idx]:
+            return path
+        if idx is None:
+            # missing or dead target: the root branch's last chain member
+            # with no visible successor
+            chain = list(m.iter_siblings(0))
+            vis = [s for s in chain if not m.tomb[s]]
+            if vis:
+                return m.path_of(vis[-1])
+            return m.path_of(chain[0]) if chain else path
+        p = m.prev_for(idx)
+        return m.path_of(p) if p is not None else path
+
+    # -- anti-entropy ------------------------------------------------------
+
+    def operations_since(self, initial_timestamp: int) -> Operation:
+        """Anti-entropy suffix (inclusive ``since`` terminator)."""
+        if initial_timestamp == 0:
+            return self._log.as_batch()
+        start = self._log.index_of_add(initial_timestamp)
+        if start is None:
+            return Batch(())
+        return op_mod.from_list(
+            self._log.materialize(start, len(self._log)))
+
+    def dumps_since_bytes(self, initial_timestamp: int) -> bytes:
+        """Wire JSON bytes for ``operations_since`` — the reference's
+        no-native path, encoded from the object log."""
+        return json_codec.dumps(
+            self.operations_since(initial_timestamp)).encode()
+
+    def dumps_since(self, initial_timestamp: int) -> str:
+        return self.dumps_since_bytes(initial_timestamp).decode()
+
+    # -- queries -----------------------------------------------------------
+
+    def _slot_at(self, path: Tuple[int, ...]) -> Optional[int]:
+        return self._ensure_mirror().get_slot(tuple(path))
+
+    def get_value(self, path: Sequence[int]) -> Any:
+        """Value at path; None if missing, deleted, or under a deleted
+        branch."""
+        m = self._ensure_mirror()
+        s = m.get_slot(tuple(path))
+        if s is None or s == 0 or m.tomb[s]:
+            return None
+        return m.values[int(m.value_ref[s])]
+
+    def _ensure_packed(self) -> PackedOps:
+        p = self._packed
+        if p is None:
+            p = self._packed = self._log.to_packed(self._max_depth)
+        return p
+
+    def packed_state(self) -> PackedOps:
+        """The whole applied log as one packed column set (cached between
+        edits); treat as IMMUTABLE."""
+        return self._ensure_packed()
+
+    def visible_values(self) -> List[Any]:
+        """Visible values in document order — the render path."""
+        m = self._ensure_mirror()
+        return [m.values[int(m.value_ref[s])] for s in m.iter_visible()]
+
+    # -- node views and traversal -------------------------------------------
+
+    def root(self) -> TableNode:
+        return TableNode(self, 0)
+
+    def get(self, path: Sequence[int]) -> Optional[TableNode]:
+        """Node at ``path`` (tombstones included) or None.  A trailing-0
+        path addresses the branch-head SENTINEL, which exists under the
+        root and under every live node."""
+        path = tuple(path)
+        if path and path[-1] == 0:
+            if len(path) == 1:
+                return TableNode(self, -1)
+            m = self._ensure_mirror()
+            s = m.get_slot(path[:-1])
+            if s is not None and s != 0 and not m.tomb[s]:
+                return TableNode(self, -1)
+            return None
+        slot = self._slot_at(path)
+        return TableNode(self, slot) if slot is not None else None
+
+    def parent(self, node: TableNode) -> Optional[TableNode]:
+        node._check()
+        if node.is_root:
+            return None
+        if node._slot < 0:
+            return TableNode(self, 0)
+        return TableNode(self, int(self._ensure_mirror().parent[node._slot]))
+
+    def next(self, node: TableNode) -> Optional[TableNode]:
+        """Next visible sibling; none in a deleted branch."""
+        node._check()
+        m = self._ensure_mirror()
+        if node.is_root or node._slot < 0 or m.is_dead(node._slot):
+            return None
+        s = m.nxt[node._slot]
+        while s != NIL and m.tomb[s]:
+            s = m.nxt[s]
+        return TableNode(self, int(s)) if s != NIL else None
+
+    def prev(self, node: TableNode) -> Optional[TableNode]:
+        """Previous sibling, reference-faithfully: the nearest visible
+        predecessor, else the FIRST tombstone of a leading run."""
+        node._check()
+        m = self._ensure_mirror()
+        if node.is_root or node._slot < 0 or m.is_dead(node._slot):
+            return None
+        p = m.prev_for(node._slot)
+        return TableNode(self, p) if p is not None else None
+
+    def walk(self, func: Callable[[TableNode, Any], Tuple[str, Any]],
+             acc: Any, start: Optional[TableNode] = None) -> Any:
+        """Resumable depth-first fold over visible nodes in document
+        order, with early exit; ``start`` is exclusive."""
+        if start is not None:
+            start._check()
+        m = self._ensure_mirror()
+        if start is None or start.is_root:
+            it = m.iter_visible()
+        elif m.is_dead(start._slot):
+            return acc
+        else:
+            it = m.iter_visible_after(start._slot)
+        for s in it:
+            step, acc = func(TableNode(self, s), acc)
+            if step == "done":
+                return acc
+        return acc
+
+    def visible_paths(self) -> List[tuple]:
+        m = self._ensure_mirror()
+        return [m.path_of(s) for s in m.iter_visible()]
+
+    def move_cursor_up(self) -> "TpuTree":
+        if len(self._cursor) > 1:
+            self._cursor = self._cursor[:-1]
+        return self
+
+    def set_cursor(self, path: Sequence[int]) -> "TpuTree":
+        path = tuple(path)
+        if self.get(path) is None:
+            raise NotFound(f"no node at {path!r}")
+        self._cursor = path
+        return self
+
+    def __len__(self) -> int:
+        return self._ensure_mirror().count_visible()
+
+    def __repr__(self) -> str:
+        return (f"TpuTree(replica={self._replica}, ops={len(self._log)}, "
+                f"ts={self._timestamp}, device={self.device})")
+
+    # -- interop / persistence ---------------------------------------------
+
+    def to_oracle(self):
+        """Replay into a full-API oracle ``CRDTree`` (persistent value)."""
+        from .core.tree import CRDTree
+        tree = CRDTree.init(self._replica)
+        tree = tree.apply(self.operations_since(0))
+        return tree._replace(timestamp=self._timestamp,
+                             cursor=self._cursor)
+
+    def checkpoint(self, path: str) -> None:
+        """Persist the replica as JSON: the op log plus clocks and cursor
+        (the reference's format).  Values must be JSON-encodable."""
+        state = {
+            "replica": self._replica,
+            "timestamp": self._timestamp,
+            "cursor": list(self._cursor),
+            "replicas": {str(k): v for k, v in self._replicas.items()},
+            "log": json_codec.encode(Batch(tuple(self._log))),
+            "last_operation": json_codec.encode(self._last_operation),
+            "max_depth": self._max_depth,
+        }
+        with open(path, "w") as f:
+            json.dump(state, f)
+
+    @staticmethod
+    def restore(path: str, device=None) -> "TpuTree":
+        with open(path) as f:
+            state = json.load(f)
+        tree = TpuTree(state["replica"], max_depth=state["max_depth"],
+                       device=device)
+        tree._log = OpLog(json_codec.decode(state["log"]).ops)
+        tree._timestamp = state["timestamp"]
+        tree._cursor = tuple(state["cursor"])
+        tree._replicas = {int(k): v for k, v in state["replicas"].items()}
+        tree._last_operation = json_codec.decode(state["last_operation"])
+        return tree
+
+    def checkpoint_packed(self, path, compress: bool = True) -> None:
+        """Binary checkpoint: the packed op columns plus clocks, written
+        with numpy in the reference's format (byte-compatible both ways).
+        ``path`` may be a binary file-like object."""
+        p = self._ensure_packed()
+        meta = {
+            "replica": self._replica,
+            "timestamp": self._timestamp,
+            "cursor": list(self._cursor),
+            "replicas": {str(k): v for k, v in self._replicas.items()},
+            "max_depth": self._max_depth,
+            "num_ops": p.num_ops,
+            "hints_vouched": p.hints_vouched,
+        }
+        self._last_op_meta(meta)
+        write_packed_npz(path, p, meta, compress=compress)
+
+    def _last_op_meta(self, meta: dict) -> None:
+        """Stamp ``last_operation`` provenance into a checkpoint ``meta``:
+        the row SPAN when the last operation is the log's tail, else the
+        encoded operation."""
+        lo = self._last_operation
+        if isinstance(lo, ViewSpanBatch):
+            meta["last_op_span"] = [lo._start, lo._stop]
+            meta["last_op_bare"] = False
+        elif isinstance(lo, PackedBatch) and self._log.tail_is(lo):
+            meta["last_op_span"] = [len(self._log) - lo.num_leaves,
+                                    len(self._log)]
+            meta["last_op_bare"] = False
+        else:
+            leaves = op_mod.to_list(lo)
+            k = len(leaves)
+            tail = self._log[len(self._log) - k:] if k else []
+            if len(tail) == k and (
+                    all(a is b for a, b in zip(leaves, tail))
+                    or leaves == tail):
+                meta["last_op_span"] = [len(self._log) - k, len(self._log)]
+                meta["last_op_bare"] = not isinstance(lo, Batch)
+            else:
+                meta["last_operation"] = json_codec.encode(lo)
+
+    @staticmethod
+    def restore_packed(path, replica: Optional[int] = None,
+                       device=None) -> "TpuTree":
+        """Rebuild a tree from ``checkpoint_packed`` output (this
+        package's or the reference's); ``path`` may be a binary
+        file-like.  ``replica`` adopts a NEW identity for the restored
+        tree (the snapshot-bootstrap contract).  A corrupt or
+        hand-edited file raises :class:`CheckpointError`."""
+        if replica is not None:
+            ts_mod.make(replica, 0)
+        dev = merge_mod.resolve_device(device)
+        try:
+            p, meta, last_op = TpuTree._load_packed_parts(path)
+        except (zipfile.BadZipFile, zlib.error, KeyError, IndexError,
+                ValueError, TypeError, AttributeError,
+                NotImplementedError, EOFError, struct.error) as e:
+            raise CheckpointError(
+                f"corrupt or unreadable checkpoint: "
+                f"{type(e).__name__}: {e}") from e
+        return TpuTree._assemble_restored(p, meta, last_op, replica, dev)
+
+    @staticmethod
+    def _load_packed_parts(path):
+        """Load + parse + validate a packed checkpoint: everything whose
+        failure means "corrupt/truncated/hand-edited file".  Returns
+        ``(p, meta, last_op)`` with every meta field assembly touches
+        already type-checked."""
+        z = np.load(path)
+        meta = json.loads(bytes(z["meta"]).decode())
+        n = meta.get("num_ops")
+        if not isinstance(n, int) or isinstance(n, bool) or \
+                not (0 <= n <= int(z["kind"].shape[0])):
+            raise ValueError(
+                f"meta num_ops {n!r} inconsistent with "
+                f"column length {int(z['kind'].shape[0])}")
+
+        def _int(name, value):
+            if not isinstance(value, int) or isinstance(value, bool):
+                raise ValueError(f"meta {name} {value!r} is not an integer")
+            return value
+
+        ts_mod.make(_int("replica", meta["replica"]), 0)
+        _int("timestamp", meta["timestamp"])
+        if _int("max_depth", meta["max_depth"]) < 1:
+            raise ValueError(f"meta max_depth {meta['max_depth']!r} < 1")
+        if not isinstance(meta["cursor"], list):
+            raise ValueError(f"meta cursor {meta['cursor']!r} not a list")
+        meta["cursor"] = [_int("cursor entry", c) for c in meta["cursor"]]
+        if not isinstance(meta["replicas"], dict):
+            raise ValueError("meta replicas is not a mapping")
+        meta["replicas"] = {int(k): _int("clock", v)
+                            for k, v in meta["replicas"].items()}
+        last_op = None
+        if "last_op_span" in meta:
+            span = meta["last_op_span"]
+            if not (isinstance(span, list) and len(span) == 2):
+                raise ValueError(f"meta last_op_span {span!r} malformed")
+            s, e = (_int("last_op_span", x) for x in span)
+            if not (0 <= s <= e <= n):
+                raise ValueError(f"meta last_op_span {span!r} outside "
+                                 f"the {n}-op log")
+        else:
+            last_op = json_codec.decode(meta["last_operation"])
+
+        # files hold exactly num_ops rows; re-pad to the capacity bucket
+        cols = {k: z[k] for k in
+                ("kind", "ts", "parent_ts", "anchor_ts", "depth",
+                 "paths", "value_ref", "pos")}
+        for k in ("parent_pos", "anchor_pos", "target_pos", "ts_rank"):
+            if k in z.files:
+                cols[k] = z[k]
+        cols = packed_mod.pad_arrays(cols, packed_mod._bucket(max(n, 1)))
+        p = PackedOps(
+            kind=cols["kind"], ts=cols["ts"],
+            parent_ts=cols["parent_ts"],
+            anchor_ts=cols["anchor_ts"], depth=cols["depth"],
+            paths=cols["paths"],
+            value_ref=cols["value_ref"], pos=cols["pos"],
+            values=json.loads(bytes(z["values"]).decode()),
+            num_ops=n,
+            # older checkpoints lack hint columns: defaulted -1, and the
+            # merge's verified auto mode takes the sort+join
+            parent_pos=cols.get("parent_pos"),
+            anchor_pos=cols.get("anchor_pos"),
+            target_pos=cols.get("target_pos"),
+            ts_rank=cols.get("ts_rank"),
+            hints_vouched=bool(meta.get("hints_vouched", False)))
+        # the vouch rides in the same file as the columns it vouches
+        # for: re-verify on host before honoring it, and rebuild the
+        # hints rather than demote on failure
+        if p.hints_vouched and not packed_mod.verify_hints(p):
+            packed_mod.rebuild_hints(p)
+        if last_op is None and meta.get("last_op_bare"):
+            s, e = meta["last_op_span"]
+            if e - s == 1:
+                last_op = packed_mod.unpack_rows(p, s, e)[0]
+        return p, meta, last_op
+
+    @staticmethod
+    def _assemble_restored(p, meta, last_op, replica, device) -> "TpuTree":
+        """Build the tree from validated parts — outside the
+        corrupt-checkpoint translation."""
+        rid = meta["replica"] if replica is None else replica
+        tree = TpuTree(rid, max_depth=meta["max_depth"], device=device)
+        tree._log = OpLog()
+        tree._log.extend_packed(p)
+        tree._packed = p
+        tree._cursor = tuple(meta["cursor"])
+        tree._replicas = dict(meta["replicas"])
+        if rid == meta["replica"]:
+            tree._timestamp = meta["timestamp"]
+        else:
+            # a new identity restarts its clock at its own last timestamp
+            # seen in the log, never at the writer's
+            tree._timestamp = max(ts_mod.make(rid, 0),
+                                  tree._replicas.get(rid, 0))
+        if last_op is not None:
+            tree._last_operation = last_op
+        else:
+            s, e = meta["last_op_span"]
+            tree._last_operation = PackedBatch(p, s, e)
+        return tree
+
+    def checkpoint_tiered(self, dir: str, write_matz: bool = True) -> str:
+        raise NotImplementedError(
+            f"checkpoint_tiered is not ported yet; see {TIERING_QUEUE}")
+
+    @staticmethod
+    def restore_tiered(dir: str, replica: Optional[int] = None,
+                       use_matz: bool = True, **tier_kw) -> "TpuTree":
+        raise NotImplementedError(
+            f"restore_tiered is not ported yet; see {TIERING_QUEUE}")
+
+    def write_matz(self) -> bool:
+        raise NotImplementedError(
+            f"the persisted materialization (matz) is not ported yet; "
+            f"see {TIERING_QUEUE}")
+
+
+def packed_since_bytes(p: PackedOps, initial_timestamp: int) -> bytes:
+    """Anti-entropy wire JSON straight off packed columns: the suffix
+    from the Add matching ``initial_timestamp`` (inclusive; 0 = full
+    log; no match = empty batch).  The reference's no-native path: the
+    rows unpack and encode through the JSON codec."""
+    n = p.num_ops
+    if initial_timestamp == 0:
+        start = 0
+    else:
+        start = p.index().get(initial_timestamp)
+        if start is None or start >= n:
+            return EMPTY_BATCH_BYTES
+    return json_codec.dumps(op_mod.from_list(
+        packed_mod.unpack_rows(p, start, n))).encode()
+
+
+def packed_since_window(p: PackedOps, initial_timestamp: int,
+                        limit: int = 0):
+    """Bounded, resumable anti-entropy window over the packed log:
+    ``(wire_bytes, {"found", "more", "next_since", "count"})`` with the
+    reference's trimming rules (windows end on their last Add; an
+    all-delete window extends through the next Add; an all-delete tail
+    ships with its window).  ``limit`` ≤ 0 serves the unbounded
+    suffix."""
+    n = p.num_ops
+    if initial_timestamp == 0:
+        start = 0
+    else:
+        start = p.index().get(initial_timestamp)
+        if start is None or start >= n:
+            return EMPTY_BATCH_BYTES, {"found": False, "more": False,
+                                       "next_since": None, "count": 0}
+    if start >= n:
+        return EMPTY_BATCH_BYTES, {"found": True, "more": False,
+                                   "next_since": None, "count": 0}
+    stop = n
+    if 0 < limit < n - start:
+        kinds = p.kind
+        window_adds = np.nonzero(
+            kinds[start:start + limit] == packed_mod.KIND_ADD)[0]
+        # the window must contain an Add BEYOND the resume terminator, or
+        # the chain would re-serve the same window forever
+        if len(window_adds) and (initial_timestamp == 0
+                                 or int(window_adds[-1]) > 0):
+            stop = start + int(window_adds[-1]) + 1
+        else:
+            later = np.nonzero(
+                kinds[start + limit:n] == packed_mod.KIND_ADD)[0]
+            stop = start + limit + int(later[0]) + 1 if len(later) else n
+        if stop < n and not np.any(kinds[stop:n] == packed_mod.KIND_ADD):
+            stop = n
+    if stop >= n:
+        body = packed_since_bytes(p, initial_timestamp)
+        stop = n
+    else:
+        sub = packed_mod.select_rows(p, np.arange(start, stop))
+        body = packed_since_bytes(sub, 0)
+    served_adds = np.nonzero(p.kind[start:stop] == packed_mod.KIND_ADD)[0]
+    next_since = int(p.ts[start + int(served_adds[-1])]) \
+        if len(served_adds) else None
+    return body, {"found": True, "more": stop < n,
+                  "next_since": next_since, "count": stop - start}
+
+
+def write_packed_npz(path, p: PackedOps, meta: dict,
+                     compress: bool = True) -> None:
+    """Write the packed-checkpoint npz format: ``p``'s real rows plus a
+    JSON ``meta`` sidecar — the reference's format, field for field.
+    ``path`` may be a filesystem path or a binary file-like."""
+    f = path if hasattr(path, "write") else open(path, "wb")
+    n = p.num_ops
+    try:
+        (np.savez_compressed if compress else np.savez)(
+            f, kind=p.kind[:n], ts=p.ts[:n],
+            parent_ts=p.parent_ts[:n],
+            anchor_ts=p.anchor_ts[:n], depth=p.depth[:n],
+            paths=p.paths[:n], value_ref=p.value_ref[:n],
+            pos=p.pos[:n], parent_pos=p.parent_pos[:n],
+            anchor_pos=p.anchor_pos[:n], target_pos=p.target_pos[:n],
+            ts_rank=p.ts_rank[:n],
+            values=np.frombuffer(json.dumps(p.values).encode(), np.uint8),
+            meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+    finally:
+        if f is not path:
+            f.close()
+
+
+def init(replica: int, max_depth: int = DEFAULT_MAX_DEPTH,
+         device=None) -> TpuTree:
+    """Build a replica whose bulk merges run on ``device`` (default the
+    card; it raises without one)."""
+    return TpuTree(replica, max_depth=max_depth, device=device)
+
+
+restore = TpuTree.restore

@@ -1,12 +1,18 @@
 """The batched semilattice join: N operations → converged node table.
 
-The port of ``crdt_graph_tpu.ops.merge`` (the JAX reference) for its
-production mode: a vouched batch (``PackedOps.arrays()`` with the derived
-slot hints) merged with ``hints="exhaustive"``.  The same packed columns
-give the same ``NodeTable``, field for field and dtype for dtype; the
-reference's module docstring states the algorithm (RGA order as the DFS
-pre-order of the min-ancestor forest, Euler tour, run-contracted list
-ranking), and the stage numbers in the comments below are its stages.
+The port of ``crdt_graph_tpu.ops.merge`` (the JAX reference), every hint
+mode of it: the same packed columns give the same ``NodeTable``, field
+for field and dtype for dtype; the reference's module docstring states
+the algorithm (RGA order as the DFS pre-order of the min-ancestor
+forest, Euler tour, run-contracted list ranking), and the stage numbers
+in the comments below are its stages.
+
+Hint modes, as in the reference: ``"exhaustive"`` trusts the producer's
+hints (a vouched batch with the derived slot hints resolves every
+reference elementwise); ``None``/``"auto"`` uses the rank and link hints
+but verifies them on the device and falls back to the sort+join
+construction when any is wrong (one counted predicate read, and one
+count in :data:`fallbacks`); ``"join"`` ignores every hint.
 
 What changes on the way from JAX to PyTorch:
 
@@ -21,16 +27,13 @@ What changes on the way from JAX to PyTorch:
   (``amin``, ``index_add_``), exact under any write order.
 - The v5e-only int64 bit splitting goes: Hopper has native int64, so the
   node-frame paths stay one i64 plane (split + repack is the identity).
-- The 3-key sibling sort becomes one sort of a packed int64 key.
+- The 3-key sibling sort becomes one sort of a packed int64 key, and the
+  stable 2-key ``(hi, lo)`` timestamp sort one stable sort of the int64
+  timestamps themselves (the same order: the split is order-preserving).
 - The four Pallas kernels of the path (the node-frame plane gathers, the
   tour prefix sums, the run expansion) are hand-written CUDA kernels on
   the card (``ops.fused_resolve``, ``ops.tour_scan``, ``ops.mono_gather``)
   and their plain PyTorch twins on the CPU.
-
-Of the reference's construction legs only the production one is here:
-the slot-hinted resolution with the fused two-hop node frame.  The
-``auto``/``join`` hint modes and their sort+join fallback are not ported
-yet (ROADMAP.md, PyTorch/CUDA port queue).
 """
 from __future__ import annotations
 
@@ -62,18 +65,24 @@ R_CAP_DEFAULT = 1 << 15   # run-pipeline compact width
 S_CAP2_DEFAULT = 1 << 12  # second (tiny) compact levels
 R_CAP2_DEFAULT = 1 << 12
 
+HINT_MODES = (None, "auto", "exhaustive", "join")
 SLOT_HINTS = ("parent_sl", "at_sl", "anchor_psl", "dup_row")
-# the columns this merge reads; the rest of a batch (the position hints,
-# parent_ts) never leaves the host
+LINK_HINTS = ("parent_pos", "anchor_pos", "target_pos")
+# the columns every leg reads
+BASE_COLS = ("kind", "ts", "parent_ts", "anchor_ts", "depth", "paths",
+             "value_ref", "pos")
+# the columns the slot-hinted exhaustive leg reads; the rest of a batch
+# (the position hints, parent_ts) never leaves the host
 MERGE_COLS = ("kind", "ts", "anchor_ts", "depth", "paths", "value_ref",
               "pos", "ts_rank") + SLOT_HINTS + (
                   "win_row", "parent_row", "crowd_slot", "crowd_cpos")
-PORT_QUEUE = ("ROADMAP.md, 'PyTorch/CUDA port' queue item 1 (the auto/join "
-              "hint modes with their sort+join fallback)")
 
 # Device→host reads of loop and branch predicates since the last reset:
 # each is one stream synchronisation on the card.
 host_syncs = 0
+# Verified-hint merges whose verification failed and which took the
+# sort+join construction instead, since the last reset.
+fallbacks = 0
 
 
 def _env_cap(name: str, default: int) -> int:
@@ -201,8 +210,13 @@ def _sib_links(kp, gg, neg, M: int):
 
 def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             probe: Optional[int], acc: Optional[int]):
-    """Stages 3-13 from the resolution tuple (reference ``_finish``, its
-    fused slot-hint leg with every round-7 cut on)."""
+    """Stages 3-13 from the resolution 10-tuple (reference ``_finish``,
+    with every round-7 cut on).  A resolution that leaves ``node_ts`` and
+    ``node_pos`` as None is the fused slot-hint leg: both come from the
+    node-frame plane gather.  Otherwise (the ranked, link-hinted and
+    sort+join legs) they are given, the plane carries no extras, the
+    parent frame is a row gather through ``pslot`` and the anchor's
+    parent a plain index."""
     kind = ops["kind"]
     dev = kind.device
     ts = ops["ts"].to(torch.int64)
@@ -221,22 +235,26 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     cols = torch.arange(D, **i32)[None, :]
     is_add = kind == KIND_ADD
     is_del = kind == KIND_DELETE
-    (op_slot, op_is_dup, is_node_slot, node_row,
+    (op_slot, op_is_dup, node_ts, node_pos, is_node_slot, node_row,
      pp_slot, at_slot, pp_found, at_found) = sel
+    fused = node_ts is None
     single_w = no_deletes
 
     # ---- 3. Node frame: every per-node field is the canonical source
-    # row's op field, gathered through ``node_row`` in ONE plane sweep;
-    # with ``parent_row`` on the plane the same sweep also fetches each
-    # node's parent row (the second hop) — kernel 2, ``plane_rows2``.
+    # row's op field, gathered through ``node_row`` in ONE plane sweep —
+    # kernel 1, ``plane_rows``; on the fused leg with ``parent_row`` on
+    # the plane the same sweep also fetches each node's parent row (the
+    # second hop) — kernel 2, ``plane_rows2``.
     nsr = torch.where(is_node_slot, node_row, 0)
     dsv_src = _pack_u((depth << 1) | (anchor_ts == 0).to(torch.int32),
                       value_ref)
     pa = _pack_u((pp_slot << 1) | pp_found.to(torch.int32),
                  (at_slot << 1) | at_found.to(torch.int32))
-    ap_src = _pack_u(ops["anchor_psl"].to(torch.int32), pos)
-    extra = [ap_src[:, None], ts[:, None]]
-    fused2 = "parent_row" in ops
+    extra = []
+    if fused:
+        ap_src = _pack_u(ops["anchor_psl"].to(torch.int32), pos)
+        extra = [ap_src[:, None], ts[:, None]]
+    fused2 = fused and "parent_row" in ops
     if fused2:
         extra.append(ops["parent_row"].to(torch.int64)[:, None])
     HOP_COL = 2 + len(extra) - 1
@@ -249,13 +267,14 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         g, g2 = fused_resolve.plane_rows(plane, nsr), None
     k = 2 + len(extra)
     dsv, pa_g, claimed_raw = g[:, 0], g[:, 1], g[:, k:]
-    ap_g, ts_g = g[:, 2], g[:, 3]
-    node_ts = torch.where(is_node_slot, ts_g, BIG)
-    node_ts[ROOT] = 0
-    node_pos = torch.where(is_node_slot,
-                           (ap_g & 0xFFFFFFFF).to(torch.int32), IPOS)
-    ansl = torch.where(is_node_slot, (ap_g >> 32).to(torch.int32),
-                       NULL << 1)
+    if fused:
+        ap_g, ts_g = g[:, 2], g[:, 3]
+        node_ts = torch.where(is_node_slot, ts_g, BIG)
+        node_ts[ROOT] = 0
+        node_pos = torch.where(is_node_slot,
+                               (ap_g & 0xFFFFFFFF).to(torch.int32), IPOS)
+        ansl = torch.where(is_node_slot, (ap_g >> 32).to(torch.int32),
+                           NULL << 1)
     node_depth = torch.where(is_node_slot, (dsv >> 33).to(torch.int32), 0)
     node_depth[ROOT] = 0
     node_anchor_is_sentinel = is_node_slot & (((dsv >> 32) & 1) != 0)
@@ -304,7 +323,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     depth_ok = (node_depth >= 1) & (node_depth <= D) & \
         (node_depth == par_depth + 1)
     parent_ok = pfound & depth_ok & prefix_ok
-    anchor_parent = ansl >> 1
+    anchor_parent = ansl >> 1 if fused else pslot[aslot.long()]
     anchor_ok = node_anchor_is_sentinel | \
         (afound & (anchor_parent == pslot) & (aslot != ROOT))
     local_ok = is_node_slot & (node_ts > 0) & parent_ok & anchor_ok
@@ -425,7 +444,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     skey = torch.where(in_forest, order_parent, NULL).to(torch.int32)
     neg_slot = torch.where(in_forest, -slot_ids, IPOS).to(torch.int32)
     S_CAP = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT)
-    crowd_hinted = no_deletes and "crowd_slot" in ops and \
+    crowd_hinted = fused and no_deletes and "crowd_slot" in ops and \
         "crowd_cpos" in ops and hostenv.flag_on("GRAFT_CROWD_HINTS")
     if S_CAP >= M:
         sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
@@ -720,35 +739,221 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         status=status)
 
 
-def _resolve(ops: Dict[str, torch.Tensor]):
-    """Stages 1-2 of the slot-hinted exhaustive mode: every reference
-    resolves elementwise from the host-derived slot hints; the winner
-    frame is the host-elected ``win_row`` (or, without it, the
-    scatter-min over ranked rows)."""
+def _node_cols_from_row(node_row, src_ts, src_pos, M: int, N: int):
+    """Node-frame columns gathered through each slot's canonical source
+    row (reference ``_node_cols_from_row``): unused slots read ts BIG and
+    pos IPOS, the root ts 0."""
+    is_node_slot = node_row < N
+    wc = torch.where(is_node_slot, node_row, 0).long()
+    node_ts = torch.where(is_node_slot, src_ts[wc], BIG)
+    node_ts[0] = 0
+    node_pos = torch.where(is_node_slot, src_pos[wc], IPOS)
+    return is_node_slot, node_ts, node_pos.to(torch.int32)
+
+
+def _sorted_slots(is_add, ts, pos, N: int, M: int):
+    """Sort-based slot assignment (reference ``_sorted_slots_impl``):
+    the first six entries of the resolution tuple plus the sorted
+    timestamp axis the join needs.
+
+    The reference's stable sort of the ``(hi, lo)`` int32 halves is one
+    stable sort of the int64 timestamps (the split preserves order;
+    equal timestamps keep batch order, ``BIG`` sorts last).  Its
+    ``cummax`` of run-start indices is the last run start so far: the
+    c-th run start, c the running count of starts — a cumsum and one
+    scatter, exactly."""
+    dev = ts.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    NULL = M - 1
+    sort_ts = torch.where(is_add & (ts > 0), ts, BIG)
+    sorted_ts, sorted_idx = torch.sort(sort_ts, stable=True)
+    sorted_idx = sorted_idx.to(torch.int32)
+    run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           sorted_ts[1:] != sorted_ts[:-1]])
+    not_big = sorted_ts < BIG
+    is_canon = run_start & not_big
+    c = torch.cumsum(run_start.to(torch.int32), 0, dtype=torch.int32)
+    ar = torch.arange(N, **i32)
+    starts = set_drop(torch.zeros(N, **i32),
+                      torch.where(run_start, c - 1, N), ar)
+    slot_of_sorted = starts[(c - 1).long()] + 1
+    perm = sorted_idx.long()
+    op_slot = torch.empty(N, **i32)
+    op_slot[perm] = torch.where(not_big, slot_of_sorted, NULL).to(torch.int32)
+    op_is_dup = torch.empty(N, dtype=torch.bool, device=dev)
+    op_is_dup[perm] = ~run_start & not_big
+    node_row = set_drop(torch.full((M,), IPOS, **i32),
+                        torch.where(is_canon, slot_of_sorted, M), sorted_idx)
+    is_node_slot, node_ts, node_pos = _node_cols_from_row(
+        node_row, sort_ts, pos, M, N)
+    return (op_slot, op_is_dup, node_ts, node_pos, is_node_slot,
+            node_row), sorted_ts
+
+
+def _join_ops(sorted_ts, parent_ts, at_ts, N: int, M: int):
+    """Per-op sort-merge join (reference ``_join_ops_impl``): the parent
+    and the fused anchor-or-target references against the sorted add
+    axis, by binary search."""
+    queries = torch.cat([parent_ts, at_ts])
+    qidx = torch.searchsorted(sorted_ts, queries, side="left")
+    qidx_c = torch.clamp(qidx, max=N - 1)
+    qhit = (sorted_ts[qidx_c] == queries) & (queries > 0) & (queries < BIG)
+    qslot = torch.where(queries == 0, 0,
+                        torch.where(qhit, qidx_c + 1, M - 1)).to(torch.int32)
+    qfound = (queries == 0) | qhit
+    return qslot[:N], qslot[N:], qfound[:N], qfound[N:]
+
+
+def _res_hint(hint, want, slot_or_neg, ts, N: int, M: int, check_ts: bool):
+    """One link-hint resolution (reference ``_res_hint_impl``): the slot
+    of the add row the hint points at, verified against the referenced
+    timestamp when ``check_ts``; ``miss`` flags a nonzero reference
+    without a verified hint."""
+    p = torch.clamp(hint, 0, N - 1).long()
+    sp = slot_or_neg[p]
+    ok = (hint >= 0) & (sp >= 0) & (want > 0) & (want < BIG)
+    if check_ts:
+        ok = ok & (ts[p] == want)
+    slot = torch.where(want == 0, 0, torch.where(ok, sp, M - 1))
+    miss = (want > 0) & (want < BIG) & ~ok
+    return slot.to(torch.int32), (want == 0) | ok, miss
+
+
+def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str):
+    """Stages 1-2: slot assignment and timestamp→slot resolution, the
+    leg chosen as the reference chooses it (merge.py ``_materialize``).
+
+    - slot-hinted (``"exhaustive"`` with the derived slot hints): every
+      reference resolves elementwise; node ts/pos come later from the
+      fused plane gather (returned as None);
+    - ranked (rank and link hints): slot = rank + 1, the winner frame a
+      scatter-min, each link one gather; under ``None``/``"auto"`` the
+      ranks and links are verified and a failure takes the sort+join;
+    - link-hinted (link hints, no ranks): sorted slots, hinted links,
+      the join only when some link misses;
+    - hint-free (``"join"``, or no hint columns): sorted slots and the
+      join.
+
+    ``leg`` is :func:`select_leg` of the caller's columns.  Each
+    verification is ONE predicate read back to the host."""
+    global fallbacks
     kind = ops["kind"]
     dev = kind.device
     ts = ops["ts"].to(torch.int64)
+    pos = ops["pos"].to(torch.int32)
     N = kind.shape[0]
     M = N + 2
     NULL = M - 1
+    i32 = dict(dtype=torch.int32, device=dev)
     is_add = kind == KIND_ADD
-    rank = ops["ts_rank"].to(torch.int32)
-    is_real_add = is_add & (ts > 0) & (ts < BIG)
-    has_rank = is_real_add & (rank >= 0) & (rank < N)
-    op_slot = torch.where(has_rank, rank + 1, NULL).to(torch.int32)
-    if "win_row" in ops:
-        pad = torch.full((1,), IPOS, dtype=torch.int32, device=dev)
-        win = torch.cat([pad, ops["win_row"].to(torch.int32), pad])
-    else:
-        row_idx = torch.arange(N, dtype=torch.int32, device=dev)
-        win = min_drop(torch.full((M,), IPOS, dtype=torch.int32, device=dev),
+    is_del = kind == KIND_DELETE
+    if leg == "slot":
+        rank = ops["ts_rank"].to(torch.int32)
+        is_real_add = is_add & (ts > 0) & (ts < BIG)
+        has_rank = is_real_add & (rank >= 0) & (rank < N)
+        op_slot = torch.where(has_rank, rank + 1, NULL).to(torch.int32)
+        if "win_row" in ops:
+            pad = torch.full((1,), IPOS, **i32)
+            win = torch.cat([pad, ops["win_row"].to(torch.int32), pad])
+        else:
+            win = min_drop(torch.full((M,), IPOS, **i32),
+                           torch.where(has_rank, op_slot, M),
+                           torch.arange(N, **i32))
+        op_is_dup = (ops["dup_row"] != 0) & has_rank
+        pf = ops["parent_sl"].to(torch.int32)
+        af = ops["at_sl"].to(torch.int32)
+        return (op_slot, op_is_dup, None, None, win < N, win,
+                pf >> 1, af >> 1, (pf & 1) != 0, (af & 1) != 0)
+
+    parent_ts = ops["parent_ts"].to(torch.int64)
+    anchor_ts = ops["anchor_ts"].to(torch.int64)
+    at_ts = torch.where(is_add, anchor_ts, ts)
+
+    def sorted_ops():
+        slots, sorted_ts = _sorted_slots(is_add, ts, pos, N, M)
+        return slots + _join_ops(sorted_ts, parent_ts, at_ts, N, M)
+
+    def resolve_hinted(op_slot_arr):
+        son = torch.where(is_add, op_slot_arr, -1).to(torch.int32)
+        check = hints != "exhaustive"
+        pp = _res_hint(ops["parent_pos"].to(torch.int32), parent_ts, son,
+                       ts, N, M, check)
+        at_hint = torch.where(is_add, ops["anchor_pos"].to(torch.int32),
+                              ops["target_pos"].to(torch.int32))
+        at = _res_hint(at_hint, at_ts, son, ts, N, M, check)
+        return pp, at
+
+    if leg == "rank":
+        rank = ops["ts_rank"].to(torch.int32)
+        is_real_add = is_add & (ts > 0) & (ts < BIG)
+        has_rank = is_real_add & (rank >= 0) & (rank < N)
+        op_slot = torch.where(has_rank, rank + 1, NULL).to(torch.int32)
+        row_idx = torch.arange(N, **i32)
+        # canonical copy = min array row per slot (first array row wins)
+        win = min_drop(torch.full((M,), IPOS, **i32),
                        torch.where(has_rank, op_slot, M), row_idx)
-    op_is_dup = (ops["dup_row"] != 0) & has_rank
-    is_node_slot = win < N
-    pf = ops["parent_sl"].to(torch.int32)
-    af = ops["at_sl"].to(torch.int32)
-    return (op_slot, op_is_dup, is_node_slot, win,
-            pf >> 1, af >> 1, (pf & 1) != 0, (af & 1) != 0)
+        is_canon_op = has_rank & (row_idx == win[op_slot.long()])
+        op_is_dup = has_rank & ~is_canon_op
+        is_node_slot, node_ts, node_pos = _node_cols_from_row(
+            win, ts, pos, M, N)
+        ((pp_slot, pp_found, pp_miss),
+         (at_slot, at_found, at_miss)) = resolve_hinted(op_slot)
+        ranked = (op_slot, op_is_dup, node_ts, node_pos, is_node_slot, win,
+                  pp_slot, at_slot, pp_found, at_found)
+        if hints == "exhaustive":
+            return ranked
+        # the four rank properties hold iff ts_rank is exactly the
+        # unique-add-timestamp rank; plus every link verified
+        used = is_node_slot
+        dense_ok = torch.all(~used[2:M - 1] | used[1:M - 2])
+        incr_ok = torch.all(torch.where(used[1:M - 1] & used[2:M],
+                                        node_ts[1:M - 1] < node_ts[2:M],
+                                        True))
+        ts_match = torch.all(torch.where(
+            has_rank, node_ts[torch.clamp(op_slot, 0, M - 1).long()] == ts,
+            True))
+        all_ranked = torch.all(~is_real_add | has_rank)
+        link_miss = torch.any(pp_miss) | torch.any(at_miss & (is_add | is_del))
+        hints_ok = dense_ok & incr_ok & ts_match & all_ranked & ~link_miss
+        if _read(hints_ok):
+            return ranked
+        fallbacks += 1
+        return sorted_ops()
+    if leg == "link":
+        slots, sorted_ts = _sorted_slots(is_add, ts, pos, N, M)
+        ((pp_slot, pp_found, pp_miss),
+         (at_slot, at_found, at_miss)) = resolve_hinted(slots[0])
+        resolution = (pp_slot, at_slot, pp_found, at_found)
+        if hints != "exhaustive":
+            any_miss = torch.any(pp_miss) | \
+                torch.any(at_miss & (is_add | is_del))
+            if _read(any_miss):
+                fallbacks += 1
+                resolution = _join_ops(sorted_ts, parent_ts, at_ts, N, M)
+        return slots + tuple(resolution)
+    return sorted_ops()
+
+
+def select_leg(ops: Dict, hints: Optional[str]) -> str:
+    """The resolution leg the reference's trace takes for these columns
+    and this hint mode: ``"slot"``, ``"rank"``, ``"link"`` or ``"join"``
+    (see :func:`_resolve`)."""
+    if hints == "join" or not all(k in ops for k in LINK_HINTS):
+        return "join"
+    if "ts_rank" not in ops:
+        return "link"
+    if hints == "exhaustive" and all(k in ops for k in SLOT_HINTS):
+        return "slot"
+    return "rank"
+
+
+# the columns each leg reads: the slot-hinted leg the 16 of MERGE_COLS,
+# the others the base columns plus the position and rank hints they use
+# — so each leg copies to the device only what it needs
+LEG_COLS = {"slot": MERGE_COLS,
+            "rank": BASE_COLS + LINK_HINTS + ("ts_rank",),
+            "link": BASE_COLS + LINK_HINTS,
+            "join": BASE_COLS}
 
 
 def host_no_deletes(kind) -> bool:
@@ -775,33 +980,32 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def materialize(ops: Dict, hints: str = "exhaustive", device=None,
+def materialize(ops: Dict, hints: Optional[str] = None, device=None,
                 probe: Optional[int] = None):
     """ops arrays (``codec.packed.PackedOps.arrays()``: numpy columns, or
     tensors) → :class:`NodeTable` on ``device`` (default: the card).
 
-    ``hints="exhaustive"`` trusts the producer's hint coverage, as the
-    reference does for vouched batches; the batch must carry the derived
-    slot hints.  ``probe=k`` (1-7, and the stage-5 sub-cuts 41-43) stops
-    after stage k and returns the reference's cumulative checksum
-    instead of a table."""
-    if hints != "exhaustive":
-        raise NotImplementedError(
-            f"hints={hints!r} is not ported yet; only 'exhaustive' is. "
-            f"See {PORT_QUEUE}.")
-    if not all(k in ops for k in SLOT_HINTS + ("ts_rank",)):
-        raise NotImplementedError(
-            "a batch without the derived slot hints (PackedOps.arrays() of "
-            f"a vouched batch) needs the sort+join construction; see "
-            f"{PORT_QUEUE}.")
+    ``hints`` is the reference's hint policy: ``None``/``"auto"`` use the
+    hints and verify them, falling back to the sort+join construction
+    when any is wrong (so wrong hints cost time, never correctness);
+    ``"exhaustive"`` trusts a vouched producer's hints and never runs the
+    sort or the join; ``"join"`` ignores hints.  ``probe=k`` (1-7, and
+    the stage-5 sub-cuts 41-43) stops after stage k and returns the
+    reference's cumulative checksum instead of a table."""
+    if hints not in HINT_MODES:
+        raise ValueError(f"unknown hints mode {hints!r}; expected None, "
+                         "'auto', 'exhaustive', or 'join'")
     dev = resolve_device(device)
     no_deletes = host_no_deletes(ops["kind"])
     from ..convert import ops_from_numpy
-    t_ops = ops_from_numpy({k: ops[k] for k in MERGE_COLS if k in ops}, dev)
+    leg = select_leg(ops, hints)
+    t_ops = ops_from_numpy({k: ops[k] for k in LEG_COLS[leg] if k in ops},
+                           dev)
     if t_ops["kind"].shape[0] + 2 > 2**30:
         raise ValueError("op count exceeds the 2^30 - 2 slot space")
-    sel = _resolve(t_ops)
-    acc = _probe_sum(*sel) if probe is not None else None
+    sel = _resolve(t_ops, hints, leg)
+    acc = _probe_sum(*(x for x in sel if x is not None)) \
+        if probe is not None else None
     if probe == 1:
         return acc
     return _finish(t_ops, sel, no_deletes, probe, acc)

@@ -78,3 +78,54 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda):
         tfr.plane_rows(plane, idx)
     with pytest.raises(ValueError):
         tmg.monotone_gather(idx[None].to(torch.int64), idx)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_bootstrap_counts_launches(cuda):
+    """A replica bootstraps a 65,536-op config-5 batch on the card
+    (vouched: the fused exhaustive leg), reads back in closed-form order,
+    and the launches show the merge went through kernels 2-4; an
+    older-format restore of it takes the sort+join on the card through
+    kernel 1."""
+    import io
+    import json
+    from crdt_graph_tpu_torch import engine
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import packed
+    from crdt_graph_tpu_torch.ops import merge
+    n = 65_536
+    arrs = workloads.chain_workload(64, n)
+    p = packed.PackedOps(
+        kind=arrs["kind"], ts=arrs["ts"], parent_ts=arrs["parent_ts"],
+        anchor_ts=arrs["anchor_ts"], depth=arrs["depth"],
+        paths=arrs["paths"], value_ref=arrs["value_ref"], pos=arrs["pos"],
+        values=list(range(n)), num_ops=n, parent_pos=arrs["parent_pos"],
+        anchor_pos=arrs["anchor_pos"], target_pos=arrs["target_pos"],
+        ts_rank=arrs["ts_rank"], hints_vouched=True)
+    kernels.reset_launches()
+    t = engine.init(1, device=cuda)
+    t.apply_packed(p)
+    torch.cuda.synchronize()
+    assert kernels.launches["plane_rows2"] == 1
+    assert kernels.launches["prefix_sums"] == 1
+    assert kernels.launches["monotone_gather"] == 1
+    got = arrs["ts"][np.asarray(t.visible_values())]
+    np.testing.assert_array_equal(got, workloads.chain_expected_ts(64, n))
+    buf = io.BytesIO()
+    t.checkpoint_packed(buf, compress=False)
+    z = np.load(io.BytesIO(buf.getvalue()))
+    meta = json.loads(bytes(z["meta"]).decode())
+    meta.pop("hints_vouched")
+    old = {k: z[k] for k in z.files
+           if k not in ("parent_pos", "anchor_pos", "target_pos", "ts_rank",
+                        "meta")}
+    old["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    out = io.BytesIO()
+    np.savez(out, **old)
+    out.seek(0)
+    kernels.reset_launches()
+    merge.fallbacks = 0
+    r = engine.TpuTree.restore_packed(out, device=cuda)
+    assert r.visible_values() == t.visible_values()
+    assert merge.fallbacks == 1
+    assert kernels.launches["plane_rows"] == 2

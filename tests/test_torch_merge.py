@@ -3,7 +3,8 @@
 The same packed columns (made by each package's own codec from the same
 operations, or by the shared numpy generators) go through
 ``crdt_graph_tpu.ops.merge.materialize(..., hints="exhaustive")`` and
-``crdt_graph_tpu_torch.ops.merge.materialize(..., device="cpu")``; every
+``crdt_graph_tpu_torch.ops.merge.materialize(..., hints="exhaustive",
+device="cpu")`` (the other hint modes: ``test_torch_hints.py``); every
 ``NodeTable`` field must be equal, dtype included (integer data: exact).
 """
 import random
@@ -69,7 +70,8 @@ def _assert_tables_equal(jt, tt, tag=""):
 def _check(arrs, tarrs=None, tag="", **jax_kw):
     jt = jview.to_host(jmerge.materialize(arrs, hints="exhaustive",
                                           **jax_kw))
-    tt = tmerge.materialize(arrs if tarrs is None else tarrs, device="cpu")
+    tt = tmerge.materialize(arrs if tarrs is None else tarrs,
+                            hints="exhaustive", device="cpu")
     _assert_tables_equal(jt, tt, tag)
     return jt, tt
 
@@ -133,7 +135,8 @@ def test_probe_checksums_match(cid):
     nd = jmerge.host_no_deletes(arrs["kind"])
     for k in (1, 2, 3, 4, 41, 42, 43, 5, 6, 7):
         want = int(jmerge._materialize(arrs, None, "exhaustive", nd, k))
-        got = tmerge.materialize(arrs, device="cpu", probe=k)
+        got = tmerge.materialize(arrs, hints="exhaustive", device="cpu",
+                                 probe=k)
         assert got == want, f"config {cid} probe {k}"
 
 
@@ -266,21 +269,24 @@ def test_config5_closed_form_order():
     timestamps equal the closed form, element for element."""
     n = 8192
     t = tview.to_host(tmerge.materialize(tw.chain_workload(64, n),
-                                         device="cpu"))
+                                         hints="exhaustive", device="cpu"))
     assert int(t.num_visible) == n
     seq = t.ts[t.visible_order[:n]]
     np.testing.assert_array_equal(seq, tw.chain_expected_ts(64, n))
 
 
-def test_unported_modes_raise():
+def test_unknown_hints_mode_raises():
+    """An unknown hint mode is refused with the reference's error, before
+    any work (and with or without slot hints)."""
     arrs = tw.chain_workload(4, 64)
-    for h in (None, "auto", "join"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmerge.materialize(arrs, hints=h, device="cpu")
     bare = {k: v for k, v in arrs.items()
             if k not in tpacked.SLOT_HINT_COLS}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmerge.materialize(bare, device="cpu")
+    for a in (arrs, bare):
+        for h in ("exhaustiv", "", "AUTO", "sorted", 0):
+            with pytest.raises(ValueError, match="unknown hints mode"):
+                tmerge.materialize(a, hints=h, device="cpu")
+            with pytest.raises(ValueError, match="unknown hints mode"):
+                jmerge.materialize(a, hints=h)
 
 
 def test_tensor_inputs_and_host_syncs_counted():
@@ -290,9 +296,11 @@ def test_tensor_inputs_and_host_syncs_counted():
     tens = convert.ops_from_numpy(arrs, "cpu")
     assert isinstance(tens["ts"], torch.Tensor)
     tmerge.host_syncs = 0
-    a = convert.table_to_numpy(tmerge.materialize(arrs, device="cpu"))
+    a = convert.table_to_numpy(tmerge.materialize(arrs, hints="exhaustive",
+                                                  device="cpu"))
     syncs = tmerge.host_syncs
-    b = convert.table_to_numpy(tmerge.materialize(tens, device="cpu"))
+    b = convert.table_to_numpy(tmerge.materialize(tens, hints="exhaustive",
+                                                  device="cpu"))
     assert syncs > 0
     for f in tmerge.FIELDS:
         np.testing.assert_array_equal(a[f], b[f], err_msg=f)
