@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``crdt_graph_tpu_torch/csrc`` with
-``nvcc`` (sm_90a), holds each kernel against its plain PyTorch twin at
-the merge's real shapes (exact equality: integer data), and drives two
-paths, each with the launch counts set to 0 just before it and read
-just after:
+``nvcc`` (sm_90a) and, beside them, its native wire codec with ``g++``
+(``crdt_graph_tpu_torch/native``), holds each kernel against its plain
+PyTorch twin at the merge's real shapes (exact equality: integer data),
+and drives three paths, each with the launch counts set to 0 just before
+it and read just after:
 
 - the merge: ``crdt_graph_tpu_torch.ops.merge.materialize`` in the
   vouched ``hints="exhaustive"`` mode on the 64-replica, 1M-op chain
@@ -19,13 +20,22 @@ just after:
   and local edits (held to a bulk merge of the same log, and at 4,096
   ops to the oracle ``CRDTree``), an older-format restore that takes the
   sort+join on the card and a vouched one that does not, and a corrupt
-  rank hint that falls back and equals ``hints="join"``.
+  rank hint that falls back and equals ``hints="join"``;
+- durable replicas at full size: the native codec round trip of the 1M
+  ops; an 800k-op ingest by ``apply_wire`` into a tiered replica with a
+  WAL, committed, appended and fsynced in the scheduler's chunks; a
+  ``checkpoint_tiered`` with the matz artifact; a WAL-only 200k-op tail
+  with deletes; a crash at ``mid-spill``; two recoveries
+  (``restore_tiered`` + ``Wal.replay_into``: a full merge on the card,
+  then from the matz artifact) held to a never-crashed replica field for
+  field and byte for byte; the damage taxonomy (scrub quarantine, a
+  broken manifest, a mid-log WAL flip, a torn final record).
 
 Then it times the merge, each kernel, the engine's stages and the
 merge's three hint legs.  Exits non-zero, printing no result, without a
 CUDA device or without the package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launches (both paths), errors and times.
+lists the kernels with their launches (all paths), errors and times.
 The full record also goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -465,6 +476,414 @@ def engine_phase(dev, record, calls, twins):
     return launches
 
 
+HOT_OPS = 32768                # the serving default hot-tail budget
+N_CRASH = 16384                # the unacknowledged commit the crash kills
+
+
+def durability_phase(dev, record, calls, twins):
+    """Durable replicas on the card at full size: the native wire codec
+    round trip; a tiered, WAL-backed ingest of the config-5 head by
+    ``apply_wire`` in the serving scheduler's commits; a tiered
+    checkpoint with matz; a WAL-only tail with deletes; a crash at
+    ``mid-spill``; two recoveries (a full merge on the card, and the
+    matz artifact) held to a never-crashed replica field for field and
+    byte for byte; and the damage taxonomy.  Raises on any mismatch.
+    Returns the kernel launches of the phase."""
+    import os
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from crdt_graph_tpu_torch import engine, kernels, native, wal
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import json_codec, packed
+    from crdt_graph_tpu_torch.core import operation as op_mod
+    from crdt_graph_tpu_torch.core.errors import CheckpointError
+    from crdt_graph_tpu_torch.ops import fused_resolve as fr, merge, \
+        mono_gather as mg, tour_scan as tsc
+
+    if not native.available():
+        raise RuntimeError(f"native codec unavailable: {native._build_error}")
+    out = {}
+    arrs = workloads.chain_workload(N_REPLICAS, N_OPS)
+    full = packed_chain(arrs, N_OPS)
+    ts_col = arrs["ts"]
+
+    def rows(p, lo, hi):
+        return packed.select_rows(p, np.arange(lo, hi))
+
+    # ---- 1. the native codec round trip --------------------------------
+    enc, dec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        wire_full = native.encode_pack(full)
+        enc.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        back = native.parse_pack(wire_full)
+        dec.append((time.perf_counter() - t0) * 1e3)
+    cols = ("kind", "ts", "parent_ts", "anchor_ts", "depth", "paths",
+            "value_ref", "pos", "parent_pos", "anchor_pos", "target_pos",
+            "ts_rank")
+    bad = [c for c in cols if not np.array_equal(
+        getattr(back, c)[:N_OPS], getattr(full, c)[:N_OPS])]
+    if back.num_ops != N_OPS or bad or back.values != full.values:
+        raise RuntimeError(f"native round trip differs in {bad}")
+    sl = rows(full, 0, N_SLICE)
+    if native.encode_pack(sl) != json_codec.dumps(
+            op_mod.from_list(packed.unpack(sl))).encode():
+        raise RuntimeError("native encoder differs from the Python codec")
+    out["native"] = {"wire_bytes": len(wire_full),
+                     "encode_ms": enc, "encode_p50_ms": float(np.median(enc)),
+                     "parse_ms": dec, "parse_p50_ms": float(np.median(dec))}
+    log(f"durability native codec: {N_OPS} ops <-> {len(wire_full)} wire "
+        f"bytes; encode p50 {np.median(enc):.1f} ms, parse p50 "
+        f"{np.median(dec):.1f} ms; columns equal; == the Python encoder "
+        f"on {N_SLICE} ops")
+    del back, wire_full
+
+    # ---- commits: the head, and a tail whose deletes follow its adds ---
+    dels = packed.pack([op_mod.Delete((int(t),))
+                        for t in ts_col[N_HEAD:N_OPS:DEL_EVERY]])
+    tail = packed.concat(rows(full, N_HEAD, N_OPS), dels)
+
+    def commits(p):
+        return [native.encode_pack(rows(p, s, min(s + DEFAULT_CHUNK_OPS,
+                                                  p.num_ops)))
+                for s in range(0, p.num_ops, DEFAULT_CHUNK_OPS)]
+    head_w, tail_w = commits(rows(full, 0, N_HEAD)), commits(tail)
+    crash_w = json_codec.dumps(op_mod.from_list([
+        op_mod.Add(99 * 2**32 + c, ((99 * 2**32 + c - 1) if c > 1 else 0,),
+                   -c) for c in range(1, N_CRASH + 1)])).encode()
+    gone = ts_col[N_HEAD:N_OPS:DEL_EVERY]
+    exp = workloads.chain_expected_ts(N_REPLICAS, N_OPS)
+    exp = exp[~np.isin(exp, gone)]
+
+    root = ROOT / "build" / "durability"
+    shutil.rmtree(root, ignore_errors=True)
+    d = root / "replica"
+    d.mkdir(parents=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    native.reset_calls()
+    steps_l = {}
+
+    def snap():
+        return dict(kernels.launches)
+
+    def delta(a):
+        return {k: kernels.launches[k] - a[k] for k in a}
+
+    # ---- 2. durable ingest on the card ---------------------------------
+    s0 = snap()
+    tree = engine.init(1, device=dev)
+    tree.enable_log_tiering(str(d), hot_ops=HOT_OPS, durable=True,
+                            ephemeral=False)
+    advanced = []
+    tree._log.set_durable_hooks(tree.manifest_meta, advanced.append)
+    w = wal.Wal(str(d / "wal.log"))
+    apply_ms, wal_ms, trunc_ms = [], [], []
+    split = {"parse": [], "tier_reload": [], "spill_fold": []}
+
+    def timed(owner, attr, key):
+        """Accumulate the time of ``owner.attr`` calls under ``key`` (a
+        split of the commit time; the calls themselves are unchanged)."""
+        fn = getattr(owner, attr)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[key][-1] += (time.perf_counter() - t0) * 1e3
+        setattr(owner, attr, run)
+        return fn
+    parse0 = timed(native, "parse_pack", "parse")
+    timed(tree._log, "to_packed", "tier_reload")
+    timed(tree._log, "maybe_spill", "spill_fold")
+
+    def commit(payload):
+        """One acknowledged commit, as a durable server makes it: apply,
+        append the applied rows, fsync, then drop the WAL prefix the
+        tiers cover once a manifest advanced."""
+        n0 = tree.log_length
+        for v in split.values():
+            v.append(0.0)
+        t0 = time.perf_counter()
+        tree.apply_wire(payload)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if tree.log_length > n0:
+            w.append(tree.log_view().slice_packed(n0, tree.log_length),
+                     tree.log_length)
+        w.sync()
+        t2 = time.perf_counter()
+        if advanced:
+            w.truncate_below(tree._log.tiered_extent)
+            advanced.clear()
+        apply_ms.append((t1 - t0) * 1e3)
+        wal_ms.append((t2 - t1) * 1e3)
+        trunc_ms.append((time.perf_counter() - t2) * 1e3)
+
+    for payload in head_w:
+        commit(payload)
+    t0 = time.perf_counter()
+    tree.checkpoint_tiered(str(d), write_matz=True)
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    if tree._log.matz_entry is None or tree.log_length != N_HEAD:
+        raise RuntimeError("durability: the checkpoint wrote no matz")
+    for payload in tail_w:
+        commit(payload)
+    native.parse_pack = parse0
+    steps_l["ingest"] = delta(s0)
+    n_commits = len(head_w) + len(tail_w)
+    if native.calls["parse_pack"] != n_commits:
+        raise RuntimeError(f"durability ingest: {native.calls['parse_pack']}"
+                           f" native parses for {n_commits} commits")
+    tele = tree._log.telemetry()
+    out["ingest"] = {"commits": n_commits, "apply_ms": list(apply_ms),
+                     "apply_split_ms": {k: list(v)
+                                        for k, v in split.items()},
+                     "wal_append_fsync_ms": list(wal_ms),
+                     "wal_truncate_ms": list(trunc_ms),
+                     "wal_p50_ms": float(np.median(wal_ms)),
+                     "checkpoint_tiered_ms": ckpt_ms,
+                     "spills": tele["spills"],
+                     "compactions": tele["compactions"],
+                     "segments": tele["segments"],
+                     "tiered_extent": tree._log.tiered_extent,
+                     "wal_bytes": w.size_bytes(),
+                     "native_parses": native.calls["parse_pack"]}
+    log(f"durability ingest: {n_commits} commits by apply_wire (native "
+        f"parses {native.calls['parse_pack']}), {tree.log_length} ops; "
+        f"apply p50 {np.median(apply_ms):.1f} ms per commit (parse "
+        f"{np.median(split['parse']):.1f}, tier reload "
+        f"{np.median(split['tier_reload']):.1f}, spill+fold "
+        f"{np.median(split['spill_fold']):.1f}); WAL "
+        f"append+fsync p50 {np.median(wal_ms):.1f} ms per commit "
+        f"(then truncation p50 {np.median(trunc_ms):.1f} ms); "
+        f"checkpoint_tiered {ckpt_ms:.1f} ms; {tele['spills']} spills, "
+        f"{tele['compactions']} folds, segments {tele['segments']}, tiered "
+        f"extent {tree._log.tiered_extent}, WAL {w.size_bytes()} B")
+
+    # ---- 3. crash mid-spill on one more (unacknowledged) commit --------
+    s0 = snap()
+    os.environ["GRAFT_CRASH_POINT"] = "mid-spill"
+    try:
+        commit(crash_w)
+        raise RuntimeError("durability: the mid-spill crash never fired")
+    except wal.CrashPoint:
+        pass
+    finally:
+        del os.environ["GRAFT_CRASH_POINT"]
+    w.close()
+    del tree
+    steps_l["crash"] = delta(s0)
+
+    # the never-crashed replica: the same acknowledged commits, untiered
+    ref = engine.init(1, device=dev)
+    for payload in head_w + tail_w:
+        ref.apply_wire(payload)
+    ref_full = ref.packed_state()
+    ref_table = {f: np.asarray(getattr(ref.table(), f)) for f in merge.FIELDS}
+    ref_vals = ref.visible_values()
+    if not np.array_equal(ts_col[np.asarray(ref_vals, np.int64)], exp):
+        raise RuntimeError("durability: the never-crashed replica's order "
+                           "is wrong")
+    for name in ("a", "b"):
+        shutil.copytree(d, root / f"recover-{name}")
+
+    # ---- 4. two recoveries on the card ---------------------------------
+    legs, ref_dumps = [], {}
+    real_materialize = merge.materialize
+
+    def leg_of(arrays, hints=None, **kw):
+        legs.append(hints)
+        return real_materialize(arrays, hints=hints, **kw)
+
+    def recover(name, use_matz):
+        dd = root / f"recover-{name}"
+        s1 = snap()
+        t0 = time.perf_counter()
+        r = engine.TpuTree.restore_tiered(str(dd), use_matz=use_matz,
+                                          device=dev)
+        t1 = time.perf_counter()
+        base = [(c.start, c.length) for c in r._log._bases]
+        cold = [(c.start, c.length) for c in r._log._cold]
+        extent = r._log.tiered_extent
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            st = wal.Wal(str(dd / "wal.log")).replay_into(r, 1 << 17)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            vals = r.visible_values()
+            t3 = time.perf_counter()
+        rec = {"restore_tiered_ms": (t1 - t0) * 1e3,
+               "replay_ms": (t2 - t1) * 1e3, "first_read_ms": (t3 - t2) * 1e3,
+               "replay": st, "restored_extent": extent,
+               "matz": dict(r.matz_stats),
+               "matz_warnings": [str(x.message) for x in warned
+                                 if issubclass(x.category,
+                                               engine.MatzWarning)],
+               "launches": delta(s1)}
+        if vals != ref_vals:
+            raise RuntimeError(f"recovery {name}: visible values differ")
+        # every table field, the clocks, and the wire at three seams
+        tab = r.table()
+        diff = [f for f in merge.FIELDS
+                if not np.array_equal(np.asarray(getattr(tab, f)),
+                                      ref_table[f])]
+        if diff or r._replicas != ref._replicas or \
+                r.log_length != ref.log_length:
+            raise RuntimeError(f"recovery {name}: table differs in {diff}")
+        if not base or not cold:
+            raise RuntimeError(f"recovery {name}: tiers {base} + {cold}")
+        seams = {"inside_base_chunk": base[0][0] + base[0][1] // 2,
+                 "base_to_cold_boundary": cold[0][0],
+                 "inside_cold_segment": cold[-1][0] + cold[-1][1] // 2,
+                 "inside_wal_tail": (extent + N_OPS) // 2}
+        if not (extent < seams["inside_wal_tail"] < N_OPS):
+            raise RuntimeError(f"recovery {name}: no WAL tail past the "
+                               f"tiers (extent {extent})")
+        view = r.log_view()
+        for seam, row in seams.items():
+            since = int(ts_col[row])
+            if view.window(since, 4096) != engine.packed_since_window(
+                    ref_full, since, 4096):
+                raise RuntimeError(f"recovery {name}: window at {seam}")
+            if since not in ref_dumps:
+                ref_dumps[since] = ref.dumps_since_bytes(since)
+            if r.dumps_since_bytes(since) != ref_dumps[since]:
+                raise RuntimeError(f"recovery {name}: dumps at {seam}")
+        rec["seams"] = seams
+        return r, rec
+
+    got = {}
+    merge.materialize = leg_of
+    try:
+        caught = capture_inputs(
+            lambda: got.update(a=recover("a", False)),
+            [(fr, "plane_rows"), (fr, "plane_rows2"),
+             (tsc, "prefix_sums"), (mg, "monotone_gather")])
+        out["recover_a"] = got["a"][1]
+        out["recover_a"]["legs"] = [h or "auto" for h in legs]
+        del legs[:]
+        out["recover_b"] = recover("b", True)[1]
+        out["recover_b"]["legs"] = [h or "auto" for h in legs]
+    finally:
+        merge.materialize = real_materialize
+    del got
+    ra_l = out["recover_a"]["launches"]
+    if ra_l["prefix_sums"] < 1 or ra_l["monotone_gather"] < 1 or \
+            ra_l["plane_rows"] + ra_l["plane_rows2"] < 1:
+        raise RuntimeError(f"recovery a launched {ra_l}")
+    used = out["recover_b"]["matz"]["loads"] == 1
+    for name, how in (("a", "full merge"), ("b", "matz")):
+        rc = out[f"recover_{name}"]
+        log(f"durability recovery {name} ({how}): restore_tiered "
+            f"{rc['restore_tiered_ms']:.1f} ms, WAL "
+            f"replay {rc['replay_ms']:.1f} ms ({rc['replay']['records']} "
+            f"records, {rc['replay']['applied']} applied), first read "
+            f"{rc['first_read_ms']:.1f} ms; legs {rc['legs']}; matz "
+            f"{rc['matz']}; launches {rc['launches']}; == the never-crashed "
+            f"replica (values, table, clocks, windows and dumps at "
+            f"{sorted(rc['seams'])})")
+    out["matz_used"] = used
+    log(f"durability recovery b: matz artifact "
+        f"{'used' if used else 'fell back (MatzWarning)'}")
+
+    # every kernel the phase launched, against its twin
+    errs = {}
+    for kname, cases in caught.items():
+        e = 0.0
+        for args in cases:
+            got = calls[kname](*args)
+            want = twins[kname](*(a.cpu() if hasattr(a, "cpu") else a
+                                  for a in args))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            e = max(e, max_abs_err(got, want))
+        errs[kname] = e
+    out["twin_err"] = errs
+    out["twin_shapes"] = {k: [list(a.shape) for a in v[0]
+                              if hasattr(a, "shape")]
+                          for k, v in caught.items()}
+    if any(errs.values()):
+        raise RuntimeError(f"a kernel disagrees with its twin in the "
+                           f"durability phase: {errs}")
+    del caught
+
+    # ---- 5. damage -------------------------------------------------------
+    dd = root / "recover-a"
+    r = engine.TpuTree.restore_tiered(str(dd), use_matz=False, device=dev)
+    victim = r._log._cold[0] if r._log._cold else r._log._bases[0]
+    flip_zip_data(victim.path)
+    rep = r._log.scrub()
+    if rep["corrupt"] != 1 or r._log.telemetry()["quarantined"] != 1:
+        raise RuntimeError(f"durability: scrub did not quarantine {rep}")
+    (dd / "manifest.json").write_text('{"length": "broken"')
+    try:
+        engine.TpuTree.restore_tiered(str(dd), device=dev)
+        raise RuntimeError("durability: a broken manifest restored")
+    except CheckpointError:
+        pass
+    small = root / "wal-damage"
+    small.mkdir()
+    ws = wal.Wal(str(small / "wal.log"))
+    for k in range(3):
+        ws.append(rows(full, 4096 * k, 4096 * (k + 1)), 4096 * (k + 1))
+    ws.sync()
+    ws.close()
+    data = (small / "wal.log").read_bytes()
+    first = wal.scan(str(small / "wal.log"))[0][0][0]
+    midlog = bytearray(data)
+    midlog[first + 64] ^= 0xFF
+    (small / "mid.log").write_bytes(bytes(midlog))
+    try:
+        wal.Wal(str(small / "mid.log")).replay_into(
+            engine.init(1, device=dev))
+        raise RuntimeError("durability: a mid-log flip replayed")
+    except wal.WalError:
+        pass
+    (small / "torn.log").write_bytes(data[:-5])
+    rt = engine.init(1, device=dev)
+    st = wal.Wal(str(small / "torn.log")).replay_into(rt)
+    if st["torn_dropped"] != 1 or rt.log_length != 8192:
+        raise RuntimeError(f"durability: torn tail not tolerated {st}")
+    log("durability damage: flipped cold segment quarantined by scrub; "
+        "broken manifest -> CheckpointError; mid-log WAL flip -> WalError; "
+        "torn final record tolerated and counted")
+
+    torch.cuda.synchronize()
+    launches = snap()
+    out["launches"] = launches
+    out["launches_by_step"] = steps_l
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"durability launches {launches}; peak device memory "
+        f"{out['peak_mem_bytes']} B")
+    shutil.rmtree(root, ignore_errors=True)
+    record["durability"] = out
+    return launches
+
+
+def flip_zip_data(path) -> None:
+    """One bit-rot event inside the data of an npz's largest member (a
+    flip in a zip local header is benign and legitimately not flagged)."""
+    import struct
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        info = max(z.infolist(), key=lambda i: i.compress_size)
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        fn_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(info.header_offset + 30 + fn_len + extra_len
+               + info.compress_size // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -473,7 +892,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from crdt_graph_tpu_torch import convert, kernels
+    from crdt_graph_tpu_torch import convert, kernels, native
     from crdt_graph_tpu_torch.bench import honest, workloads
     from crdt_graph_tpu_torch.codec import packed
     from crdt_graph_tpu_torch.kernels import build
@@ -495,12 +914,20 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    # ---- 2. build -----------------------------------------------------
+    # ---- 2. build: the CUDA kernels and, beside them, the native codec --
     t0 = time.perf_counter()
+    cxx = threading.Thread(target=native.load)
+    cxx.start()
     build.load()
     record["phases"]["build_s"] = time.perf_counter() - t0
+    cxx.join()
+    record["phases"]["build_native_s"] = time.perf_counter() - t0
+    if not native.available():
+        raise RuntimeError(f"native codec did not build: "
+                           f"{native._build_error}")
     log(f"build: {record['phases']['build_s']:.2f} s "
-        f"({build.BUILD_ROOT})")
+        f"({build.BUILD_ROOT}); native codec "
+        f"{record['phases']['build_native_s']:.2f} s ({native.so_path()})")
     for line in build.ptxas_log.splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
@@ -682,7 +1109,13 @@ def main() -> int:
         record["kernels"]["plane_rows"]["max_abs_err"],
         record["engine"]["plane_rows_engine_err"])
 
-    # ---- 6. timing ------------------------------------------------------
+    # ---- 6. durable replicas (their own counted drive) ----------------
+    dur_launches = durability_phase(dev, record, calls, twins)
+    for kname, e in record["durability"]["twin_err"].items():
+        record["kernels"][kname]["max_abs_err"] = max(
+            record["kernels"][kname]["max_abs_err"], e)
+
+    # ---- 7. timing ------------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -775,7 +1208,8 @@ def main() -> int:
             f"{b_ms:.4f} ms ({nb} B)")
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": launches[kname] + engine_launches[kname],
+                     "launches": launches[kname] + engine_launches[kname]
+                     + dur_launches[kname],
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms})

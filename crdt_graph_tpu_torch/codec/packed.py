@@ -931,8 +931,13 @@ def verify_packed_npz(path, expect_ops: Optional[int] = None
 
 def pack_json(payload, max_depth: int = DEFAULT_MAX_DEPTH,
               capacity: Optional[int] = None) -> PackedOps:
-    """Wire JSON (str/bytes) → :class:`PackedOps` through the pure-Python
-    codec (the native column parser is not part of this package yet)."""
+    """Wire JSON (str/bytes) → :class:`PackedOps`, using the native parser
+    when available (``crdt_graph_tpu_torch.native``), else the pure-Python
+    path."""
+    from .. import native
+    if native.available():
+        return native.parse_pack(payload, max_depth=max_depth,
+                                 capacity=capacity)
     from . import json_codec
     if isinstance(payload, bytes):
         payload = payload.decode()

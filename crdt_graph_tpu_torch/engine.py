@@ -24,13 +24,24 @@ API parity: method names and semantics mirror the oracle ``CRDTree``
 redelivery is absorbed, and a failing remote batch raises without
 mutating state.  ``TpuTree`` is a MUTABLE container.
 
-Not ported yet (ROADMAP.md, 'PyTorch/CUDA port queue'): the native wire
-codec (the engine takes the reference's own no-native paths), op-log
-tiering, the WAL, the persisted materialization (matz) and
-``checkpoint_tiered``/``restore_tiered``; those entry points raise
-``NotImplementedError``.  The reference's ops-axis route (several
-devices sharing one merge) is off on one device and gives the same table
-there, so every merge here is the single-device ``materialize``.
+Durability is the reference's: the op log's cold tiers
+(``enable_log_tiering``, spilled at commit boundaries), the tiered
+checkpoint (``checkpoint_tiered`` → ``restore_tiered``, whose cold tiers
+stay numpy on the host and page in lazily), the persisted
+materialization ("matz", so a restored replica's first read is O(tail))
+and the WAL (``wal.Wal``, replayed through
+:meth:`TpuTree.apply_packed_chunked`).  Every on-disk format is
+byte-identical to the reference's, so a durable directory written by
+either package recovers in the other.  A restored
+replica's first full merge (no matz, or a WAL tail past the bulk
+crossover) runs on its device like any other bulk merge.
+
+The wire paths (``apply_wire``, ``dumps_since_bytes``,
+``packed_since_bytes``) take the native codec (``native``) when it
+builds, else the reference's own pure-Python paths.  The reference's
+ops-axis route (several devices sharing one merge) is off on one device
+and gives the same table there, so every merge here is the
+single-device ``materialize``.
 """
 from __future__ import annotations
 
@@ -52,8 +63,7 @@ from .core.errors import (CheckpointError, InvalidPathError, NotFound,
                           OperationFailedError)
 from .core.operation import Add, Batch, Delete, Operation
 from .host_tree import NIL, HostTree
-from .oplog import (EMPTY_BATCH_BYTES, TIERING_QUEUE, OpLog, PackedBatch,
-                    ViewSpanBatch)
+from .oplog import EMPTY_BATCH_BYTES, OpLog, PackedBatch, ViewSpanBatch
 from .ops import merge as merge_mod
 from .ops import view as view_mod
 from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
@@ -61,6 +71,20 @@ from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
 # deltas at or under this many leaves apply host-side in O(delta); larger
 # ones re-materialise through the batched merge
 DELTA_THRESHOLD = 256
+
+
+class MatzWarning(UserWarning):
+    """A persisted materialization artifact (``matz-*.npz``) was
+    present but unusable — corrupt, truncated, or inconsistent with
+    the restored log.  The restore FALLS BACK to the full first-merge
+    materialization (slow but always correct) and warns with this
+    type so operators can see cold paths silently losing their
+    O(tail) guarantee.  Never affects data correctness."""
+
+
+def matz_enabled() -> bool:
+    """The ``GRAFT_MATZ`` kill switch (default on)."""
+    return os.environ.get("GRAFT_MATZ", "1").strip() != "0"
 
 
 def _mode(p: PackedOps) -> Optional[str]:
@@ -295,6 +319,16 @@ class TpuTree:
         self._generation = 0
         # per-leaf applied mask of the last successful apply
         self._last_applied_mask: Optional[np.ndarray] = None
+        # op-log tiering: spills run only at commit boundaries; a
+        # multi-chunk apply defers them so a failing chunk's rollback
+        # target range is always still hot
+        self._defer_spill = False
+        # persisted materialization: True when a restore found a matz
+        # artifact in the manifest — the first mirror build loads it and
+        # replays only the tail instead of merging the whole history
+        self._matz_pending = False
+        self.matz_stats: dict = {"writes": 0, "loads": 0,
+                                 "fallbacks": 0, "tail_replayed": 0}
 
     # -- identity / clocks -------------------------------------------------
 
@@ -355,10 +389,17 @@ class TpuTree:
         return self._table
 
     def _ensure_mirror(self) -> HostTree:
-        """The host mirror, built lazily: from the table when one is
-        materialised, through the bulk merge for big logs, by sequential
-        replay for small ones."""
+        """The host mirror, built lazily: from a persisted
+        materialization artifact + tail replay when a tiered restore
+        left one pending (O(tail since the artifact)), from the table
+        when one is materialised, through the bulk merge for big logs, by
+        sequential replay for small ones."""
         if self._mirror is None:
+            if self._matz_pending and self._table is None:
+                m = self._load_matz_mirror()
+                if m is not None:
+                    self._mirror = m
+                    return m
             if self._table is None and len(self._log) <= DELTA_THRESHOLD:
                 m = HostTree(self._max_depth)
                 for op in self._log:
@@ -418,14 +459,40 @@ class TpuTree:
                        if isinstance(op, Add)
                        and ts_mod.replica_id(op.ts) == self._replica)
         self._timestamp += own_adds
+        self._after_commit()
         return self
 
-    def enable_log_tiering(self, dir: str, **kw) -> "TpuTree":
-        self._log.enable_tiering(dir, **kw)      # not ported yet: raises
+    # -- op-log tiering (oplog.py) -------------------------------------------
+
+    def enable_log_tiering(self, dir: str, *, hot_ops: int = 32768,
+                           hot_bytes: int = 0, gc_min_segs: int = 4,
+                           auto_stable: bool = True,
+                           cache_segments: int = 2,
+                           ephemeral: bool = False,
+                           durable: bool = False,
+                           cache_mb: Optional[int] = None,
+                           base_chunk_ops: Optional[int] = None,
+                           cache=None) -> "TpuTree":
+        """Arm the op log's three-tier cascade (oplog module
+        docstring): hot ops past the budget spill to packed-npz
+        segments under ``dir`` at commit boundaries, a stability-
+        watermark-gated GC folds them into a checkpoint base, and the
+        full-packing cache drops whenever columns leave memory (it
+        would otherwise keep the whole history resident)."""
+        self._log.enable_tiering(
+            dir, hot_ops=hot_ops, hot_bytes=hot_bytes,
+            gc_min_segs=gc_min_segs, auto_stable=auto_stable,
+            cache_segments=cache_segments, ephemeral=ephemeral,
+            max_depth=self._max_depth, on_spill=self._on_log_spill,
+            durable=durable, cache_mb=cache_mb,
+            base_chunk_ops=base_chunk_ops, cache=cache)
         return self
 
     def begin_commit(self) -> tuple:
-        """Snapshot the pre-commit state one commit's rollback needs."""
+        """Snapshot the pre-commit state one commit's rollback needs: a
+        merge whose WAL record cannot be made durable (ENOSPC/EIO) must
+        leave the replica untouched, or the log would hold ops that
+        exist in neither the tiers nor the WAL."""
         return (len(self._log), self._timestamp, dict(self._replicas),
                 self._last_operation)
 
@@ -439,10 +506,36 @@ class TpuTree:
         self._last_operation = last_op
         self._invalidate()
 
+    def manifest_meta(self) -> dict:
+        """The clock/cursor meta a durable tier manifest carries —
+        exactly what :meth:`checkpoint_tiered` persists, minus the
+        last-operation span (a LIVE manifest is written mid-flight at
+        spill boundaries; WAL replay rebuilds ``last_operation`` from
+        the final record)."""
+        return {
+            "replica": self._replica,
+            "timestamp": self._timestamp,
+            "cursor": list(self._cursor),
+            "replicas": {str(k): v for k, v in self._replicas.items()},
+            "max_depth": self._max_depth,
+        }
+
+    def _on_log_spill(self) -> None:
+        # resident columns moved to disk: holding the monolithic
+        # packing would pin them all in memory anyway
+        self._packed = None
+
     def log_view(self):
         """A reference-stable :class:`~crdt_graph_tpu_torch.oplog.LogView`
         of the applied log."""
         return self._log.view(self._max_depth)
+
+    def _after_commit(self) -> None:
+        """Commit-boundary hook: run the cascade's spill/GC unless a
+        batch or chunked apply is mid-flight (their rollback paths
+        truncate back into what must still be the hot tier)."""
+        if self._batch_depth == 0 and not self._defer_spill:
+            self._log.maybe_spill()
 
     def _apply_host(self, leaves: List[Operation]) -> List[Operation]:
         """Sequential host-path apply; the first failure rolls everything
@@ -487,11 +580,19 @@ class TpuTree:
         return self._apply_kernel(leaves)
 
     def apply_wire(self, payload) -> "TpuTree":
-        """Remote apply straight from wire JSON (str or bytes).  The
-        native column parser is not ported, so this is the reference's
-        no-native path: decode to op objects, then :meth:`apply`."""
-        text = payload.decode() if isinstance(payload, bytes) else payload
-        return self.apply(json_codec.loads(text))
+        """Remote apply straight from wire JSON (str or bytes): the
+        native parser builds the columns in one pass and
+        :meth:`apply_packed` routes them (a bulk merge on the card past
+        the crossover, the host mirror below it).  Without the native
+        module, the reference's no-native path: decode to op objects,
+        then :meth:`apply`.  Raises exactly what :meth:`apply` raises."""
+        from . import native
+        if not native.available():
+            text = payload.decode() if isinstance(payload, bytes) \
+                else payload
+            return self.apply(json_codec.loads(text))
+        return self.apply_packed(
+            native.parse_pack(payload, max_depth=self._max_depth))
 
     def apply_packed(self, pnew: PackedOps) -> "TpuTree":
         """Remote apply from already-packed columns."""
@@ -561,6 +662,7 @@ class TpuTree:
             (kind == packed_mod.KIND_ADD) &
             ((ts_col >> 32) == self._replica)))
         self._last_applied_mask = np.asarray(st == APPLIED)
+        self._after_commit()
         return self
 
     def apply_packed_chunked(self, pnew: PackedOps,
@@ -577,6 +679,10 @@ class TpuTree:
         saved = (self._timestamp, dict(self._replicas),
                  self._last_operation)
         masks: List[np.ndarray] = []
+        # spills defer until the LAST chunk commits: a failing chunk
+        # truncates back to n0, which must still be in the hot tier
+        defer0 = self._defer_spill
+        self._defer_spill = True
         try:
             for s in range(0, n, chunk_ops):
                 chunk = packed_mod.select_rows(
@@ -588,7 +694,10 @@ class TpuTree:
             (self._timestamp, self._replicas,
              self._last_operation) = saved
             self._invalidate()
+            self._defer_spill = defer0
             return self.apply_packed(pnew)
+        finally:
+            self._defer_spill = defer0
         mask = np.concatenate(masks) if masks else np.zeros(0, bool)
         applied = int(mask.sum())
         if applied == n:
@@ -599,6 +708,7 @@ class TpuTree:
         else:
             self._last_operation = Batch(())
         self._last_applied_mask = mask
+        self._after_commit()
         return self
 
     def _apply_kernel(self, leaves: List[Operation]) -> List[Operation]:
@@ -702,6 +812,7 @@ class TpuTree:
         if self._batch_depth == 0 and self._mirror is not None:
             self._mirror.journal.clear()
         self._last_operation = Batch(tuple(acc))
+        self._after_commit()
         return self
 
     def _apply_local(self, op: Operation) -> None:
@@ -751,10 +862,18 @@ class TpuTree:
             self._log.materialize(start, len(self._log)))
 
     def dumps_since_bytes(self, initial_timestamp: int) -> bytes:
-        """Wire JSON bytes for ``operations_since`` — the reference's
-        no-native path, encoded from the object log."""
-        return json_codec.dumps(
-            self.operations_since(initial_timestamp)).encode()
+        """Wire JSON bytes for ``operations_since`` without per-op
+        Python encode — :func:`packed_since_bytes` over the cached
+        packed log, byte-identical to
+        ``json_codec.dumps(self.operations_since(ts))``.  Without the
+        native module, the reference's no-native path: encoded from the
+        object log."""
+        from . import native
+        if not native.available():
+            return json_codec.dumps(
+                self.operations_since(initial_timestamp)).encode()
+        return packed_since_bytes(self._ensure_packed(),
+                                  initial_timestamp)
 
     def dumps_since(self, initial_timestamp: int) -> str:
         return self.dumps_since_bytes(initial_timestamp).decode()
@@ -785,8 +904,13 @@ class TpuTree:
         return self._ensure_packed()
 
     def visible_values(self) -> List[Any]:
-        """Visible values in document order — the render path."""
+        """Visible values in document order — the render path.  A
+        mirror freshly loaded from a materialization artifact answers
+        from its persisted visible sequence (one list copy) until the
+        first applied mutation invalidates it."""
         m = self._ensure_mirror()
+        if m.vis_cache is not None:
+            return list(m.vis_cache)
         return [m.values[int(m.value_ref[s])] for s in m.iter_visible()]
 
     # -- node views and traversal -------------------------------------------
@@ -1083,27 +1207,343 @@ class TpuTree:
             tree._last_operation = PackedBatch(p, s, e)
         return tree
 
-    def checkpoint_tiered(self, dir: str, write_matz: bool = True) -> str:
-        raise NotImplementedError(
-            f"checkpoint_tiered is not ported yet; see {TIERING_QUEUE}")
+    # -- persisted materialization ("matz") ----------------------------------
+
+    def _matz_mirror_cheap(self) -> Optional[HostTree]:
+        """The mirror IF it is derivable without a full-history merge:
+        already built, rebuildable from a parked table, loadable from
+        a pending artifact, or a small log.  None otherwise — a matz
+        write must never INTRODUCE the cold-path cost it exists to
+        remove."""
+        if self._mirror is not None or self._table is not None \
+                or self._matz_pending \
+                or len(self._log) <= DELTA_THRESHOLD:
+            return self._ensure_mirror()
+        return None
+
+    def _save_matz_npz(self, target: str, name: str, arrs: dict,
+                       values: list, meta: dict, fsync: bool) -> None:
+        """Serialize one materialization artifact (tmp + rename so a
+        manifest-referenced artifact is never observed
+        half-written)."""
+        os.makedirs(target, exist_ok=True)
+        path = os.path.join(target, name)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, values=np.frombuffer(
+                json.dumps(values).encode(), np.uint8),
+                meta=np.frombuffer(json.dumps(meta).encode(),
+                                   np.uint8),
+                **arrs)
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+        self.matz_stats["writes"] += 1
+
+    def _write_matz_file(self, target: str,
+                         fsync: bool = False) -> Optional[dict]:
+        """Write the materialization artifact (mirror slot arrays +
+        values + visible sequence) into ``target`` and return its
+        manifest entry ``{"file", "len"}``, or None when no mirror is
+        cheaply derivable."""
+        m = self._matz_mirror_cheap()
+        if m is None:
+            return None
+        length = len(self._log)
+        name = self._log.next_matz_name() \
+            if self._log.tiering_enabled else "matz-g1.npz"
+        meta = {"kind": "matz", "matz_len": length, "n": m.n,
+                "nvis": m.nvis, "max_depth": self._max_depth,
+                "values_len": len(m.values)}
+        self._save_matz_npz(target, name, m.export_arrays(),
+                            m.values, meta, fsync)
+        return {"file": name, "len": length}
+
+    def matz_snapshot(self) -> Optional[dict]:
+        """The scheduler-thread half of the BACKGROUND materialization
+        export: spill the whole hot tail first (the
+        artifact's coverage must stay ≤ the tiered extent — the usual
+        write_matz rule), then snapshot the mirror's slot arrays
+        COPY-ON-EXPORT, so the maintenance worker can serialize the
+        O(doc-state) artifact while this thread keeps applying ops to
+        the live mirror.  The copies are flat memcpys + one pointer
+        copy of the value table (values are immutable JSON leaves) —
+        milliseconds where the serialize is seconds.  None when no
+        mirror is cheaply derivable (never introduces the cost it
+        removes)."""
+        log = self._log
+        if not matz_enabled() or not log.tiering_enabled:
+            return None
+        m = self._matz_mirror_cheap()
+        if m is None:
+            return None
+        log.spill_all()
+        arrs = m.export_arrays(copy=True)
+        return {"arrs": arrs, "values": list(m.values), "n": m.n,
+                "nvis": m.nvis, "len": len(log),
+                "values_len": len(m.values)}
+
+    def export_matz(self, snap: dict) -> bool:
+        """The worker-thread half: serialize a :meth:`matz_snapshot`
+        to its artifact file and publish it atomically in the
+        manifest.  If the log was truncated below the snapshot's
+        coverage in the meantime (a shed rollback), the artifact is
+        DISCARDED — it must never resurrect rolled-back ops."""
+        from .wal import maybe_crash
+        log = self._log
+        cfg = log._cfg
+        if cfg is None or snap is None:
+            return False
+        name = log.next_matz_name()
+        meta = {"kind": "matz", "matz_len": int(snap["len"]),
+                "n": snap["n"], "nvis": snap["nvis"],
+                "max_depth": self._max_depth,
+                "values_len": snap["values_len"]}
+        self._save_matz_npz(cfg.dir, name, snap["arrs"],
+                            snap["values"], meta, fsync=cfg.durable)
+        # chaos site: artifact on disk, manifest not yet referencing
+        # it — recovery from the old manifest ignores the stray file
+        maybe_crash("mid-matz-write")
+        try:
+            log.note_matz(name, int(snap["len"]))
+        except ValueError:
+            try:
+                os.remove(os.path.join(cfg.dir, name))
+            except OSError:
+                pass
+            return False
+        return True
+
+    def write_matz(self) -> bool:
+        """Serving-path materialization snapshot: spill the whole hot
+        tail (so the artifact's coverage is ≤ the tiered extent — a
+        restore always finds every covered op in the tiers, never in
+        an unsynced WAL tail that might not have survived), write the
+        artifact, and publish it atomically in the manifest.  Returns
+        True when an artifact landed.  Requires tiering; no-op when
+        the mirror is not cheaply derivable or ``GRAFT_MATZ=0``."""
+        from .wal import maybe_crash
+        log = self._log
+        if not matz_enabled() or not log.tiering_enabled:
+            return False
+        if self._matz_mirror_cheap() is None:
+            return False
+        log.spill_all()
+        cfg = log._cfg
+        entry = self._write_matz_file(cfg.dir, fsync=cfg.durable)
+        if entry is None:
+            return False
+        # chaos site: artifact on disk, manifest not yet referencing
+        # it — recovery from the old manifest ignores the stray file
+        maybe_crash("mid-matz-write")
+        log.note_matz(entry["file"], entry["len"])
+        return True
+
+    def _load_matz_mirror(self) -> Optional[HostTree]:
+        """Rebuild the mirror from the manifest's materialization
+        artifact + an O(tail) replay of the ops past its coverage.
+        Any inconsistency — corrupt/truncated/missing artifact, a
+        coverage beyond the restored log, a tail op the artifact
+        state rejects — falls back to the full first-merge path with
+        a typed :class:`MatzWarning` and a counted fallback: stale is
+        absorbed, wrong is impossible, slow is the worst case."""
+        import warnings
+        self._matz_pending = False          # consume once
+        log = self._log
+        cfg = log._cfg
+        entry = log.matz_entry
+        if entry is None or cfg is None or not matz_enabled():
+            return None
+        length = int(entry["len"])
+        try:
+            if length > len(log):
+                raise CheckpointError(
+                    f"matz artifact covers {length} ops; restored "
+                    f"log holds {len(log)}")
+            z = np.load(os.path.join(cfg.dir, entry["file"]))
+            meta = json.loads(bytes(z["meta"]).decode())
+            if meta.get("kind") != "matz" \
+                    or int(meta["matz_len"]) != length:
+                raise ValueError(f"matz meta mismatch: {meta!r}")
+            nvis = int(meta["nvis"])
+            values = json.loads(bytes(z["values"]).decode())
+            if not isinstance(values, list) \
+                    or len(values) != int(meta["values_len"]):
+                raise ValueError("matz value table inconsistent")
+            arrs = {k: z[k] for k in
+                    ("ts", "parent", "depth", "value_ref", "tomb",
+                     "first", "nxt", "prv")}
+            m = HostTree.from_arrays(arrs, values, self._max_depth,
+                                     nvis)
+            vis_refs = np.asarray(z["vis_refs"])
+            if vis_refs.shape != (nvis,) or (nvis and (
+                    int(vis_refs.min()) < 0
+                    or int(vis_refs.max()) >= len(values))):
+                raise ValueError("matz visible sequence inconsistent")
+            vals_arr = np.empty(len(values), dtype=object)
+            vals_arr[:] = values
+            m.vis_cache = vals_arr[vis_refs].tolist()
+            # tail replay: only the ops past the artifact's coverage
+            # (loads only their covering chunks); duplicates absorb,
+            # anything the artifact state rejects is inconsistency
+            tail = log.materialize(length, len(log))
+            for op in tail:
+                if isinstance(op, Add):
+                    st = m.apply_add(op.ts, tuple(op.path), op.value)
+                else:
+                    st = m.apply_delete(tuple(op.path))
+                if st in (NOT_FOUND, INVALID_PATH):
+                    raise CheckpointError(
+                        f"matz tail replay rejected {op!r}")
+            m.journal.clear()
+        except (CheckpointError, OSError, zipfile.BadZipFile,
+                zlib.error, KeyError, IndexError, ValueError,
+                TypeError, AttributeError, EOFError,
+                struct.error) as e:
+            self.matz_stats["fallbacks"] += 1
+            warnings.warn(
+                f"materialization artifact unusable "
+                f"({type(e).__name__}: {e}); falling back to the "
+                f"full first-merge materialization", MatzWarning,
+                stacklevel=3)
+            return None
+        self.matz_stats["loads"] += 1
+        self.matz_stats["tail_replayed"] += len(log) - length
+        return m
+
+    def checkpoint_tiered(self, dir: str,
+                          write_matz: bool = True) -> str:
+        """Tiered checkpoint: the cascade's base chunks + cold
+        segments stay where they are, the hot tail spills to one final
+        segment, and a ``manifest.json`` (tier layout + clocks/cursor
+        meta) makes the directory self-describing — so restore is
+        *checkpoint + tail* (descriptor opens, O(tail) work) instead
+        of a full-history replay.  An untiered tree enables the
+        cascade at ``dir`` first (non-ephemeral: a checkpoint must
+        survive its writer).
+
+        ``write_matz`` (and ``GRAFT_MATZ``): also persist the
+        MATERIALIZED state artifact when the mirror/table is already
+        in hand, so the restored document's FIRST READ is O(tail)
+        too, not one full-history merge.  Skipped silently when
+        deriving it would itself cost a full merge.
+
+        ``last_operation`` persists as a row span (the
+        :meth:`checkpoint_packed` policy).  Returns the manifest path.
+
+        ``dir`` is honored even when the cascade is already armed
+        elsewhere (a served document tiers into ephemeral engine
+        scratch): the segment files are then COPIED into ``dir``, so
+        the checkpoint survives the engine that wrote it."""
+        if not self._log.tiering_enabled:
+            self.enable_log_tiering(dir, ephemeral=False)
+        meta = self.manifest_meta()
+        # last_operation provenance survives the round trip (the
+        # _last_op_meta policy shared with checkpoint_packed)
+        self._last_op_meta(meta)
+        matz_entry = None
+        if write_matz and matz_enabled():
+            cfg = self._log._cfg
+            matz_entry = self._write_matz_file(
+                dir, fsync=cfg.durable if cfg is not None else False)
+        path = self._log.persist(meta, dir=dir, matz=matz_entry)
+        # the hot tail just spilled: drop the monolithic cache like any
+        # other spill (persist bypasses the maybe_spill hook)
+        self._packed = None
+        return path
 
     @staticmethod
     def restore_tiered(dir: str, replica: Optional[int] = None,
-                       use_matz: bool = True, **tier_kw) -> "TpuTree":
-        raise NotImplementedError(
-            f"restore_tiered is not ported yet; see {TIERING_QUEUE}")
-
-    def write_matz(self) -> bool:
-        raise NotImplementedError(
-            f"the persisted materialization (matz) is not ported yet; "
-            f"see {TIERING_QUEUE}")
+                       use_matz: bool = True, device=None,
+                       **tier_kw) -> "TpuTree":
+        """Rebuild a tree from :meth:`checkpoint_tiered` output —
+        O(tail) descriptor opens, no replay, no full column load (cold
+        tiers page in lazily on first read).  When the manifest
+        references a materialization artifact (and ``use_matz`` /
+        ``GRAFT_MATZ`` allow), the FIRST READ also stays O(tail): the
+        mirror loads from the artifact and replays only the ops past
+        its coverage; a corrupt/stale/missing artifact falls back to
+        the full merge with a :class:`MatzWarning` — never wrong
+        data.  ``replica`` adopts a new identity exactly like
+        :meth:`restore_packed`; ``device`` is where the replica's bulk
+        merges run (the card unless named; nothing is put there at
+        restore).  Raises
+        :class:`~crdt_graph_tpu_torch.core.errors.CheckpointError`
+        (typed, never a silent partial log) on any missing or corrupt
+        manifest or segment file."""
+        dev = merge_mod.resolve_device(device)
+        if replica is not None:
+            ts_mod.make(replica, 0)
+        log, meta = OpLog.open_dir(dir, **tier_kw)
+        try:
+            rid_meta = meta["replica"]
+            ts_mod.make(int(rid_meta), 0)
+            max_depth = int(meta["max_depth"])
+            if max_depth < 1:
+                raise ValueError(f"max_depth {max_depth}")
+            cursor = tuple(int(c) for c in meta["cursor"])
+            replicas = {int(k): int(v)
+                        for k, v in meta["replicas"].items()}
+            timestamp = int(meta["timestamp"])
+            last_op: Optional[Operation] = None
+            span = meta.get("last_op_span")
+            if span is not None:
+                if not (isinstance(span, list) and len(span) == 2
+                        and all(isinstance(x, int)
+                                and not isinstance(x, bool)
+                                for x in span)
+                        and 0 <= span[0] <= span[1] <= len(log)):
+                    raise ValueError(f"last_op_span {span!r} outside "
+                                     f"the {len(log)}-op log")
+            elif "last_operation" in meta:
+                last_op = json_codec.decode(meta["last_operation"])
+        except (KeyError, ValueError, TypeError, AttributeError) as e:
+            raise CheckpointError(
+                f"tiered checkpoint meta in {dir!r} invalid: "
+                f"{type(e).__name__}: {e}") from e
+        rid = rid_meta if replica is None else replica
+        tree = TpuTree(rid, max_depth=max_depth, device=dev)
+        log._cfg.max_depth = max_depth
+        tree._log = log
+        log.set_on_spill(tree._on_log_spill)
+        if use_matz and log.matz_entry is not None:
+            tree._matz_pending = True
+        tree._cursor = cursor
+        tree._replicas = replicas
+        if rid == rid_meta:
+            tree._timestamp = timestamp
+        else:
+            tree._timestamp = max(ts_mod.make(rid, 0),
+                                  replicas.get(rid, 0))
+        # last_operation round-trips: a span
+        # rebuilds LAZILY off the restored view (the span may be a
+        # whole bootstrap ingest living in cold segments — restore
+        # must stay O(tail)); a bare single op materializes eagerly so
+        # the restored echo keeps the reference's bare-op shape; old
+        # manifests without either key keep the empty-batch sentinel.
+        if span is not None:
+            s, e = span
+            if e > s:
+                vb = ViewSpanBatch(log.view(max_depth), s, e)
+                if meta.get("last_op_bare") and e - s == 1:
+                    tree._last_operation = vb.ops[0]
+                else:
+                    tree._last_operation = vb
+        elif last_op is not None:
+            tree._last_operation = last_op
+        return tree
 
 
 def packed_since_bytes(p: PackedOps, initial_timestamp: int) -> bytes:
     """Anti-entropy wire JSON straight off packed columns: the suffix
     from the Add matching ``initial_timestamp`` (inclusive; 0 = full
-    log; no match = empty batch).  The reference's no-native path: the
-    rows unpack and encode through the JSON codec."""
+    log; no match = empty batch), streamed through the native egress
+    encoder (``native.encode_pack``), with the Python codec for a
+    payload the native encoder refuses and when it is unavailable.  The
+    applied log holds each add timestamp at most once, so the cached
+    first-occurrence index IS the terminator."""
+    from . import native
     n = p.num_ops
     if initial_timestamp == 0:
         start = 0
@@ -1111,6 +1551,11 @@ def packed_since_bytes(p: PackedOps, initial_timestamp: int) -> bytes:
         start = p.index().get(initial_timestamp)
         if start is None or start >= n:
             return EMPTY_BATCH_BYTES
+    if native.available():
+        try:
+            return native.encode_pack(p, start)
+        except ValueError:
+            pass  # non-JSON-native payload: take the Python path
     return json_codec.dumps(op_mod.from_list(
         packed_mod.unpack_rows(p, start, n))).encode()
 

@@ -129,3 +129,60 @@ def test_cuda_engine_bootstrap_counts_launches(cuda):
     assert r.visible_values() == t.visible_values()
     assert merge.fallbacks == 1
     assert kernels.launches["plane_rows"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_durable_recovery_merges_on_the_card(cuda, tmp_path):
+    """A durable tiered replica on the card (native ingest, WAL,
+    ``checkpoint_tiered``) crashes mid-spill; ``restore_tiered`` on the
+    card plus the WAL replay equals the never-crashed replica, and the
+    recovery's first full merge goes through kernels 2-4."""
+    import os
+    from crdt_graph_tpu_torch import engine, native, wal
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import packed
+    from crdt_graph_tpu_torch.core.operation import Add
+    n, chunk = 65_536, 8_192
+    arrs = workloads.chain_workload(64, n)
+    p = packed.PackedOps(
+        kind=arrs["kind"], ts=arrs["ts"], parent_ts=arrs["parent_ts"],
+        anchor_ts=arrs["anchor_ts"], depth=arrs["depth"],
+        paths=arrs["paths"], value_ref=arrs["value_ref"], pos=arrs["pos"],
+        values=list(range(n)), num_ops=n, parent_pos=arrs["parent_pos"],
+        anchor_pos=arrs["anchor_pos"], target_pos=arrs["target_pos"],
+        ts_rank=arrs["ts_rank"], hints_vouched=True)
+    assert native.available(), native._build_error
+    bodies = [native.encode_pack(packed.select_rows(
+        p, np.arange(s, min(s + chunk, n)))) for s in range(0, n, chunk)]
+    d = tmp_path / "doc"
+    t = engine.init(1, device=cuda)
+    t.enable_log_tiering(str(d), hot_ops=2048, durable=True)
+    t._log.set_durable_hooks(t.manifest_meta, None)
+    w = wal.Wal(str(d / "wal.log"))
+    for k, body in enumerate(bodies):
+        n0 = t.log_length
+        t.apply_wire(body)
+        w.append(t.log_view().slice_packed(n0, t.log_length), t.log_length)
+        w.sync()
+        if k == 3:
+            t.checkpoint_tiered(str(d), write_matz=False)
+    os.environ["GRAFT_CRASH_POINT"] = "mid-spill"
+    try:
+        with pytest.raises(wal.CrashPoint):
+            t.apply_wire(native.encode_pack(packed.pack([
+                Add(99 * 2**32 + c, ((99 * 2**32 + c - 1)
+                                     if c > 1 else 0,), c)
+                for c in range(1, 4097)])))
+    finally:
+        del os.environ["GRAFT_CRASH_POINT"]
+    w.close()
+    kernels.reset_launches()
+    r = engine.TpuTree.restore_tiered(str(d), device=cuda)
+    wal.Wal(str(d / "wal.log")).replay_into(r, 1 << 17)
+    r.table()
+    torch.cuda.synchronize()
+    for k in ("plane_rows2", "prefix_sums", "monotone_gather"):
+        assert kernels.launches[k] >= 1, kernels.launches
+    got = arrs["ts"][np.asarray(r.visible_values())]
+    np.testing.assert_array_equal(got, workloads.chain_expected_ts(64, n))
+    assert r.log_length == n and r.device.type == "cuda"

@@ -489,7 +489,10 @@ def test_reorder_semantics_match():
     p.check()
 
 
-def test_stale_views_fail_after_a_bulk_merge():
+def test_stale_views_fail_after_a_bulk_merge(tmp_path):
+    """Views go stale across a bulk merge; and the tiering entry points
+    (once refused) now work: the log tiers, spills at the next commit,
+    checkpoints, and the checkpoint restores to the same replica."""
     t = tengine.init(1, device="cpu")
     t.add("a")
     n = t.get(t.visible_paths()[0])
@@ -497,10 +500,17 @@ def test_stale_views_fail_after_a_bulk_merge():
     with pytest.raises(tengine.StaleNodeView):
         n.value
     assert t.get((1 * OFF + 1,)).value == "a"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.enable_log_tiering("/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.checkpoint_tiered("/nonexistent")
+    assert t.enable_log_tiering(str(tmp_path / "tiers"), hot_ops=64) is t
+    t.add("b")
+    assert t._log.spills >= 1
+    path = t.checkpoint_tiered(str(tmp_path / "tiers"))
+    assert path.endswith("manifest.json")
+    r = tengine.TpuTree.restore_tiered(str(tmp_path / "tiers"),
+                                       device="cpu")
+    assert r.visible_values() == t.visible_values()
+    assert r.matz_stats["loads"] == 1
+    assert (r.timestamp, r.cursor, r.log_length) == \
+        (t.timestamp, t.cursor, t.log_length)
 
 
 @pytest.mark.parametrize("count", [tengine.DELTA_THRESHOLD,

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports and merges with ``jax``
-blocked, none of its sources (nor ``chip_smoke.py``) imports ``jax`` or
-the JAX package, and its entry point never falls back to the CPU
-quietly."""
+blocked (the durability modules and the native codec included), none of
+its sources (nor ``chip_smoke.py``) imports ``jax`` or the JAX package,
+and its entry point never falls back to the CPU quietly."""
 import ast
 import os
 import subprocess
@@ -90,6 +90,73 @@ def test_engine_modules_import_and_run_with_jax_blocked():
                          timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "1103"
+
+
+def test_durability_modules_import_and_run_with_jax_blocked(tmp_path):
+    """The native codec, the WAL and the tiered op log import with
+    ``jax`` and the reference package blocked, and a durable session
+    (native ingest, tiered checkpoint, WAL replay) runs on the CPU path.
+    Building the port's native codec writes nothing under the reference
+    package."""
+    ref_pkg = ROOT / "crdt_graph_tpu"
+
+    def ref_files():
+        # bytecode caches and the reference's own build of its codec
+        # are the reference package's business (other test workers may
+        # write them concurrently); anything else must stay untouched
+        return {p: p.stat().st_mtime_ns for p in ref_pkg.rglob("*")
+                if "__pycache__" not in p.parts
+                and p.name != "_fastcodec.so"}
+
+    before = ref_files()
+    d = str(tmp_path / "dur")
+    fresh = tmp_path / "native-build"
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['crdt_graph_tpu'] = None\n"
+        "import crdt_graph_tpu_torch as c\n"
+        "from crdt_graph_tpu_torch import engine, native, oplog, wal\n"
+        "from crdt_graph_tpu_torch.codec import json_codec, packed\n"
+        "from crdt_graph_tpu_torch.serve import metrics\n"
+        f"native.BUILD_ROOT = Path({str(fresh)!r})\n"
+        "assert native.available(), native._build_error\n"
+        "assert native.so_path().exists()\n"
+        f"d = {d!r}\n"
+        "t = c.init(1, device='cpu')\n"
+        "t.enable_log_tiering(d, hot_ops=64, durable=True)\n"
+        "ops = [c.Add(2 * 2**32 + i, ((2 * 2**32 + i - 1) if i > 1 else 0,),"
+        " i) for i in range(1, 1201)]\n"
+        "t.apply_wire(json_codec.dumps(c.Batch(tuple(ops))).encode())\n"
+        "assert native.calls['parse_pack'] == 1\n"
+        "t.checkpoint_tiered(d)\n"
+        "w = wal.Wal(d + '/wal.log')\n"
+        "tail = [c.Add(3 * 2**32 + i, ((3 * 2**32 + i - 1) if i > 1 else 0,),"
+        " -i) for i in range(1, 41)]\n"
+        "w.append(packed.pack(tail), 1240)\n"
+        "w.sync()\n"
+        "r = engine.TpuTree.restore_tiered(d, device='cpu')\n"
+        "st = w.replay_into(r)\n"
+        "t.apply(c.Batch(tuple(tail)))\n"
+        "assert r.visible_values() == t.visible_values()\n"
+        "assert r.dumps_since_bytes(0) == t.dumps_since_bytes(0)\n"
+        "assert isinstance(r._log, oplog.OpLog) and r._log.tiering_enabled\n"
+        "print(st['ops'], r.log_length)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "or m.startswith('crdt_graph_tpu.') "
+        "for m, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "40 1240"
+    assert ref_files() == before, "building the port touched crdt_graph_tpu/"
+    built = list(fresh.rglob("_fastcodec.so"))
+    assert len(built) == 1, built
+    from crdt_graph_tpu_torch import native
+    assert ref_pkg not in native.so_path().parents
 
 
 def test_materialize_without_device_refuses_cpu_fallback():

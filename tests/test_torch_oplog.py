@@ -226,7 +226,17 @@ def test_packed_batch_is_lazy_and_counts():
         joplog.PackedBatch(jpacked.pack(chain_ops(3, 8), max_depth=4)))
 
 
-def test_tail_is_and_tiering_refused():
+def test_tail_is_and_tiering_refused(tmp_path, monkeypatch):
+    """``tail_is`` identity, and tiering (once refused) now arms: the
+    same appends spill to segment files byte-identical to the
+    reference's, and the tiered log reads back the same rows.  The zip
+    members' timestamps are the only wall-clock bytes of a segment
+    file; the zip clock is frozen so whole files compare."""
+    import time
+    import types
+    import zipfile
+    monkeypatch.setattr(zipfile, "time", types.SimpleNamespace(
+        time=lambda: 1_700_000_000.0, localtime=time.localtime))
     t = toplog.OpLog()
     p = tpacked.pack(port(chain_ops(1, 4)), max_depth=4)
     t.extend_packed(p)
@@ -234,8 +244,26 @@ def test_tail_is_and_tiering_refused():
     assert not t.tail_is(toplog.PackedBatch(
         tpacked.pack(port(chain_ops(1, 4)), max_depth=4)))
     assert not t.tiering_enabled
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.enable_tiering("/nonexistent")
+    logs = {}
+    for name, mod, ops in (("t", toplog, port(chain_ops(2, 40))),
+                           ("j", joplog, chain_ops(2, 40))):
+        lg = mod.OpLog()
+        lg.enable_tiering(str(tmp_path / name), hot_ops=8, max_depth=4,
+                          auto_stable=False)
+        assert lg.tiering_enabled
+        for k in range(0, 40, 10):
+            lg.extend(ops[k:k + 10])
+            lg.maybe_spill()
+        logs[name] = lg
+    segs = sorted(f.name for f in (tmp_path / "t").iterdir())
+    assert segs and segs == sorted(f.name for f in
+                                   (tmp_path / "j").iterdir())
+    for f in segs:
+        assert (tmp_path / "t" / f).read_bytes() == \
+            (tmp_path / "j" / f).read_bytes(), f
+    assert logs["t"].telemetry()["spills"] >= 1
+    assert [tjson.dumps(o) for o in logs["t"]] == \
+        [jjson.dumps(o) for o in logs["j"]]
 
 
 # -- the engine-level cases (port engine on the CPU) ---------------------
