@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card
+    python3 chip_smoke.py --route-on   # GRAFT_OPSAXIS=1 (several cards)
 
 Builds the port's CUDA kernels from ``crdt_graph_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and, beside them, its native wire codec with ``g++``
 (``crdt_graph_tpu_torch/native``), holds each kernel against its plain
 PyTorch twin at the merge's real shapes (exact equality: integer data),
-and drives three paths, each with the launch counts set to 0 just before
+and drives four paths, each with the launch counts set to 0 just before
 it and read just after:
 
 - the merge: ``crdt_graph_tpu_torch.ops.merge.materialize`` in the
@@ -21,6 +22,13 @@ it and read just after:
   ops to the oracle ``CRDTree``), an older-format restore that takes the
   sort+join on the card and a vouched one that does not, and a corrupt
   rank hint that falls back and equals ``hints="join"``;
+- the ops-axis sharded merge (``crdt_graph_tpu_torch.parallel.opsaxis``)
+  at full width: config 5 in 2, 4 and 8 logical shards on the card, the
+  with-deletes batch and a halo-straddling deep-paths batch in 8 (and,
+  with two or more cards, config 5 with its shards on distinct cards,
+  timed beside the single-device merge), each equal field for field to
+  the single-device merge, every kernel call of them held to its twin;
+  kernel 5, the ring carry exchange, also at edge cases;
 - durable replicas at full size: the native codec round trip of the 1M
   ops; an 800k-op ingest by ``apply_wire`` into a tiered replica with a
   WAL, committed, appended and fsynced in the scheduler's chunks; a
@@ -31,12 +39,16 @@ it and read just after:
   field and byte for byte; the damage taxonomy (scrub quarantine, a
   broken manifest, a mid-log WAL flip, a torn final record).
 
-Then it times the merge, each kernel, the engine's stages and the
-merge's three hint legs.  Exits non-zero, printing no result, without a
+With ``--route-on`` the engine's and the durable replicas' bulk merges
+of 2^18 rows or more take the ops-axis route (off by default) where the
+host has two or more cards, and those phases hold kernel 5 to its twin
+as well.  Then it times the merge, each kernel, the engine's stages and
+the merge's three hint legs.  Exits non-zero, printing no result, without a
 CUDA device or without the package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times.
-The full record also goes to ``build/chip_smoke.json``.
+The full record also goes to ``build/chip_smoke.json``
+(``build/chip_smoke_route_on.json`` with ``--route-on``).
 """
 from __future__ import annotations
 
@@ -64,7 +76,13 @@ KERNELS = {
                     "crdt_graph_tpu/ops/tour_scan.py:271"),
     "monotone_gather": ("crdt_graph_tpu_torch/csrc/mono_gather.cu",
                         "crdt_graph_tpu/ops/mono_gather.py:102"),
+    "ring_exclusive": ("crdt_graph_tpu_torch/csrc/ring_carry.cu",
+                       "crdt_graph_tpu/ops/tour_scan.py:240"),
 }
+# the kernels of the single-device merge (kernel 5 runs only in the
+# ops-axis sharded merge)
+MERGE_KERNELS = ("plane_rows", "plane_rows2", "prefix_sums",
+                 "monotone_gather")
 
 
 def log(msg: str) -> None:
@@ -87,9 +105,34 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return s.elapsed_time(e) / reps
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time per call of ``fn``: the spans of everything it ran on
+    the card (kernels, copies, fills) summed over ``reps`` calls by
+    ``torch.profiler``, over ``reps``; None when the profiler records no
+    device events.  For functions whose host work outlasts their device
+    work, where CUDA events time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except (AssertionError, RuntimeError):
+        return None
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if getattr(ev, "device_type", None) == cuda)
+    return us / reps / 1e3 if us else None
+
+
 def max_abs_err(got, want) -> float:
     """Largest |got - want| over the outputs (float64; 0 iff equal)."""
     import torch
+    if len(got) != len(want):
+        return float("inf")
     err = 0.0
     for g, w in zip(got, want):
         if not torch.equal(g.cpu(), w.cpu()):
@@ -105,19 +148,51 @@ def bound_ms(nbytes: int, nops: int = 0):
                                  else "operations")
 
 
+def _copy(a):
+    """A copy of a wrapper's argument or result (tensors cloned where
+    they lie, lists and tuples element by element)."""
+    if isinstance(a, (list, tuple)):
+        return type(a)(_copy(x) for x in a)
+    return a.clone() if hasattr(a, "clone") else a
+
+
+def _cpu(a):
+    if isinstance(a, (list, tuple)):
+        return type(a)(_cpu(x) for x in a)
+    return a.cpu() if hasattr(a, "cpu") else a
+
+
+def _outputs(x):
+    return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+# every kernel wrapper of the port: (module name, attribute)
+WRAPPERS = (("fused_resolve", "plane_rows"), ("fused_resolve", "plane_rows2"),
+            ("tour_scan", "prefix_sums"), ("mono_gather", "monotone_gather"),
+            ("tour_scan", "ring_exclusive"))
+
+
+def wrapper_modules(names=None):
+    """[(module, attribute)] of the kernel wrappers named (all five by
+    default), for :func:`capture_inputs`."""
+    import importlib
+    return [(importlib.import_module(f"crdt_graph_tpu_torch.ops.{m}"), a)
+            for m, a in WRAPPERS if names is None or a in names]
+
+
 def capture_inputs(fn, modules):
-    """Run ``fn`` with every kernel wrapper of ``modules`` recording its
-    arguments; return {name: [args, ...]}."""
+    """Run ``fn`` with every kernel wrapper of ``modules`` recording a
+    copy of its arguments and of what it returned; return
+    {name: [(args, out), ...]}."""
     seen = {}
     saved = []
     for mod, name in modules:
         orig = getattr(mod, name)
 
         def rec(*args, _orig=orig, _name=name):
-            seen.setdefault(_name, []).append(
-                tuple(a.clone() if hasattr(a, "clone") else a
-                      for a in args))
-            return _orig(*args)
+            out = _orig(*args)
+            seen.setdefault(_name, []).append((_copy(args), _copy(out)))
+            return out
         saved.append((mod, name, orig))
         setattr(mod, name, rec)
     try:
@@ -126,6 +201,27 @@ def capture_inputs(fn, modules):
         for mod, name, orig in saved:
             setattr(mod, name, orig)
     return seen
+
+
+def twin_errors(caught, twins):
+    """Each recorded call's output (what the kernel returned on the path)
+    held against its twin on CPU copies of the same inputs; launches
+    nothing.  {name: max_abs_err over the calls}."""
+    import torch
+    torch.cuda.synchronize()
+    errs = {}
+    for kname, cases in caught.items():
+        errs[kname] = max(max_abs_err(_outputs(out),
+                                      _outputs(twins[kname](*_cpu(args))))
+                          for args, out in cases)
+    return errs
+
+
+def fold_errors(record, errs):
+    """Raise each kernel's recorded max_abs_err to ``errs``'."""
+    for kname, e in errs.items():
+        rec = record["kernels"].setdefault(kname, {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
 
 DEFAULT_CHUNK_OPS = 1 << 17    # the serving scheduler's chunk (serve/engine.py)
 N_HEAD = 800_000               # rows a replica bootstraps before the delta
@@ -190,7 +286,7 @@ def run_session(tree, steps, Add, oracle=None):
     return times, oracle
 
 
-def engine_phase(dev, record, calls, twins):
+def engine_phase(dev, record, twins):
     """The replica engine (``crdt_graph_tpu_torch.engine.TpuTree``) on the
     card at full size: bootstrap, bulk anti-entropy, interactive deltas,
     the unvouched and vouched restores, corrupt hints.  Raises on any
@@ -204,7 +300,7 @@ def engine_phase(dev, record, calls, twins):
     from crdt_graph_tpu_torch.core.operation import Add, Batch
     from crdt_graph_tpu_torch.core.tree import CRDTree
     from crdt_graph_tpu_torch.host_tree import HostTree
-    from crdt_graph_tpu_torch.ops import fused_resolve as fr, merge, view
+    from crdt_graph_tpu_torch.ops import merge, view
 
     out = {}
     arrs = workloads.chain_workload(N_REPLICAS, N_OPS)
@@ -249,7 +345,7 @@ def engine_phase(dev, record, calls, twins):
     # 1. bootstrap: one vouched 1M-op batch on a fresh replica
     s0 = snap()
     t1 = engine.init(1, device=dev)
-    t1.apply_packed(full)
+    boot = capture_inputs(lambda: t1.apply_packed(full), wrapper_modules())
     torch.cuda.synchronize()
     steps_l["bootstrap"] = delta(s0, snap())
     t0 = time.perf_counter()
@@ -258,7 +354,8 @@ def engine_phase(dev, record, calls, twins):
     st = np.asarray(t1.table().status)[:N_OPS]
     if not np.all(st == merge.APPLIED) or t1.log_length != N_OPS:
         raise RuntimeError("engine bootstrap: some op not applied")
-    for k in ("plane_rows2", "prefix_sums", "monotone_gather"):
+    routed = bulk_kernels(1 << 20)
+    for k in routed:
         if steps_l["bootstrap"][k] < 1:
             raise RuntimeError(f"engine bootstrap never launched {k}")
     log(f"engine bootstrap: {N_OPS} ops applied, closed-form order; "
@@ -326,7 +423,7 @@ def engine_phase(dev, record, calls, twins):
     caught = capture_inputs(
         lambda: rp.append(engine.TpuTree.restore_packed(
             io.BytesIO(old), device=dev).visible_values()),
-        [(fr, "plane_rows")])
+        wrapper_modules())
     steps_l["restore_unvouched"] = delta(s0, snap())
     if rp[0] != vals1 or merge.fallbacks - fb0 != 1:
         raise RuntimeError(f"engine unvouched restore: values equal "
@@ -370,24 +467,24 @@ def engine_phase(dev, record, calls, twins):
     out["fallbacks"] = merge.fallbacks
     log(f"engine corrupt hints: swapped ts_rank fell back, == join field "
         f"for field; engine launches {launches}")
-    for k, v in launches.items():
-        if v < 1:
+    for k in set(routed) | {"plane_rows"}:
+        if launches[k] < 1:
             raise RuntimeError(f"the engine phase never launched {k}")
 
-    # the engine path's new kernel-1 shapes against the twin
-    errs = []
-    for args in caught.get("plane_rows", []):
-        g = calls["plane_rows"](*args)
-        w = twins["plane_rows"](*(a.cpu() for a in args))
-        torch.cuda.synchronize()
-        errs.append(0.0 if torch.equal(g.cpu(), w) else
-                    float((g.cpu().double() - w.double()).abs().max()))
+    # every kernel call of the bootstrap and the unvouched restore (the
+    # engine path's new kernel-1 shapes; kernel 5 where the route is on)
+    # against its twin
+    errs = {}
+    for part in (boot, caught):
+        for kname, e in twin_errors(part, twins).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
     out["plane_rows_engine_shapes"] = [list(a[0].shape)
-                                       for a in caught["plane_rows"]]
-    out["plane_rows_engine_err"] = max(errs)
-    if max(errs) != 0:
-        raise RuntimeError("plane_rows disagrees with its twin at the "
-                           "engine's shapes")
+                                       for a, _ in caught["plane_rows"]]
+    out["twin_err"] = errs
+    if any(errs.values()):
+        raise RuntimeError(f"a kernel disagrees with its twin in the "
+                           f"engine phase: {errs}")
+    del boot, caught
 
     # ---- timing (not counted) ------------------------------------------
     def staged_bootstrap():
@@ -480,7 +577,7 @@ HOT_OPS = 32768                # the serving default hot-tail budget
 N_CRASH = 16384                # the unacknowledged commit the crash kills
 
 
-def durability_phase(dev, record, calls, twins):
+def durability_phase(dev, record, twins):
     """Durable replicas on the card at full size: the native wire codec
     round trip; a tiered, WAL-backed ingest of the config-5 head by
     ``apply_wire`` in the serving scheduler's commits; a tiered
@@ -499,8 +596,7 @@ def durability_phase(dev, record, calls, twins):
     from crdt_graph_tpu_torch.codec import json_codec, packed
     from crdt_graph_tpu_torch.core import operation as op_mod
     from crdt_graph_tpu_torch.core.errors import CheckpointError
-    from crdt_graph_tpu_torch.ops import fused_resolve as fr, merge, \
-        mono_gather as mg, tour_scan as tsc
+    from crdt_graph_tpu_torch.ops import merge
 
     if not native.available():
         raise RuntimeError(f"native codec unavailable: {native._build_error}")
@@ -762,9 +858,7 @@ def durability_phase(dev, record, calls, twins):
     merge.materialize = leg_of
     try:
         caught = capture_inputs(
-            lambda: got.update(a=recover("a", False)),
-            [(fr, "plane_rows"), (fr, "plane_rows2"),
-             (tsc, "prefix_sums"), (mg, "monotone_gather")])
+            lambda: got.update(a=recover("a", False)), wrapper_modules())
         out["recover_a"] = got["a"][1]
         out["recover_a"]["legs"] = [h or "auto" for h in legs]
         del legs[:]
@@ -792,21 +886,10 @@ def durability_phase(dev, record, calls, twins):
     log(f"durability recovery b: matz artifact "
         f"{'used' if used else 'fell back (MatzWarning)'}")
 
-    # every kernel the phase launched, against its twin
-    errs = {}
-    for kname, cases in caught.items():
-        e = 0.0
-        for args in cases:
-            got = calls[kname](*args)
-            want = twins[kname](*(a.cpu() if hasattr(a, "cpu") else a
-                                  for a in args))
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            torch.cuda.synchronize()
-            e = max(e, max_abs_err(got, want))
-        errs[kname] = e
+    # every kernel call of recovery (a), against its twin
+    errs = twin_errors(caught, twins)
     out["twin_err"] = errs
-    out["twin_shapes"] = {k: [list(a.shape) for a in v[0]
+    out["twin_shapes"] = {k: [list(a.shape) for a in v[0][0]
                               if hasattr(a, "shape")]
                           for k, v in caught.items()}
     if any(errs.values()):
@@ -867,6 +950,221 @@ def durability_phase(dev, record, calls, twins):
     return launches
 
 
+SHARDS = (2, 4, 8)             # logical shards of the ops-axis merge
+N_HALO = 262_144               # the halo-straddling deep-paths batch
+
+
+def bulk_kernels(n_rows: int):
+    """The kernels a vouched bulk merge of ``n_rows`` capacity driven by
+    the engine launches: the ops-axis sharded merge where its route is
+    on (``--route-on`` and two or more cards), else the single-device
+    merge."""
+    from crdt_graph_tpu_torch.parallel import opsaxis
+    if opsaxis.enabled_for(n_rows):
+        return ("plane_rows", "prefix_sums", "monotone_gather",
+                "ring_exclusive")
+    return ("plane_rows2", "prefix_sums", "monotone_gather")
+
+
+def opsaxis_phase(dev, record, adds, dels, twins):
+    """The ops-axis sharded merge (``parallel.opsaxis.materialize``) on
+    the card: config 5 at full width in 2, 4 and 8 logical shards, the
+    with-deletes batch and a halo-straddling batch in 8, and, with two or
+    more cards, config 5 with its shards on distinct cards — each table
+    equal field for field to ``merge.materialize`` of the same padded
+    columns on the card.  Every kernel call of those merges is recorded
+    and its output held to its twin on the same inputs (kernel 1 on the
+    shards' windows, kernel 3 on their chunks, kernel 4 on their rank
+    chunks, kernel 5 on their carries), and kernel 5 also at edge cases;
+    the sharded merge is timed beside the single-device one.  Raises on
+    any mismatch.  Returns the phase's kernel launches and kernel 5's
+    timed arguments."""
+    import numpy as np
+    import torch
+    from crdt_graph_tpu_torch import convert, kernels
+    from crdt_graph_tpu_torch.bench import honest, workloads
+    from crdt_graph_tpu_torch.codec import packed
+    from crdt_graph_tpu_torch.ops import merge, tour_scan as tsc
+    from crdt_graph_tpu_torch.parallel import opsaxis
+
+    out = {}
+    halo = workloads.deep_paths(64, N_HALO)
+    exp = workloads.chain_expected_ts(N_REPLICAS, N_OPS)
+
+    def padded(arrs, k):
+        n = arrs["kind"].shape[0]
+        return packed.pad_arrays(arrs, -(-n // k) * k)
+
+    def table(t):
+        torch.cuda.synchronize()
+        return convert.table_to_numpy(t)
+
+    # the single-device tables of the same padded columns, on the card
+    # (before the counted drive)
+    ref = {"config5": table(merge.materialize(adds, hints="exhaustive",
+                                              device=dev)),
+           "deletes": table(merge.materialize(padded(dels, 8), hints=None,
+                                              device=dev)),
+           "halo": table(merge.materialize(padded(halo, 8),
+                                           hints="exhaustive", device=dev))}
+    runs = [("config5", adds, "exhaustive", k) for k in SHARDS] + \
+        [("deletes", dels, None, 8), ("halo", halo, "exhaustive", 8)]
+
+    # ---- the counted drive: every kernel call recorded, and held to its
+    # twin after its run (the check launches nothing) -----------------
+    multi = torch.cuda.device_count() >= 2
+    if multi:
+        # k None: mesh_devices() shards, one a card
+        runs.append(("config5", adds, "exhaustive", None))
+    got, per_run, ring_calls, errs, calls_n, shapes = {}, {}, [], {}, {}, {}
+    mods = wrapper_modules()
+    kernels.reset_launches()
+    merge.host_syncs = 0
+    opsaxis.halo_fallbacks = 0
+    for name, arrs, hints, k in runs:
+        s0 = dict(kernels.launches)
+        f0 = opsaxis.halo_fallbacks
+        res = []
+        t0 = time.perf_counter()
+        caught = capture_inputs(lambda: res.append(table(opsaxis.materialize(
+            arrs, k=k, hints=hints, device=dev))), mods)
+        ms = (time.perf_counter() - t0) * 1e3
+        tag = f"{name}_k{k}" if k else "config5_cards"
+        got[(name, k or "cards")] = res[0]
+        run_err = twin_errors(caught, twins)
+        per_run[tag] = {
+            "ms": ms, "halo_fallbacks": opsaxis.halo_fallbacks - f0,
+            "launches": {kk: kernels.launches[kk] - s0[kk] for kk in s0},
+            "twin_err": run_err}
+        if not k:
+            per_run[tag]["k"] = opsaxis.mesh_devices()
+        for kname, cases in caught.items():
+            errs[kname] = max(errs.get(kname, 0.0), run_err[kname])
+            calls_n[kname] = calls_n.get(kname, 0) + len(cases)
+            shapes.setdefault(kname, set()).update(
+                str([list(a.shape) if hasattr(a, "shape") else
+                     [len(a), int(a[0].shape[0])] if isinstance(a, list)
+                     else a for a in args]) for args, _ in cases)
+        ring_calls += [args for args, _ in caught.get("ring_exclusive", [])]
+        del caught
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    out["launches"] = launches
+    out["runs"] = per_run
+    out["host_syncs"] = merge.host_syncs
+    out["twin_err"] = errs
+    out["twin_calls"] = calls_n
+    out["twin_shapes"] = {kn: sorted(v) for kn, v in shapes.items()}
+    if not multi:
+        log("opsaxis: the distinct-cards leg did not run (1 card: "
+            "mesh_devices() == 1)")
+
+    # ---- every table against the single-device one --------------------
+    for (name, k), tab in got.items():
+        want = ref[name]
+        bad = [f for f in merge.FIELDS if tab[f].dtype != want[f].dtype
+               or not np.array_equal(tab[f], want[f])]
+        if bad:
+            raise RuntimeError(f"opsaxis {name} k={k}: differs from the "
+                               f"single-device merge in {bad}")
+        if name == "config5":
+            nv = int(tab["num_visible"])
+            if nv != N_OPS or not np.array_equal(
+                    tab["ts"][tab["visible_order"][:nv]], exp):
+                raise RuntimeError(f"opsaxis config 5 k={k}: order wrong")
+    for name, r in per_run.items():
+        la = r["launches"]
+        if la["ring_exclusive"] < 1 or la["plane_rows"] < 1 or \
+                la["prefix_sums"] < 1 or la["monotone_gather"] < 1 or \
+                la["plane_rows2"]:
+            raise RuntimeError(f"opsaxis {name}: launches {la}")
+    if per_run["halo_k8"]["halo_fallbacks"] < 1:
+        raise RuntimeError("opsaxis halo batch never took the fallback")
+    if any(r.get("halo_fallbacks", 0) for n, r in per_run.items()
+           if n.startswith("config5")):
+        raise RuntimeError("opsaxis config 5 took the halo fallback")
+    log(f"opsaxis: config 5 ({N_OPS} ops) at k = {SHARDS} logical shards "
+        f"== the single-device merge field for field, closed-form order; "
+        f"with deletes ({dels['kind'].shape[0]} ops) at k = 8 equal; "
+        f"deep paths ({halo['kind'].shape[0]} ops) at k = 8: "
+        f"{per_run['halo_k8']['halo_fallbacks']} halo fallbacks, equal"
+        + (f"; one shard a card (k = {per_run['config5_cards']['k']}) "
+           f"equal" if multi else ""))
+    log(f"opsaxis launches {launches}; by run "
+        f"{ {n: r['launches']['ring_exclusive'] for n, r in per_run.items()} }"
+        f" ring exchanges")
+    for kname in ("plane_rows", "prefix_sums", "monotone_gather",
+                  "ring_exclusive"):
+        if not calls_n.get(kname):
+            raise RuntimeError(f"opsaxis: no {kname} call was recorded")
+    log(f"opsaxis: every recorded kernel call held to its twin: calls "
+        f"{calls_n}, max_abs_err {errs}; argument shapes {out['twin_shapes']}")
+    if any(errs.values()):
+        raise RuntimeError(f"a kernel disagrees with its twin in the "
+                           f"ops-axis phase: {errs}")
+    fold_errors(record, errs)
+
+    # ---- kernel 5 against its twin at edge cases -----------------------
+    rng = np.random.default_rng(5)
+
+    def on_card(rows_):
+        return [torch.from_numpy(np.ascontiguousarray(r)).to(dev)
+                for r in rows_.astype(np.int32)]
+
+    edges = [(on_card(rng.integers(-9, 9, (1, 5))), "add"),
+             (on_card(rng.integers(-9, 9, (1, 1))), "max"),
+             (on_card(rng.integers(-50, 20, (8, 1))), "max"),
+             (on_card(rng.integers(-50, 20, (8, 5))), "max"),
+             (on_card(np.full((8, 5), 2**31 - 7)), "add"),
+             (on_card(rng.integers(-2**31, 2**31 - 1, (8, 1),
+                                   dtype=np.int64)), "add")]
+    e_err = twin_errors(capture_inputs(
+        lambda: [tsc.ring_exclusive(*c) for c in edges],
+        wrapper_modules(["ring_exclusive"])), twins)["ring_exclusive"]
+    fold_errors(record, {"ring_exclusive": e_err})
+    rec5 = record["kernels"]["ring_exclusive"]
+    rec5.update({"cases": len(ring_calls) + len(edges),
+                 "checked_shapes": sorted(
+                     {(len(v), int(v[0].shape[0]), op)
+                      for v, op in ring_calls + edges})})
+    log(f"kernel ring_exclusive: {len(ring_calls)} recorded calls of the "
+        f"drive + {len(edges)} edge cases vs twin (k, L, op in "
+        f"{rec5['checked_shapes']}), max_abs_err {rec5['max_abs_err']}")
+    if rec5["max_abs_err"] != 0:
+        raise RuntimeError("ring_exclusive disagrees with its twin")
+    timed = next(c for c in ring_calls
+                 if c[1] == "add" and c[0][0].shape[0] > 1
+                 and len(c[0]) == 8)
+
+    # ---- timing: k = 8 sharded (and one shard a card) beside the
+    # single-device merge, in turns -------------------------------------
+    fns = {"single": lambda: merge.materialize(adds, hints="exhaustive",
+                                               device=dev),
+           "opsaxis_k8": lambda: opsaxis.materialize(
+               adds, k=8, hints="exhaustive", device=dev),
+           "opsaxis_cards": lambda: opsaxis.materialize(
+               adds, hints="exhaustive", device=dev)}
+    order = ["single", "opsaxis_k8"] + ["opsaxis_cards"] * 2 * multi + \
+        ["opsaxis_k8", "single"]
+    legs = {}
+    for name in order:
+        legs.setdefault(name, []).extend(honest.time_with_readback(
+            fns[name], repeats=3)["times_ms"])
+    out["timing_ms"] = {n: {"p50": float(np.median(v)), "times": v}
+                        for n, v in legs.items()}
+    s, o = (out["timing_ms"][n]["p50"] for n in ("single", "opsaxis_k8"))
+    log(f"opsaxis timing at {N_OPS}: single-device p50 {s:.3f} ms, k = 8 "
+        f"sharded p50 {o:.3f} ms ({o / s:.2f}x); host syncs of the counted "
+        f"drive {out['host_syncs']}")
+    if multi:
+        c = out["timing_ms"]["opsaxis_cards"]["p50"]
+        log(f"opsaxis timing at {N_OPS}: one shard a card (k = "
+            f"{per_run['config5_cards']['k']}) p50 {c:.3f} ms "
+            f"({c / s:.2f}x the single-device merge)")
+    record["opsaxis"] = out
+    return launches, timed
+
+
 def flip_zip_data(path) -> None:
     """One bit-rot event inside the data of an npz's largest member (a
     flip in a zip local header is benign and legitimately not flagged)."""
@@ -884,7 +1182,17 @@ def flip_zip_data(path) -> None:
         f.write(bytes([b[0] ^ 0xFF]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    import os
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--route-on", action="store_true",
+        help="set GRAFT_OPSAXIS=1 for the run: on a host with two or more "
+             "cards the engine's and the durable replicas' bulk merges of "
+             "2^18 rows or more then take the ops-axis sharded merge, one "
+             "shard a card (the route is off by default)")
+    opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -899,9 +1207,12 @@ def main() -> int:
     from crdt_graph_tpu_torch.ops import fused_resolve as fr
     from crdt_graph_tpu_torch.ops import merge, mono_gather as mg, \
         tour_scan as ts, view
+    from crdt_graph_tpu_torch.parallel import opsaxis
 
     dev = torch.device(DEVICE)
     record = {"kernels": {}, "phases": {}}
+    if opts.route_on:
+        os.environ["GRAFT_OPSAXIS"] = "1"
 
     # ---- 1. the card --------------------------------------------------
     card = subprocess.run(
@@ -913,6 +1224,12 @@ def main() -> int:
     record["card"] = card
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    record["route"] = {"route_on": opsaxis.route_on(),
+                       "mesh_devices": opsaxis.mesh_devices(),
+                       "bulk_merge_routed": opsaxis.enabled_for(1 << 20)}
+    routed = record["route"]["bulk_merge_routed"]
+    log(f"ops-axis route: {record['route']} (engine and durability bulk "
+        f"merges {'sharded across the cards' if routed else 'on one card'})")
 
     # ---- 2. build: the CUDA kernels and, beside them, the native codec --
     t0 = time.perf_counter()
@@ -940,25 +1257,25 @@ def main() -> int:
     log(f"workloads: config 5 ({adds['kind'].shape[0]} ops) and config 5 "
         f"with every {DEL_EVERY}th node deleted ({dels['kind'].shape[0]} "
         f"ops) in {record['phases']['gen_s']:.2f} s")
-    wrappers = [(fr, "plane_rows"), (fr, "plane_rows2"),
-                (ts, "prefix_sums"), (mg, "monotone_gather")]
     def vouched(arrs):
         """The main path's merge: a vouched batch in the exhaustive mode
         the engine dispatches for its own ingest."""
         return merge.materialize(arrs, hints="exhaustive", device=dev)
 
     caught = capture_inputs(lambda: (vouched(adds), vouched(dels)),
-                            wrappers)
+                            wrapper_modules(MERGE_KERNELS))
     torch.cuda.synchronize()
 
     # ---- 3. each kernel against its twin ------------------------------
     rng = np.random.default_rng(0)
     twins = {"plane_rows": fr.plain_rows, "plane_rows2": fr.plain_rows2,
              "prefix_sums": ts.plain_prefix,
-             "monotone_gather": mg.plain_gather}
+             "monotone_gather": mg.plain_gather,
+             "ring_exclusive": ts.plain_ring_exclusive}
     calls = {"plane_rows": fr.plane_rows, "plane_rows2": fr.plane_rows2,
              "prefix_sums": ts.prefix_sums,
-             "monotone_gather": mg.monotone_gather}
+             "monotone_gather": mg.monotone_gather,
+             "ring_exclusive": ts.ring_exclusive}
 
     def edge_cases(kname, args):
         """Synthetic inputs at the main-path shapes: negative hops,
@@ -1003,8 +1320,8 @@ def main() -> int:
             out.append((vv, bad[:-5].contiguous()))
         return out
 
-    for kname in KERNELS:
-        cases = caught.get(kname, [])
+    for kname in MERGE_KERNELS:
+        cases = [args for args, _ in caught.get(kname, [])]
         if not cases:
             raise RuntimeError(f"the main path never called {kname}")
         errs, shapes = [], []
@@ -1042,8 +1359,8 @@ def main() -> int:
     for k in ("plane_rows2", "prefix_sums", "monotone_gather"):
         if launches_adds[k] < 1:
             raise RuntimeError(f"config 5 never launched {k}")
-    for k, v in launches.items():
-        if v < 1:
+    for k in MERGE_KERNELS:
+        if launches[k] < 1:
             raise RuntimeError(f"the main path never launched {k}")
     record["launches"] = launches
     record["launches_config5"] = launches_adds
@@ -1104,18 +1421,17 @@ def main() -> int:
                                f"{bad}")
 
     # ---- 5. the replica engine (its own counted drive) ----------------
-    engine_launches = engine_phase(dev, record, calls, twins)
-    record["kernels"]["plane_rows"]["max_abs_err"] = max(
-        record["kernels"]["plane_rows"]["max_abs_err"],
-        record["engine"]["plane_rows_engine_err"])
+    engine_launches = engine_phase(dev, record, twins)
+    fold_errors(record, record["engine"]["twin_err"])
 
     # ---- 6. durable replicas (their own counted drive) ----------------
-    dur_launches = durability_phase(dev, record, calls, twins)
-    for kname, e in record["durability"]["twin_err"].items():
-        record["kernels"][kname]["max_abs_err"] = max(
-            record["kernels"][kname]["max_abs_err"], e)
+    dur_launches = durability_phase(dev, record, twins)
+    fold_errors(record, record["durability"]["twin_err"])
 
-    # ---- 7. timing ------------------------------------------------------
+    # ---- 7. the ops-axis sharded merge (its own counted drive) --------
+    ops_launches, ring_args = opsaxis_phase(dev, record, adds, dels, twins)
+
+    # ---- 8. timing ------------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -1165,6 +1481,14 @@ def main() -> int:
         if kname == "prefix_sums":
             n = args[0].numel() + args[1].numel()
             return 8 * n, n
+        if kname == "ring_exclusive":
+            # the k - 1 carry vectors some output depends on (shard
+            # k - 1's feeds none) read once, k results written once; an
+            # exclusive scan needs k - 2 combines per lane
+            vals = args[0]
+            k, lanes = len(vals), int(vals[0].shape[0])
+            return 4 * (k - 1) * lanes + 4 * k * lanes, \
+                max(k - 2, 0) * lanes
         vals, rid = args
         used = torch.unique(rid.long())
         v, t = vals.shape[0], rid.shape[0]
@@ -1186,37 +1510,62 @@ def main() -> int:
         if kname == "monotone_gather":
             vals, rid = args
             return lambda: torch.index_select(vals, 1, rid)
+        if kname == "ring_exclusive":
+            # one cumsum over the zero-prepended [k + 1, L] stack: row i
+            # is shard i's exclusive sum
+            vals = args[0]
+            stacked = torch.zeros((len(vals) + 1, vals[0].shape[0]),
+                                  dtype=torch.int32, device=dev)
+            stacked[1:] = torch.stack(vals)
+            return lambda: torch.cumsum(stacked, 0, dtype=torch.int32)
         return None
 
     rows = []
     for kname, (src, replaces) in KERNELS.items():
-        args = caught[kname][0]
-        k_ms = cuda_ms(lambda: calls[kname](*args))
-        p_ms = cuda_ms(lambda: twins[kname](*args))
-        lib = library(kname, args)
-        l_ms = cuda_ms(lib) if lib is not None else None
+        args = ring_args if kname == "ring_exclusive" else caught[kname][0][0]
+        fns = {"ms": lambda: calls[kname](*args),
+               "plain_ms": lambda: twins[kname](*args),
+               "library_ms": library(kname, args)}
+        t = {key: cuda_ms(fn) if fn is not None else None
+             for key, fn in fns.items()}
+        rec = record["kernels"][kname]
+        rec["time_source"] = "events"
+        if kname == "ring_exclusive":
+            # launch-latency bound: CUDA events around back-to-back calls
+            # time the host work of each call, so the row takes the card's
+            # own time of each function (profiler) and keeps the events'
+            rec["events_ms"] = t
+            dev_t = {key: device_ms(fn) if fn is not None else None
+                     for key, fn in fns.items()}
+            if all(dev_t[key] is not None for key, fn in fns.items()
+                   if fn is not None):
+                t, rec["time_source"] = dev_t, "profiler device time"
+        k_ms, p_ms, l_ms = t["ms"], t["plain_ms"], t["library_ms"]
         nb, nops = bytes_of(kname, args)
         b_ms, b_by = bound_ms(nb, nops)
-        rec = record["kernels"][kname]
         rec.update({"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
                     "timed_shapes": [list(a.shape) for a in args
-                                     if hasattr(a, "shape")]})
-        log(f"time {kname} {rec['timed_shapes']}: kernel {k_ms:.4f} ms, "
-            f"twin {p_ms:.4f} ms, library "
+                                     if hasattr(a, "shape")] or
+                    [[len(args[0]), int(args[0][0].shape[0])]]})
+        log(f"time {kname} {rec['timed_shapes']} ({rec['time_source']}): "
+            f"kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, library "
             f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, bound "
-            f"{b_ms:.4f} ms ({nb} B)")
+            f"{b_ms:.3e} ms ({nb} B)"
+            + (f"; by CUDA events {rec['events_ms']}" if "events_ms" in rec
+               else ""))
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[kname] + engine_launches[kname]
-                     + dur_launches[kname],
+                     + dur_launches[kname] + ops_launches[kname],
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms})
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    (out_dir / ("chip_smoke_route_on.json" if opts.route_on else
+                "chip_smoke.json")).write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -38,10 +38,11 @@ crossover) runs on its device like any other bulk merge.
 
 The wire paths (``apply_wire``, ``dumps_since_bytes``,
 ``packed_since_bytes``) take the native codec (``native``) when it
-builds, else the reference's own pure-Python paths.  The reference's
-ops-axis route (several devices sharing one merge) is off on one device
-and gives the same table there, so every merge here is the
-single-device ``materialize``.
+builds, else the reference's own pure-Python paths.  Every bulk merge
+goes through the ops-axis route (``parallel.opsaxis.routed_materialize``):
+with ``GRAFT_OPSAXIS=1`` on a host with two or more cards a large merge
+is sharded across them with the same table; otherwise (the default, and
+always on one card) the merge is the single-device ``materialize``.
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ from .oplog import EMPTY_BATCH_BYTES, OpLog, PackedBatch, ViewSpanBatch
 from .ops import merge as merge_mod
 from .ops import view as view_mod
 from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
+from .parallel import opsaxis
 
 # deltas at or under this many leaves apply host-side in O(delta); larger
 # ones re-materialise through the batched merge
@@ -374,8 +376,7 @@ class TpuTree:
     def _materialize(self, p: PackedOps) -> NodeTable:
         """One bulk merge of a candidate packing, on this replica's
         device, in the hint mode its provenance allows."""
-        return merge_mod.materialize(p.arrays(), hints=_mode(p),
-                                     device=self.device)
+        return opsaxis.routed_materialize(p.arrays(), _mode(p), self.device)
 
     def table(self) -> NodeTable:
         """The converged node table (host numpy), re-materialised lazily

@@ -45,6 +45,10 @@ SIGNATURES = {
                          _VP],
     # values, V, R, rid, T, out, stream
     "crdt_monotone_gather": [_VP, _I64, _I64, _VP, _I64, _VP, _VP],
+    # src pointers, dst pointers (host arrays of k), k, L, op, stream
+    "crdt_ring_exclusive": [_VP, _VP, _INT, _I64, _INT, _VP],
+    # device, peer
+    "crdt_enable_peer_access": [_INT, _INT],
 }
 
 

@@ -11,6 +11,10 @@ the reference's Pallas ``fused_resolve._kernel`` / ``_kernel2``) on CUDA
 tensors and its plain PyTorch twin on CPU tensors — the twins are the
 statement of what the kernels compute (the reference's ``_lax_rows`` /
 ``_lax_rows2``, JAX's index clamp included).
+
+The span constants and :func:`halo_window_ok` serve the ops-axis
+sharded merge (``parallel.opsaxis``): its windowed plane gather reads,
+per shard, only a halo of ``SPAN2`` rows around the shard's own slots.
 """
 from __future__ import annotations
 
@@ -20,6 +24,28 @@ import torch
 
 from .. import kernels
 from .indexing import take
+
+TILE = 1024           # the reference kernel's output rows per tile
+SPAN = TILE + 128     # plane rows its one-hop tile window holds
+HOP_J = 1152          # its second-hop locality bound
+SPAN2 = SPAN + 2 * HOP_J   # its two-hop window rows per tile
+
+
+def halo_window_ok(idx: torch.Tensor, w: int, halo: int,
+                   nrows: int) -> torch.Tensor:
+    """True (a 0-d bool tensor) when every index of ``idx`` lies in its
+    shard's halo window: output row j belongs to shard ``j // w``, whose
+    window is ``[lo - halo, lo + w + halo)`` with ``lo = (j // w) * w``.
+    Indices ``<= 0`` and ``>= nrows - 1`` (the ROOT and NULL rows, which
+    the windowed gather overlays elementwise) are exempt.  The caller
+    reads it on the host: one synchronising read per windowed sweep, in
+    place of the reference's ``lax.cond``."""
+    own_lo = torch.div(torch.arange(idx.shape[0], dtype=torch.int32,
+                                    device=idx.device), w,
+                       rounding_mode="floor") * w
+    exempt = (idx <= 0) | (idx >= nrows - 1)
+    in_win = (idx >= own_lo - halo) & (idx < own_lo + w + halo)
+    return torch.all(exempt | in_win)
 
 
 def plain_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,18 @@ def min_drop(base: torch.Tensor, idx: torch.Tensor,
     return ext[:n]
 
 
+def max_drop(base: torch.Tensor, idx: torch.Tensor,
+             val: torch.Tensor) -> torch.Tensor:
+    """``base.at[idx].max(val, mode="drop")``: a scatter-max, exact under
+    any write order."""
+    n = base.shape[0]
+    i, keep = _dropped(idx, n)
+    ext = torch.cat([base, base[:1]])        # row n takes the dropped
+    ext.scatter_reduce_(0, torch.where(keep, i, n), val.to(base.dtype),
+                        "amax", include_self=True)
+    return ext[:n]
+
+
 def add_drop(n: int, idx: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     """``zeros(n).at[idx].add(1, mode="drop")``: counts per index."""
     i, keep = _dropped(idx, n)

@@ -34,6 +34,9 @@ What changes on the way from JAX to PyTorch:
   tour prefix sums, the run expansion) are hand-written CUDA kernels on
   the card (``ops.fused_resolve``, ``ops.tour_scan``, ``ops.mono_gather``)
   and their plain PyTorch twins on the CPU.
+- The reference's ops-axis partition context (``part``, from
+  ``parallel.opsaxis``) threads through ``_resolve`` and ``_finish`` at
+  the reference's hook sites; without it every path is unchanged.
 """
 from __future__ import annotations
 
@@ -209,14 +212,21 @@ def _sib_links(kp, gg, neg, M: int):
 
 
 def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
-            probe: Optional[int], acc: Optional[int]):
+            probe: Optional[int], acc: Optional[int], part=None):
     """Stages 3-13 from the resolution 10-tuple (reference ``_finish``,
     with every round-7 cut on).  A resolution that leaves ``node_ts`` and
     ``node_pos`` as None is the fused slot-hint leg: both come from the
     node-frame plane gather.  Otherwise (the ranked, link-hinted and
     sort+join legs) they are given, the plane carries no extras, the
     parent frame is a row gather through ``pslot`` and the anchor's
-    parent a plain index."""
+    parent a plain index.
+
+    ``part`` is the ops-axis partition context
+    (``parallel.opsaxis.OpsAxisPart``) or None.  Under it the merge's
+    memory-bound ops go through the context's sharded forms at the
+    reference's hook sites, and the node frame takes the one-hop plane
+    (the reference's sharded trace runs without its device kernels, and
+    the two-hop frame is device-only there); the table is the same."""
     kind = ops["kind"]
     dev = kind.device
     ts = ops["ts"].to(torch.int64)
@@ -254,7 +264,9 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     if fused:
         ap_src = _pack_u(ops["anchor_psl"].to(torch.int32), pos)
         extra = [ap_src[:, None], ts[:, None]]
-    fused2 = fused and "parent_row" in ops
+    fused2 = fused and "parent_row" in ops and part is None
+    rows = part.gather_rows if part is not None else \
+        (lambda t, i: t[i.long()])
     if fused2:
         extra.append(ops["parent_row"].to(torch.int64)[:, None])
     HOP_COL = 2 + len(extra) - 1
@@ -263,6 +275,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     nsr = nsr.to(torch.int32).contiguous()
     if fused2:
         g, g2 = fused_resolve.plane_rows2(plane, nsr, HOP_COL)
+    elif part is not None:
+        g, g2 = part.plane_rows(plane, nsr), None
     else:
         g, g2 = fused_resolve.plane_rows(plane, nsr), None
     k = 2 + len(extra)
@@ -313,9 +327,10 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         par = torch.where(put_p, pts[:, None], pc)
     else:
         # parent path + depth in one [M, D+1] row gather through pslot
-        pplane = fused_resolve.plane_rows(
-            torch.cat([fp, node_depth[:, None].to(torch.int64)],
-                      dim=1).contiguous(), pslot.contiguous())
+        pplane_src = torch.cat([fp, node_depth[:, None].to(torch.int64)],
+                               dim=1).contiguous()
+        pplane = part.plane_rows(pplane_src, pslot) if part is not None \
+            else fused_resolve.plane_rows(pplane_src, pslot.contiguous())
         par, par_depth = pplane[:, :D], pplane[:, D].to(torch.int32)
     prefix_ok = torch.all(
         torch.where(cols < node_depth[:, None] - 1, claimed == par, True),
@@ -323,7 +338,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     depth_ok = (node_depth >= 1) & (node_depth <= D) & \
         (node_depth == par_depth + 1)
     parent_ok = pfound & depth_ok & prefix_ok
-    anchor_parent = ansl >> 1 if fused else pslot[aslot.long()]
+    anchor_parent = ansl >> 1 if fused else rows(pslot, aslot)
     anchor_ok = node_anchor_is_sentinel | \
         (afound & (anchor_parent == pslot) & (aslot != ROOT))
     local_ok = is_node_slot & (node_ts > 0) & parent_ok & anchor_ok
@@ -370,7 +385,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         tplane = torch.cat(
             [fp, ((node_depth.to(torch.int64) << 1) |
                   valid.to(torch.int64))[:, None]], dim=1).contiguous()
-        tg = fused_resolve.plane_rows(tplane, d_tslot.contiguous())
+        tg = part.gather_rows(tplane, d_tslot) if part is not None else \
+            fused_resolve.plane_rows(tplane, d_tslot.contiguous())
         t_depth = (tg[:, D] >> 1).to(torch.int32)
         t_valid = (tg[:, D] & 1) != 0
         d_depth_ok = (depth >= 1) & (depth <= D) & (t_depth == depth)
@@ -380,14 +396,20 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         d_ok = is_del & d_tfound & (d_tslot != ROOT) & t_valid & \
             d_depth_ok & d_path_ok
         d_tgt = torch.where(d_ok, d_tslot, NULL)
-        deleted = set_drop(torch.zeros(M, dtype=torch.bool, device=dev),
-                           d_tgt, True)
+        if part is not None:
+            deleted = part.frame_reduce(
+                M, 0, d_tgt, torch.ones(N, **i32), "max") != 0
+            del_pos = part.frame_reduce(M, IPOS, d_tgt, pos, "min")
+        else:
+            deleted = set_drop(torch.zeros(M, dtype=torch.bool, device=dev),
+                               d_tgt, True)
+            del_pos = min_drop(torch.full((M,), IPOS, **i32), d_tgt, pos)
         deleted[NULL] = False
-        del_pos = min_drop(torch.full((M,), IPOS, **i32), d_tgt, pos)
         del_pos[NULL] = IPOS
         # ---- 8. Dead-subtree propagation down tree-parent chains
         pe = parent_eff.long()
-        anc_del = torch.where(deleted[pe], del_pos[pe], IPOS)
+        anc_del = torch.where(rows(deleted, parent_eff),
+                              rows(del_pos, parent_eff), IPOS)
         anc_del = _fix_min(anc_del, pe, _read(torch.any(d_ok)),
                            _ceil_log2(D) + 1)
         dead = valid & (anc_del < IPOS)
@@ -457,19 +479,25 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             n_crowded_t = cc[N - 1] + 1
         else:
             par = torch.where(in_forest, order_parent, M)
-            cnt = add_drop(M, par)
-            crowded = in_forest & (cnt[torch.clamp(par, max=M - 1).long()]
+            cnt = part.frame_add(M, par) if part is not None else \
+                add_drop(M, par)
+            crowded = in_forest & (rows(cnt, torch.clamp(par, max=M - 1))
                                    >= 2)
-            cpos = torch.cumsum(crowded.to(torch.int32), 0,
-                                dtype=torch.int32) - 1
+            cpos = (part.cumsum(crowded) if part is not None else
+                    torch.cumsum(crowded.to(torch.int32), 0,
+                                 dtype=torch.int32)) - 1
             n_crowded_t = cpos[M - 1] + 1
 
         def fc_singletons(fc):
             """The singleton first-child overlay (every uncrowded
             parent's one child)."""
             single = in_forest & ~crowded
-            return set_drop(fc, torch.where(single, order_parent, M),
-                            torch.where(single, slot_ids, -1))
+            tgt = torch.where(single, order_parent, M)
+            val = torch.where(single, slot_ids, -1)
+            if part is not None:
+                ov = part.frame_set(M, -1, tgt, val, "max")
+                return torch.where(ov >= 0, ov, fc)
+            return set_drop(fc, tgt, val)
 
         def br_compact(cap):
             """The compact sibling branch at width ``cap`` ≥ n_crowded:
@@ -492,10 +520,14 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             # running max of the crowded slots = the last crowded slot at
             # or before each row: the c-th crowded slot, c the count so
             # far (one cumsum and a scatter, not a cummax)
-            c = torch.cumsum(crowded.to(torch.int32), 0, dtype=torch.int32)
-            kth = set_drop(torch.full((M,), -1, **i32),
-                           torch.where(crowded, c - 1, M), slot_ids)
-            pc = torch.where(c > 0, kth[torch.clamp(c - 1, min=0)], -1)
+            if part is not None:
+                pc = part.cummax(torch.where(crowded, slot_ids, -1))
+            else:
+                c = torch.cumsum(crowded.to(torch.int32), 0,
+                                 dtype=torch.int32)
+                kth = set_drop(torch.full((M,), -1, **i32),
+                               torch.where(crowded, c - 1, M), slot_ids)
+                pc = torch.where(c > 0, kth[torch.clamp(c - 1, min=0)], -1)
             prev = torch.cat([torch.full((1,), -1, **i32), pc[:-1]])
             sib = torch.where(crowded, prev, -1).to(torch.int32)
             head = torch.max(torch.where(crowded, slot_ids, -1))
@@ -565,8 +597,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     w_lanes = torch.stack(
         [exists.to(torch.int32)] if single_w else
         [exists.to(torch.int32), visible.to(torch.int32)]).contiguous()
-    rid_incl, w_incl = tour_scan.prefix_sums(
-        boundary.to(torch.int32).contiguous(), w_lanes)
+    scan = part.prefix_sums if part is not None else tour_scan.prefix_sums
+    rid_incl, w_incl = scan(boundary.to(torch.int32).contiguous(), w_lanes)
     rid = rid_incl - 1
     z1 = torch.zeros(1, **i32)
     cse_doc = torch.cat([z1, w_incl[0]])
@@ -616,6 +648,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         ] + ([] if single_w else [
             cse_vis[run_s_c[:out]], cse_vis[run_e1_c[:out]], b[:out],
         ])).to(torch.int32).contiguous()
+        if part is not None:
+            return part.mono_expand(per_run, rid_m)
         return mono_gather.monotone_gather(per_run, rid_m)
 
     R_CAP = _env_cap("GRAFT_R_CAP", R_CAP_DEFAULT)
@@ -661,8 +695,10 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
 
     def order_frame(mask, dense):
         """Rank→slot frame scatter (ranks are unique per mask)."""
-        return set_drop(torch.full((M,), NULL, **i32),
-                        torch.where(mask, dense, M), slot_ids)
+        tgt = torch.where(mask, dense, M)
+        if part is not None:
+            return part.frame_set(M, NULL, tgt, slot_ids, "min")
+        return set_drop(torch.full((M,), NULL, **i32), tgt, slot_ids)
 
     doc_dense = rank_of(ex[1], ex[2], ex[3], cse_doc)
     doc_index = torch.where(exists, doc_dense, IPOS).to(torch.int32)
@@ -683,7 +719,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     a_sentinel = ts <= 0
     if no_deletes:
         meta_s = valid.to(torch.int32) | (parent_ok.to(torch.int32) << 1)
-        a_meta = meta_s[a_slot]
+        a_meta = rows(meta_s, op_slot)
         a_valid = (a_meta & 1) != 0
         a_parent_ok = (a_meta & 2) != 0
         # valid[pslot] (the NOT_FOUND/INVALID_PATH split) is read only
@@ -701,12 +737,12 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     else:
         meta = (valid.to(torch.int32)
                 | (parent_ok.to(torch.int32) << 1)
-                | (valid[pslot.long()].to(torch.int32) << 2))
-        a_meta = meta[a_slot]
+                | (rows(valid, pslot).to(torch.int32) << 2))
+        a_meta = rows(meta, op_slot)
         a_valid = (a_meta & 1) != 0
         a_parent_ok = (a_meta & 2) != 0
         a_grandvalid = (a_meta & 4) != 0
-        a_absorbed = a_valid & (anc_del[a_slot] < pos)
+        a_absorbed = a_valid & (rows(anc_del, op_slot) < pos)
         a_status = torch.where(
             a_sentinel | (a_valid & (op_is_dup | a_absorbed)),
             ALREADY_APPLIED,
@@ -714,12 +750,11 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
                         torch.where(a_parent_ok & a_grandvalid, NOT_FOUND,
                                     INVALID_PATH)))
         status = torch.where(is_add, a_status.to(torch.int8), status)
-        dts = d_tslot.long()
         d_parent_ok = (depth == 1) | \
-            ((depth >= 2) & dp_found & ((meta[dp_slot.long()] & 1) != 0))
-        d_anc_absorbed = d_ok & (anc_del[dts] < pos)
-        d_repeat = d_ok & (del_pos[dts] < pos)
-        d_target_later = d_ok & (node_pos[dts] > pos)
+            ((depth >= 2) & dp_found & ((rows(meta, dp_slot) & 1) != 0))
+        d_anc_absorbed = d_ok & (rows(anc_del, d_tslot) < pos)
+        d_repeat = d_ok & (rows(del_pos, d_tslot) < pos)
+        d_target_later = d_ok & (rows(node_pos, d_tslot) > pos)
         d_sentinel = (ts == 0) & d_parent_ok
         d_status = torch.where(
             d_sentinel | d_anc_absorbed | (d_repeat & ~d_target_later),
@@ -819,7 +854,8 @@ def _res_hint(hint, want, slot_or_neg, ts, N: int, M: int, check_ts: bool):
     return slot.to(torch.int32), (want == 0) | ok, miss
 
 
-def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str):
+def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
+             part=None):
     """Stages 1-2: slot assignment and timestamp→slot resolution, the
     leg chosen as the reference chooses it (merge.py ``_materialize``).
 
@@ -835,7 +871,9 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str):
       join.
 
     ``leg`` is :func:`select_leg` of the caller's columns.  Each
-    verification is ONE predicate read back to the host."""
+    verification is ONE predicate read back to the host.  Under the
+    ops-axis context ``part`` the winner frame is its sharded scatter-min
+    and the ranked leg's winner read-back its sharded gather."""
     global fallbacks
     kind = ops["kind"]
     dev = kind.device
@@ -847,6 +885,14 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str):
     i32 = dict(dtype=torch.int32, device=dev)
     is_add = kind == KIND_ADD
     is_del = kind == KIND_DELETE
+    def win_frame(has_rank, op_slot):
+        """The winner scatter-min: the first array row per slot."""
+        tgt = torch.where(has_rank, op_slot, M)
+        row_idx = torch.arange(N, **i32)
+        if part is not None:
+            return part.frame_reduce(M, IPOS, tgt, row_idx, "min")
+        return min_drop(torch.full((M,), IPOS, **i32), tgt, row_idx)
+
     if leg == "slot":
         rank = ops["ts_rank"].to(torch.int32)
         is_real_add = is_add & (ts > 0) & (ts < BIG)
@@ -856,9 +902,7 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str):
             pad = torch.full((1,), IPOS, **i32)
             win = torch.cat([pad, ops["win_row"].to(torch.int32), pad])
         else:
-            win = min_drop(torch.full((M,), IPOS, **i32),
-                           torch.where(has_rank, op_slot, M),
-                           torch.arange(N, **i32))
+            win = win_frame(has_rank, op_slot)
         op_is_dup = (ops["dup_row"] != 0) & has_rank
         pf = ops["parent_sl"].to(torch.int32)
         af = ops["at_sl"].to(torch.int32)
@@ -890,9 +934,10 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str):
         op_slot = torch.where(has_rank, rank + 1, NULL).to(torch.int32)
         row_idx = torch.arange(N, **i32)
         # canonical copy = min array row per slot (first array row wins)
-        win = min_drop(torch.full((M,), IPOS, **i32),
-                       torch.where(has_rank, op_slot, M), row_idx)
-        is_canon_op = has_rank & (row_idx == win[op_slot.long()])
+        win = win_frame(has_rank, op_slot)
+        win_back = part.gather_rows(win, op_slot) if part is not None \
+            else win[op_slot.long()]
+        is_canon_op = has_rank & (row_idx == win_back)
         op_is_dup = has_rank & ~is_canon_op
         is_node_slot, node_ts, node_pos = _node_cols_from_row(
             win, ts, pos, M, N)
@@ -995,17 +1040,24 @@ def materialize(ops: Dict, hints: Optional[str] = None, device=None,
     if hints not in HINT_MODES:
         raise ValueError(f"unknown hints mode {hints!r}; expected None, "
                          "'auto', 'exhaustive', or 'join'")
-    dev = resolve_device(device)
-    no_deletes = host_no_deletes(ops["kind"])
+    return _materialize(ops, hints, resolve_device(device),
+                        host_no_deletes(ops["kind"]), probe)
+
+
+def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
+                 no_deletes: bool, probe: Optional[int] = None, part=None):
+    """The merge on ``dev`` with the no-deletes promise already checked;
+    ``part`` is the ops-axis partition context, which only
+    ``parallel.opsaxis.materialize`` passes."""
     from ..convert import ops_from_numpy
     leg = select_leg(ops, hints)
     t_ops = ops_from_numpy({k: ops[k] for k in LEG_COLS[leg] if k in ops},
                            dev)
     if t_ops["kind"].shape[0] + 2 > 2**30:
         raise ValueError("op count exceeds the 2^30 - 2 slot space")
-    sel = _resolve(t_ops, hints, leg)
+    sel = _resolve(t_ops, hints, leg, part)
     acc = _probe_sum(*(x for x in sel if x is not None)) \
         if probe is not None else None
     if probe == 1:
         return acc
-    return _finish(t_ops, sel, no_deletes, probe, acc)
+    return _finish(t_ops, sel, no_deletes, probe, acc, part)

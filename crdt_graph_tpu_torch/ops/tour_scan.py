@@ -1,4 +1,4 @@
-"""The tour-tail prefix sums (merge stage 6).
+"""The tour-tail prefix sums (merge stage 6), whole and sharded.
 
 ``prefix_sums(boundary, weights)`` returns the inclusive int32 cumsums of
 ``boundary[T]`` (the run-id stream over the Euler-tour tokens) and of
@@ -8,19 +8,27 @@ own.  On CUDA tensors it runs the three-phase scan of
 ``tour_scan._kernel``); on CPU tensors its plain twin (the reference's
 ``_lax_prefix``).
 
-The reference's ring-carry kernel for the ops-axis sharded merge
-(``tour_scan.ring_exclusive_pallas``) is multi-device and is not part of
-this package yet.
+The ops-axis sharded merge (``parallel.opsaxis``) splits the same scans
+into k contiguous chunks: each shard scans its own chunk (through
+``prefix_sums``), the chunks' totals are exchanged around the ring by
+``ring_exclusive`` — the port of the reference's Pallas
+``ring_exclusive_pallas``, ``csrc/ring_carry.cu`` on CUDA tensors — and
+each shard adds its exclusive carry (``sharded_prefix_sums``).  Integer
+addition is associative and wraps the same way in any order, so the
+sharded scans equal the whole ones bit for bit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
 from .. import kernels
 
 SCAN_TILE = 4096   # elements per block of csrc/prefix_sums.cu (SCAN_TILE)
+RING_MAX_SHARDS = 64   # csrc/ring_carry.cu (RING_MAX_SHARDS)
+RING_OPS = ("add", "max")
 
 
 def plain_prefix(boundary: torch.Tensor, weights: torch.Tensor
@@ -60,3 +68,152 @@ def prefix_sums(boundary: torch.Tensor, weights: torch.Tensor
             build.stream_ptr(boundary.device)), "crdt_prefix_sums")
         kernels.launches["prefix_sums"] += 1
     return ob, ow
+
+
+# ---- the ring carry exchange (kernel 5) ---------------------------------
+
+def plain_ring_exclusive(vals: Sequence[torch.Tensor],
+                         op: str = "add") -> List[torch.Tensor]:
+    """Twin of kernel 5: shard i's [L] result is the combine of the
+    [L] vectors of every shard j < i (shard 0: zeros) — a shifted
+    ``cumsum`` (int32, wrapping) or ``cummax`` over the stacked [k, L]
+    carries.  ``max`` starts from 0, the reference's ppermute zero-fill,
+    so negative carries clamp to 0.  Each result lies on its input's
+    device."""
+    if op not in RING_OPS:
+        raise ValueError(f"unknown ring op {op!r}")
+    if not vals:
+        return []
+    home = vals[0].device
+    v = torch.stack([x.to(home, torch.int32) for x in vals])
+    if op == "add":
+        incl = torch.cumsum(v, 0, dtype=torch.int32)
+    else:
+        incl = torch.cummax(v, 0).values.clamp(min=0)
+    ex = torch.cat([torch.zeros_like(incl[:1]), incl[:-1]])
+    return [ex[i].to(vals[i].device) for i in range(len(vals))]
+
+
+_peers_enabled = set()
+
+
+def _enable_peers(lib, launch: torch.device, devices) -> None:
+    """Open the launching card's context to every other card a buffer
+    lies on (once per pair); raises where a pair has no peer path."""
+    from ..kernels import build
+    for d in devices:
+        pair = (launch.index, d.index)
+        if pair not in _peers_enabled:
+            build.check(lib.crdt_enable_peer_access(*pair),
+                        f"crdt_enable_peer_access{pair}")
+            _peers_enabled.add(pair)
+
+
+def ring_exclusive(vals: Sequence[torch.Tensor],
+                   op: str = "add") -> List[torch.Tensor]:
+    """The exclusive ring exchange of k per-shard int32 [L] carry
+    vectors (see :func:`plain_ring_exclusive`): the CUDA kernel when the
+    vectors lie on CUDA devices (one launch, on shard 0's card, at most
+    64 shards; shards on other cards are reached by peer access), the
+    twin when they lie on the CPU.  Returns one [L] tensor per shard, on
+    that shard's device."""
+    if op not in RING_OPS:
+        raise ValueError(f"unknown ring op {op!r}")
+    if not vals:
+        return []
+    types = {x.device.type for x in vals}
+    if types == {"cpu"}:
+        return plain_ring_exclusive(vals, op)
+    if types != {"cuda"}:
+        raise ValueError(f"unsupported devices {sorted(types)}")
+    from ..kernels import build
+    k = len(vals)
+    shape = vals[0].shape
+    if k > RING_MAX_SHARDS:
+        raise ValueError(f"{k} shards exceed the kernel's "
+                         f"{RING_MAX_SHARDS}")
+    for x in vals:
+        if x.dtype != torch.int32 or x.shape != shape or len(shape) != 1 \
+                or not x.is_contiguous():
+            raise ValueError("carries must be contiguous int32 [L] "
+                             "vectors of one length")
+    lib = build.load()
+    n = shape[0]
+    launch = vals[0].device
+    others = {x.device for x in vals} - {launch}
+    out = [torch.empty_like(x) for x in vals]
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(launch)
+    if others:
+        _enable_peers(lib, launch, others)
+        for d in others:
+            # the carries were written on their own cards' streams
+            stream.wait_stream(torch.cuda.current_stream(d))
+    src = (ctypes.c_void_p * k)(*[x.data_ptr() for x in vals])
+    dst = (ctypes.c_void_p * k)(*[y.data_ptr() for y in out])
+    with torch.cuda.device(launch):
+        build.check(lib.crdt_ring_exclusive(
+            ctypes.cast(src, ctypes.c_void_p),
+            ctypes.cast(dst, ctypes.c_void_p), k, n,
+            RING_OPS.index(op), stream.cuda_stream), "crdt_ring_exclusive")
+    kernels.launches["ring_exclusive"] += 1
+    for d in others:
+        torch.cuda.current_stream(d).wait_stream(stream)
+    return out
+
+
+# ---- the sharded prefix sums ---------------------------------------------
+
+def sharded_prefix_sums(boundary: torch.Tensor, weights: torch.Tensor,
+                        part) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`prefix_sums` with every scan split into the k chunks of the
+    ops-axis context ``part`` (``parallel.opsaxis.OpsAxisPart``), as the
+    reference's ``sharded_prefix_sums`` splits them:
+
+    - the token axis is re-laid as ``[2, k·W]`` (W = ceil(M/k)): the
+      enter half (the first M tokens) and the exit half, each zero-padded
+      to k·W, so each shard scans one W-wide chunk of each half and of
+      each weight lane — one ``prefix_sums`` launch per shard;
+    - the ``2 + Kw`` chunk totals ride ONE ring exchange;
+    - the exit half's carry also folds the whole enter half (the sum of
+      the enter chunks' totals, the reference's ``psum``).
+
+    Operands and results lie on the merge's device; shard i's scans on
+    ``part``'s device i."""
+    k = part.k
+    t = boundary.shape[0]
+    kw, m = weights.shape
+    w = -(-m // k)
+    t_lo = min(m, t)
+    if t - t_lo > k * w:
+        raise ValueError(f"{t} tokens exceed two halves of {k * w}")
+    b32 = boundary.to(torch.int32)
+    w32 = weights.to(torch.int32)
+    ca, cb, cw, totals = [], [], [], []
+    for i in range(k):
+        with part._on(i, b32) as dev:
+            ent = part._local(b32[:t_lo], w, i, dev)
+            ext = part._local(b32[t_lo:], w, i, dev)
+            lanes = torch.cat([ext[None, :],
+                               part._local(w32.T, w, i, dev).T])
+            a, bw = prefix_sums(ent, lanes.contiguous())
+            ca.append(a)
+            cb.append(bw[0])
+            cw.append(bw[1:])
+            totals.append(torch.cat([a[-1:], bw[:, -1]]))
+    ex = ring_exclusive(totals, "add")
+    home = b32.device
+    ent_total = torch.zeros((), dtype=torch.int32, device=home)
+    for a in ca:
+        ent_total = ent_total + a[-1].to(home)
+    out_a, out_b, out_w = [], [], []
+    for i in range(k):
+        with part._on(i, b32) as dev:
+            out_a.append(ca[i] + ex[i][0])
+            out_b.append(cb[i] + ex[i][1] + ent_total.to(dev))
+            out_w.append(cw[i] + ex[i][2:, None])
+    flat_a = part._ag(out_a, t_lo, home)
+    flat_b = part._ag(out_b, t - t_lo, home)
+    ow = torch.cat([x.to(home) for x in out_w], dim=1)[:, :m]
+    return torch.cat([flat_a, flat_b]), ow.contiguous()

@@ -29,6 +29,19 @@ def _hop_plane(rng, r, c, hop_col, spread, neg_frac=0.2):
     return plane
 
 
+def _vouched(arrs, n):
+    """A vouched ``PackedOps`` over config-5 arrays whose values are the
+    row numbers."""
+    from crdt_graph_tpu_torch.codec import packed
+    return packed.PackedOps(
+        kind=arrs["kind"], ts=arrs["ts"], parent_ts=arrs["parent_ts"],
+        anchor_ts=arrs["anchor_ts"], depth=arrs["depth"],
+        paths=arrs["paths"], value_ref=arrs["value_ref"], pos=arrs["pos"],
+        values=list(range(n)), num_ops=n, parent_pos=arrs["parent_pos"],
+        anchor_pos=arrs["anchor_pos"], target_pos=arrs["target_pos"],
+        ts_rank=arrs["ts_rank"], hints_vouched=True)
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -67,7 +80,58 @@ def test_cuda_kernels_equal_twins(cuda):
             got.cpu().numpy(), tmg.plain_gather(_t(vals), _t(rid)).numpy())
     torch.cuda.synchronize()
     assert kernels.launches == {"plane_rows": 1, "plane_rows2": 1,
-                                "prefix_sums": 2, "monotone_gather": 2}
+                                "prefix_sums": 2, "monotone_gather": 2,
+                                "ring_exclusive": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_ring_exclusive_equals_twin(cuda):
+    """Kernel 5 against its twin: add (wrapping like int32) and max (the
+    zero start clamps negative carries), k = 1 to the 64-shard cap, L = 1
+    to a multi-block lane count."""
+    rng = np.random.default_rng(1)
+    kernels.reset_launches()
+    n = 0
+    for k in (1, 2, 8, 64):
+        for lanes in (1, 5, 300):
+            for op, lo, hi in (("add", -2**31, 2**31 - 1), ("max", -50, 20),
+                               ("max", 1, 1000)):
+                vals = rng.integers(lo, hi, (k, lanes),
+                                    dtype=np.int64).astype(np.int32)
+                got = tts.ring_exclusive(
+                    [_t(v).to(cuda) for v in vals], op)
+                want = tts.plain_ring_exclusive([_t(v) for v in vals], op)
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+                n += 1
+    torch.cuda.synchronize()
+    assert kernels.launches["ring_exclusive"] == n
+    with pytest.raises(ValueError):
+        tts.ring_exclusive([torch.zeros(2, dtype=torch.int32, device=cuda)]
+                           * 65)
+
+
+@pytest.mark.cuda
+def test_cuda_opsaxis_merge_equals_single_device(cuda):
+    """The ops-axis sharded merge at k = 8 logical shards on the card
+    equals the single-device merge field for field, and its scans went
+    through kernel 5."""
+    from crdt_graph_tpu_torch import convert
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.parallel import opsaxis
+    for arrs, hints in ((workloads.chain_workload(64, 65_536), "exhaustive"),
+                        (workloads.chain_with_deletes(65_536, 16, 64),
+                         None)):
+        want = convert.table_to_numpy(merge.materialize(arrs, hints=hints,
+                                                        device=cuda))
+        kernels.reset_launches()
+        got = convert.table_to_numpy(opsaxis.materialize(
+            arrs, k=8, hints=hints, device=cuda))
+        torch.cuda.synchronize()
+        assert kernels.launches["ring_exclusive"] >= 1
+        for f in merge.FIELDS:
+            np.testing.assert_array_equal(got[f], want[f], f)
 
 
 @pytest.mark.cuda
@@ -186,3 +250,45 @@ def test_cuda_durable_recovery_merges_on_the_card(cuda, tmp_path):
     got = arrs["ts"][np.asarray(r.visible_values())]
     np.testing.assert_array_equal(got, workloads.chain_expected_ts(64, n))
     assert r.log_length == n and r.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_cuda_opsaxis_shards_on_distinct_cards(cuda, monkeypatch):
+    """With two or more cards the sharded merge puts its shards on
+    distinct cards (kernel 5 reaches them by peer access) and equals the
+    single-device merge; with the route asked for, the engine's bulk
+    merge then takes it.  Skips on a one-card machine."""
+    from crdt_graph_tpu_torch import convert, engine
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.parallel import opsaxis
+    if opsaxis.mesh_devices() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    k = opsaxis.mesh_devices()
+    arrs = workloads.chain_workload(64, 65_536)
+    want = convert.table_to_numpy(merge.materialize(arrs, hints="exhaustive",
+                                                    device=cuda))
+    kernels.reset_launches()
+    got = convert.table_to_numpy(opsaxis.materialize(arrs, hints="exhaustive",
+                                                     device=cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["ring_exclusive"] >= 1
+    assert opsaxis.stats()["devices"] == k
+    for f in merge.FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], f)
+    monkeypatch.setenv("GRAFT_OPSAXIS_MIN_OPS", "1024")
+    monkeypatch.delenv("GRAFT_OPSAXIS", raising=False)
+    assert not opsaxis.enabled_for(65_536)       # off unless asked for
+    monkeypatch.setenv("GRAFT_OPSAXIS", "1")
+    assert opsaxis.enabled_for(65_536)
+    p = _vouched(arrs, 65_536)
+    before = opsaxis.stats()["merges"]
+    kernels.reset_launches()
+    t = engine.init(1, device=cuda)
+    t.apply_packed(p)
+    torch.cuda.synchronize()
+    assert opsaxis.stats()["merges"] == before + 1
+    assert kernels.launches["ring_exclusive"] >= 1
+    assert kernels.launches["plane_rows2"] == 0
+    got = arrs["ts"][np.asarray(t.visible_values())]
+    np.testing.assert_array_equal(got, workloads.chain_expected_ts(64, 65_536))

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports and merges with ``jax``
-blocked (the durability modules and the native codec included), none of
+blocked (the ops-axis sharded merge, the durability modules and the
+native codec included), none of
 its sources (nor ``chip_smoke.py``) imports ``jax`` or the JAX package,
 and its entry point never falls back to the CPU quietly."""
 import ast
@@ -51,6 +52,11 @@ def test_imports_and_merges_with_jax_blocked():
         " Add(3, (0,), 'c')])\n"
         "t = view.to_host(merge.materialize(p.arrays(), device='cpu'))\n"
         "print(view.visible_values(t, p.values))\n"
+        "from crdt_graph_tpu_torch.parallel import opsaxis\n"
+        "s = view.to_host(opsaxis.materialize(p.arrays(), k=4,"
+        " device='cpu'))\n"
+        "assert view.visible_values(s, p.values) == "
+        "view.visible_values(t, p.values)\n"
         "assert not any(m == 'jax' or m.startswith('jax.') "
         "for m, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -166,6 +172,9 @@ def test_materialize_without_device_refuses_cpu_fallback():
         pytest.skip("a CUDA device is present: the default is the card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         merge.materialize(workloads.chain_workload(4, 64))
+    from crdt_graph_tpu_torch.parallel import opsaxis
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opsaxis.materialize(workloads.chain_workload(4, 64), k=2)
     from crdt_graph_tpu_torch import engine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.init(1)
