@@ -42,9 +42,14 @@ it and read just after:
 With ``--route-on`` the engine's and the durable replicas' bulk merges
 of 2^18 rows or more take the ops-axis route (off by default) where the
 host has two or more cards, and those phases hold kernel 5 to its twin
-as well.  Then it times the merge, each kernel, the engine's stages and
-the merge's three hint legs.  Exits non-zero, printing no result, without a
-CUDA device or without the package beside it.  The last line of
+as well.  Then it times the merge, the engine's stages and the merge's
+three hint legs, and each kernel, its twin and its library call by three
+clocks (``crdt_graph_tpu_torch/bench/kerneltime.py``): device time from
+the profiler, CUDA events, and host time a wrapper call; the kernel
+also with the L2 flushed before each call, the time its bound share is
+taken on.  Exits
+non-zero, printing no result, without a CUDA device or without the
+package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times.
 The full record also goes to ``build/chip_smoke.json``
@@ -60,8 +65,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate (fp32 figure)
 N_OPS = 1_000_000
 N_REPLICAS = 64
 DEL_EVERY = 16
@@ -89,45 +92,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events,
-    after one warm-up)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
-
-
-def device_ms(fn, reps: int = 20):
-    """Device time per call of ``fn``: the spans of everything it ran on
-    the card (kernels, copies, fills) summed over ``reps`` calls by
-    ``torch.profiler``, over ``reps``; None when the profiler records no
-    device events.  For functions whose host work outlasts their device
-    work, where CUDA events time the host."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except (AssertionError, RuntimeError):
-        return None
-    cuda = torch.autograd.DeviceType.CUDA
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if getattr(ev, "device_type", None) == cuda)
-    return us / reps / 1e3 if us else None
-
-
 def max_abs_err(got, want) -> float:
     """Largest |got - want| over the outputs (float64; 0 iff equal)."""
     import torch
@@ -139,13 +103,6 @@ def max_abs_err(got, want) -> float:
             err = max(err, float((g.cpu().double() -
                                   w.cpu().double()).abs().max()))
     return err
-
-
-def bound_ms(nbytes: int, nops: int = 0):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def _copy(a):
@@ -1201,7 +1158,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from crdt_graph_tpu_torch import convert, kernels, native
-    from crdt_graph_tpu_torch.bench import honest, workloads
+    from crdt_graph_tpu_torch.bench import honest, kerneltime, workloads
     from crdt_graph_tpu_torch.codec import packed
     from crdt_graph_tpu_torch.kernels import build
     from crdt_graph_tpu_torch.ops import fused_resolve as fr
@@ -1280,7 +1237,9 @@ def main(argv=None) -> int:
     def edge_cases(kname, args):
         """Synthetic inputs at the main-path shapes: negative hops,
         indices far outside any 1152-row window, out-of-range and
-        negative indices, ragged last blocks."""
+        negative indices, ragged last blocks; for kernel 4 a ``rid`` view
+        at an odd offset and a step of 2, for kernel 3 no weight lanes and
+        a lane one past a tile."""
         if kname in ("plane_rows", "plane_rows2"):
             plane = args[0].clone()
             r = plane.shape[0]
@@ -1307,6 +1266,17 @@ def main(argv=None) -> int:
                     torch.from_numpy(rng.integers(
                         -5, 9, (kw, w.shape[1] + 1)).astype(np.int32))
                     .to(dev)))
+            # the look-back scan's traps: no weight lanes (the sharded
+            # cumsum's [0, W]), a lane one past a tile, values that wrap
+            tile = ts.SCAN_TILE
+            out.append((b[:-7], torch.zeros((0, w.shape[1]),
+                                            dtype=torch.int32, device=dev)))
+            out.append((torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, tile + 1, dtype=np.int64)
+                .astype(np.int32)).to(dev),
+                torch.from_numpy(rng.integers(
+                    0, 2**31 - 1, (2, 3 * tile - 1), dtype=np.int64)
+                    .astype(np.int32)).to(dev)))
             return out
         vals, rid = args
         out = []
@@ -1318,6 +1288,12 @@ def main(argv=None) -> int:
             bad[:4] = torch.tensor([-1, -3, vals.shape[1], 2**31 - 1],
                                    dtype=torch.int32)
             out.append((vv, bad[:-5].contiguous()))
+        # rid as a view at an odd offset (the ops-axis chunks), and a
+        # step of 2 inside one block (off the merge's monotone contract)
+        out.append((vals, rid[3:]))
+        step = rid.clone()
+        step[5000:] += 1
+        out.append((vals, step.clamp(max=vals.shape[1] - 1)))
         return out
 
     for kname in MERGE_KERNELS:
@@ -1462,105 +1438,45 @@ def main(argv=None) -> int:
         f"host->device copy of the columns {h2d_ms:.3f} ms; with deletes "
         f"{t_del['p50_ms']:.3f} ms; peak device memory {peak} B")
 
-    def bytes_of(kname, args):
-        """Bytes the function must move for these inputs: each input
-        element it needs read once, each output written once."""
-        if kname in ("plane_rows", "plane_rows2"):
-            plane, idx = args[0], args[1]
-            r, c = plane.shape
-            t = idx.shape[0]
-            rows = fr.plain_rows(plane, idx)
-            used = torch.unique(idx.long().clamp(0, r - 1))
-            nb = 4 * t + 8 * c * t
-            if kname == "plane_rows2":
-                hop = rows[:, args[2]]
-                used = torch.unique(torch.cat(
-                    [used, hop[hop >= 0].clamp(max=r - 1)]))
-                nb += 8 * c * t
-            return nb + 8 * c * int(used.numel()), 0
-        if kname == "prefix_sums":
-            n = args[0].numel() + args[1].numel()
-            return 8 * n, n
-        if kname == "ring_exclusive":
-            # the k - 1 carry vectors some output depends on (shard
-            # k - 1's feeds none) read once, k results written once; an
-            # exclusive scan needs k - 2 combines per lane
-            vals = args[0]
-            k, lanes = len(vals), int(vals[0].shape[0])
-            return 4 * (k - 1) * lanes + 4 * k * lanes, \
-                max(k - 2, 0) * lanes
-        vals, rid = args
-        used = torch.unique(rid.long())
-        v, t = vals.shape[0], rid.shape[0]
-        return 4 * t + 4 * v * int(used.numel()) + 4 * v * t, 0
-
-    def library(kname, args):
-        """One PyTorch call computing the same function (a yardstick
-        only; the port never calls it), or None."""
-        if kname == "plane_rows":
-            plane, idx = args
-            return lambda: torch.index_select(plane, 0, idx)
-        if kname == "prefix_sums":
-            b, w = args
-            stacked = torch.zeros((1 + w.shape[0], b.shape[0]),
-                                  dtype=torch.int32, device=dev)
-            stacked[0] = b
-            stacked[1:, :w.shape[1]] = w
-            return lambda: torch.cumsum(stacked, 1, dtype=torch.int32)
-        if kname == "monotone_gather":
-            vals, rid = args
-            return lambda: torch.index_select(vals, 1, rid)
-        if kname == "ring_exclusive":
-            # one cumsum over the zero-prepended [k + 1, L] stack: row i
-            # is shard i's exclusive sum
-            vals = args[0]
-            stacked = torch.zeros((len(vals) + 1, vals[0].shape[0]),
-                                  dtype=torch.int32, device=dev)
-            stacked[1:] = torch.stack(vals)
-            return lambda: torch.cumsum(stacked, 0, dtype=torch.int32)
-        return None
-
     rows = []
     for kname, (src, replaces) in KERNELS.items():
         args = ring_args if kname == "ring_exclusive" else caught[kname][0][0]
-        fns = {"ms": lambda: calls[kname](*args),
-               "plain_ms": lambda: twins[kname](*args),
-               "library_ms": library(kname, args)}
-        t = {key: cuda_ms(fn) if fn is not None else None
-             for key, fn in fns.items()}
+        tk = kerneltime.time_kernel(kname, calls[kname], twins[kname], args)
         rec = record["kernels"][kname]
-        rec["time_source"] = "events"
-        if kname == "ring_exclusive":
-            # launch-latency bound: CUDA events around back-to-back calls
-            # time the host work of each call, so the row takes the card's
-            # own time of each function (profiler) and keeps the events'
-            rec["events_ms"] = t
-            dev_t = {key: device_ms(fn) if fn is not None else None
-                     for key, fn in fns.items()}
-            if all(dev_t[key] is not None for key, fn in fns.items()
-                   if fn is not None):
-                t, rec["time_source"] = dev_t, "profiler device time"
-        k_ms, p_ms, l_ms = t["ms"], t["plain_ms"], t["library_ms"]
-        nb, nops = bytes_of(kname, args)
-        b_ms, b_by = bound_ms(nb, nops)
+        rec["timing"] = tk
+        # device time by the profiler (kerneltime raises where it records
+        # none): CUDA events around back-to-back calls time the wrapper's
+        # host work when it outlasts the kernel
+        k_ms, p_ms, l_ms = (tk[f]["device_ms"] for f in
+                            ("kernel", "plain", "library"))
+        c_ms = tk["kernel"]["cold_ms"]
+        b_ms, b_by = tk["bound_ms"], tk["bound_by"]
         rec.update({"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": tk["bytes"],
                     "timed_shapes": [list(a.shape) for a in args
                                      if hasattr(a, "shape")] or
                     [[len(args[0]), int(args[0][0].shape[0])]]})
-        log(f"time {kname} {rec['timed_shapes']} ({rec['time_source']}): "
-            f"kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, library "
-            f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, bound "
-            f"{b_ms:.3e} ms ({nb} B)"
-            + (f"; by CUDA events {rec['events_ms']}" if "events_ms" in rec
-               else ""))
+        ratio = tk["library_ratio"]
+        log(f"time {kname} {rec['timed_shapes']} (profiler device time, L2 "
+            f"warm): kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, library "
+            f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, kernel/library "
+            f"{'-' if ratio is None else f'{ratio:.3f}'}; L2 cold: kernel "
+            f"{c_ms:.4f} ms, bound {b_ms:.3e} ms ({tk['bytes']} B), bound "
+            f"share {tk['bound_share']:.3f}; events kernel "
+            f"{tk['kernel']['events_ms']:.4f} twin "
+            f"{tk['plain']['events_ms']:.4f} ms; host per wrapper call "
+            f"{tk['kernel']['host_us']:.2f} us (twin "
+            f"{tk['plain']['host_us']:.2f} us)")
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[kname] + engine_launches[kname]
                      + dur_launches[kname] + ops_launches[kname],
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": l_ms})
+                     "library_ms": l_ms,
+                     "device_ms": k_ms, "cold_ms": c_ms,
+                     "events_ms": tk["kernel"]["events_ms"],
+                     "host_us": tk["kernel"]["host_us"]})
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

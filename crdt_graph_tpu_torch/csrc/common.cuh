@@ -12,6 +12,12 @@ __device__ __forceinline__ int64_t jax_row(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
+// jax_row in 32 bits, for n <= 2^31 - 1 (i + n cannot overflow).
+__device__ __forceinline__ int jax_row32(int i, int n) {
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
 // Read-only-path loads; int64_t is `long` on LP64, so it goes through
 // the `long long` overload.
 __device__ __forceinline__ int64_t ld_i64(const int64_t* p) {

@@ -7,38 +7,88 @@
 //
 // What bounds it: bytes.  It reads rid (4 B a token) and the value plane
 // (V * R * 4 B, small on the compact run paths) and writes V * 4 B a
-// token; at the merge's main-path shape (V = 4, T = M = 1,000,002) that is
-// ~20 MB, ~6 us at 3.35 TB/s.
+// token; at the merge's main-path shape (V = 4, R = 4096, T = M =
+// 1,000,002) that is ~20 MB, ~6 us at 3.35 TB/s.  Nothing in it is
+// compute.
 //
 // Design for Hopper: the TPU kernel DMA'd a bounded window of `values`
 // into VMEM per tile (rid is nondecreasing with steps <= 1) and gathered
-// with an exact f32 one-hot product, refusing values >= 2^24.  Here one
-// thread serves one token: it reads rid once and the V values of its run,
-// which neighbouring tokens share (same or adjacent run), so the reads
-// come from L1/L2; the V stores of a warp are contiguous rows of the
-// output.  Any rid and any int32 value work.  Staging
-// values[:, rid[t0] : rid[t0] + blockDim + 1] in shared memory -- the
-// monotone trick -- is later work.
+// with an exact f32 one-hot product, refusing values >= 2^24.  On the card
+// the window needs no staging: neighbouring tokens read the same or the
+// next column, so a warp's reads of a value row fall on one or two cache
+// lines that L1 and L2 already hold, and every byte of DRAM traffic left
+// is rid in and the output rows out.  Staging the window in shared memory,
+// with 16-byte loads and stores (variants/mono_gather_staged.cu), was
+// built and measured on an H100 (PERF.md, section 6): it adds a barrier a
+// tile and moves no fewer bytes, and took 0.0075 ms against this design's
+// 0.0063 at V = 4 and 0.0149 against 0.0110 at V = 7.  So one block of
+// 256 threads takes 1,024 tokens, 4 a thread striped by the block width:
+// each thread loads its 4 rid values at once (coalesced 4-byte loads, 4
+// in flight), then for each value row reads the 4 values and writes them
+// (each warp store is 128 contiguous bytes, whatever the alignment of T
+// or of the views).  Any rid and any int32
+// value work.  V is a template parameter for V = 1..8 (the merge uses 4
+// and 7); a larger V takes the generic instantiation.  Index math inside
+// a row is 32-bit (the entry point refuses R or T of 2^31 - 1024 or
+// more); row bases are 64-bit pointers.
 #include "common.cuh"
 
-__global__ void monotone_gather_kernel(const int32_t* __restrict__ values,
-                                       int64_t V, int64_t R,
-                                       const int32_t* __restrict__ rid,
-                                       int64_t T, int32_t* __restrict__ out) {
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < T;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t r = jax_row((int64_t)__ldg(rid + t), R);
-    for (int64_t v = 0; v < V; ++v) out[v * T + t] = __ldg(values + v * R + r);
+#define MG_THREADS 256
+#define MG_ITEMS 4                          // tokens a thread
+#define MG_TILE (MG_THREADS * MG_ITEMS)     // tokens a block
+
+template <int VT>
+__global__ void __launch_bounds__(MG_THREADS)
+mono_gather_kernel(const int32_t* __restrict__ values, int V, int R,
+                   const int32_t* __restrict__ rid, int T,
+                   int32_t* __restrict__ out) {
+  const int nv = VT > 0 ? VT : V;
+  const int t0 = blockIdx.x * MG_TILE + threadIdx.x;
+  int r[MG_ITEMS];
+#pragma unroll
+  for (int k = 0; k < MG_ITEMS; ++k) {
+    const int t = t0 + k * MG_THREADS;
+    r[k] = t < T ? jax_row32(__ldg(rid + t), R) : 0;
   }
+  // nv is a constant for VT > 0: the row loop unrolls
+  for (int v = 0; v < nv; ++v) {
+    const int32_t* vrow = values + (int64_t)v * R;
+    int32_t* orow = out + (int64_t)v * T;
+#pragma unroll
+    for (int k = 0; k < MG_ITEMS; ++k) {
+      const int t = t0 + k * MG_THREADS;
+      if (t < T) orow[t] = __ldg(vrow + r[k]);
+    }
+  }
+}
+
+template <int VT>
+static int launch(const void* values, int V, int R, const void* rid, int T,
+                  void* out, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((T + MG_TILE - 1) / MG_TILE);
+  mono_gather_kernel<VT><<<blocks, MG_THREADS, 0, stream>>>(
+      (const int32_t*)values, V, R, (const int32_t*)rid, T, (int32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int crdt_monotone_gather(const void* values, int64_t V, int64_t R,
                                     const void* rid, int64_t T, void* out,
                                     void* stream) {
-  if (V < 1 || R < 1 || T < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  monotone_gather_kernel<<<grid_blocks(T, threads), threads, 0,
-                           (cudaStream_t)stream>>>(
-      (const int32_t*)values, V, R, (const int32_t*)rid, T, (int32_t*)out);
-  return (int)cudaGetLastError();
+  if (V < 1 || V > 0x7fffffff || R < 1 || R > 0x7fffffff - MG_TILE ||
+      T < 0 || T > 0x7fffffff - MG_TILE)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int v = (int)V, r = (int)R, t = (int)T;
+  switch (v) {
+    case 1: return launch<1>(values, v, r, rid, t, out, s);
+    case 2: return launch<2>(values, v, r, rid, t, out, s);
+    case 3: return launch<3>(values, v, r, rid, t, out, s);
+    case 4: return launch<4>(values, v, r, rid, t, out, s);
+    case 5: return launch<5>(values, v, r, rid, t, out, s);
+    case 6: return launch<6>(values, v, r, rid, t, out, s);
+    case 7: return launch<7>(values, v, r, rid, t, out, s);
+    case 8: return launch<8>(values, v, r, rid, t, out, s);
+    default: return launch<0>(values, v, r, rid, t, out, s);
+  }
 }

@@ -12,23 +12,50 @@
 //
 // Design for Hopper: the TPU kernel swept one concatenated stream on a
 // sequential grid, carrying the running sum in SMEM from tile to tile and
-// resetting it at each lane's first tile, with the in-tile prefix as a
-// triangular f32 MXU product.  GPU blocks run in no order, so the carry
-// becomes a three-phase scan over a grid with one row per lane:
-//   1. each block scans a tile of 4096 elements in shared memory (8
-//      consecutive elements per thread, then warp shuffles) and writes its
-//      tile total;
-//   2. one block per lane scans that lane's tile totals into exclusive
-//      tile offsets;
-//   3. each block adds its tile offset to its outputs.
-// This reads the outputs twice more than a single-pass scan would; a
-// decoupled look-back scan that folds phases 2-3 into phase 1 is later
-// work.  Sums are taken in uint32 so wrapping is defined.
+// resetting it at each lane's first tile.  GPU blocks run in no order, so
+// the carry becomes a single-pass scan with decoupled look-back (Merrill &
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// NVIDIA 2016), in one launch that reads and writes each element once:
+//   - the grid is the flat list of every lane's tiles of 4,096 elements
+//     (ceil(T/4096) for the boundary lane, ceil(M/4096) for each weight
+//     lane), so no block is launched empty;
+//   - a block takes its tile from an atomic counter, not from blockIdx:
+//     blocks are not scheduled in order, and a block spinning on a
+//     predecessor that never got a slot would hang the card once its
+//     successors filled every SM; a counter hands out tiles only to
+//     blocks already running;
+//   - each warp scans 512 consecutive elements of the tile: four rows of
+//     128, each row one 16-byte chunk a lane, so every load and store
+//     instruction of a warp covers 512 contiguous bytes (16-byte accesses
+//     where the lane's pointer is 16-byte aligned, 4-byte ones where it is
+//     not: weight rows of stride M and chunks at odd offsets); a lane
+//     scans its chunk, the warp scans the chunk totals by shuffles row by
+//     row, and the block scans the warp totals;
+//   - the block publishes its tile's aggregate, then its inclusive prefix,
+//     in a 64-bit status word (flag in the high half, value in the low);
+//   - warp 0 looks back over its predecessors' status words 32 at a time,
+//     summing aggregates until it meets an inclusive prefix; the lane's
+//     first tile publishes its prefix at once, so no look-back leaves its
+//     lane.
+// Each 16-byte load of a warp spans 512 contiguous bytes: with 16
+// consecutive elements a thread instead, a warp's loads stride 64 bytes and
+// the kernel took 0.0146 ms against this layout's 0.0093 ms on an H100
+// (PERF.md, section 6).
+// The entry point zeroes the counter and the status words on the stream
+// before the launch (they live in the caller's scratch), so a call never
+// reads a status of an earlier one.  Sums are taken in uint32 so
+// wrapping is defined.
 #include "common.cuh"
 
-#define SCAN_THREADS 512
-#define SCAN_ITEMS 8
-#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)
+#define SCAN_THREADS 256
+#define SCAN_WARPS (SCAN_THREADS / 32)
+#define SCAN_CHUNKS 4                        // 16-byte chunks a thread
+#define SCAN_ITEMS (4 * SCAN_CHUNKS)          // elements a thread
+#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)  // elements a tile: 4,096
+#define WARP_SPAN (32 * SCAN_ITEMS)           // elements a warp
+
+#define ST_AGGREGATE 1ull
+#define ST_PREFIX 2ull
 
 struct Lanes {
   const int32_t* b;
@@ -37,143 +64,186 @@ struct Lanes {
   const int32_t* w;
   int32_t* ow;
   int64_t M;
+  int64_t tiles_b;  // tiles of the boundary lane
+  int64_t tiles_w;  // tiles of each weight lane
 };
 
-__device__ __forceinline__ int64_t lane_ptrs(const Lanes& L, int lane,
-                                             const int32_t** in,
-                                             int32_t** out) {
-  if (lane == 0) {
-    *in = L.b;
-    *out = L.ob;
-    return L.T;
-  }
-  *in = L.w + (int64_t)(lane - 1) * L.M;
-  *out = L.ow + (int64_t)(lane - 1) * L.M;
-  return L.M;
+__device__ __forceinline__ uint64_t ld_status(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Block-wide exclusive scan of one value per thread (blockDim.x a
-// multiple of 32, at most 1024).  `ws` holds 33 words of shared memory.
-// Every thread of the block must call it.
-__device__ uint32_t block_exclusive_scan(uint32_t x, uint32_t* ws,
-                                         uint32_t* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  uint32_t incl = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    uint32_t y = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += y;
+__device__ __forceinline__ void st_status(uint64_t* p, uint64_t flag,
+                                          uint32_t value) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"((flag << 32) | value) : "memory");
+}
+
+// Warp 0: the sum of every tile of this lane before tile g (first = the
+// lane's first tile), from the status words of its predecessors.
+__device__ uint32_t look_back(const uint64_t* status, int64_t g,
+                              int64_t first) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  uint32_t excl = 0;
+  for (int64_t p = g - 1;; p -= 32) {
+    const int64_t q = p - lane;
+    uint64_t s;
+    for (long spins = 0;; ++spins) {
+      // tiles before the lane's first count as a zero prefix: the first
+      // tile's own prefix is nearer, so they are never summed
+      s = q >= first ? ld_status(status + q) : (ST_PREFIX << 32);
+      if (!__any_sync(full, (s >> 32) == 0)) break;
+      // a predecessor holds a slot and publishes within microseconds;
+      // one silent for 2^22 polls (about a second) is a fault: end the
+      // launch with an error rather than hang the card
+      if (spins > (1l << 22)) __trap();
+      __nanosleep(32);
+    }
+    const unsigned prefixes = __ballot_sync(full, (s >> 32) == ST_PREFIX);
+    // the nearest inclusive prefix ends the walk: sum it and the
+    // aggregates of the tiles between it and g
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    uint32_t part = lane <= stop ? (uint32_t)s : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(full, part, d);
+    excl += part;
+    if (prefixes) return excl;
   }
-  if (lane == 31) ws[warp] = incl;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_lookback(Lanes L, unsigned long long* __restrict__ scratch) {
+  __shared__ uint32_t s_warp[SCAN_WARPS];
+  __shared__ int64_t s_tile;
+  __shared__ uint32_t s_excl;
+  uint64_t* status = reinterpret_cast<uint64_t*>(scratch + 1);
+  if (threadIdx.x == 0) s_tile = (int64_t)atomicAdd(scratch, 1ull);
+  __syncthreads();
+  const int64_t g = s_tile;
+  const int32_t* in;
+  int32_t* out;
+  int64_t n, j;
+  if (g < L.tiles_b) {
+    in = L.b;
+    out = L.ob;
+    n = L.T;
+    j = g;
+  } else {
+    const int64_t q = (g - L.tiles_b) / L.tiles_w;
+    j = g - L.tiles_b - q * L.tiles_w;
+    in = L.w + q * L.M;
+    out = L.ow + q * L.M;
+    n = L.M;
+  }
+  const int64_t base = j * SCAN_TILE;
+  const int cnt = (int)(n - base < SCAN_TILE ? n - base : SCAN_TILE);
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  in += base;
+  out += base;
+  // warp-striped: chunk q of this thread holds elements e0(q) .. e0(q)+3,
+  // e0(q) = warp * WARP_SPAN + q * 128 + lane * 4, so each 16-byte load
+  // of a warp covers 512 contiguous bytes
+  const int e0 = warp * WARP_SPAN + lane * 4;
+  const bool vin = (((uintptr_t)in) & 15) == 0;
+  uint32_t x[SCAN_CHUNKS][4];
+#pragma unroll
+  for (int q = 0; q < SCAN_CHUNKS; ++q) {
+    const int e = e0 + q * 128;
+    if (vin && e + 4 <= cnt) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(in + e));
+      x[q][0] = (uint32_t)v.x;
+      x[q][1] = (uint32_t)v.y;
+      x[q][2] = (uint32_t)v.z;
+      x[q][3] = (uint32_t)v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        x[q][k] = e + k < cnt ? (uint32_t)__ldg(in + e + k) : 0u;
+    }
+  }
+  uint32_t run = 0;  // the warp's sum over its chunks so far
+#pragma unroll
+  for (int q = 0; q < SCAN_CHUNKS; ++q) {
+    x[q][1] += x[q][0];
+    x[q][2] += x[q][1];
+    x[q][3] += x[q][2];
+    const uint32_t t = x[q][3];
+    uint32_t incl = t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(full, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const uint32_t pre = run + incl - t;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[q][k] += pre;
+    run += __shfl_sync(full, incl, 31);
+  }
+  if (lane == 0) s_warp[warp] = run;
   __syncthreads();
   if (warp == 0) {
-    uint32_t v = lane < nwarps ? ws[lane] : 0u;
-    uint32_t vi = v;
+    const uint32_t wv = lane < SCAN_WARPS ? s_warp[lane] : 0u;
+    uint32_t wi = wv;
+#pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      uint32_t y = __shfl_up_sync(0xffffffffu, vi, d);
-      if (lane >= d) vi += y;
+      const uint32_t y = __shfl_up_sync(full, wi, d);
+      if (lane >= d) wi += y;
     }
-    if (lane < nwarps) ws[lane] = vi - v;
-    if (lane == 31) ws[32] = vi;
+    const uint32_t agg = __shfl_sync(full, wi, SCAN_WARPS - 1);
+    if (lane < SCAN_WARPS) s_warp[lane] = wi - wv;  // exclusive, per warp
+    uint32_t excl = 0;
+    if (j == 0) {
+      if (lane == 0) st_status(status + g, ST_PREFIX, agg);
+    } else {
+      if (lane == 0) st_status(status + g, ST_AGGREGATE, agg);
+      excl = look_back(status, g, g - j);
+      if (lane == 0) st_status(status + g, ST_PREFIX, excl + agg);
+    }
+    if (lane == 0) s_excl = excl;
   }
   __syncthreads();
-  *total = ws[32];
-  const uint32_t r = ws[warp] + incl - x;
-  __syncthreads();
-  return r;
-}
-
-// Phase 1: per-tile inclusive scan; grid (tiles, lanes).
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tiles(Lanes L, uint32_t* __restrict__ tile_sums, int64_t nblk) {
-  __shared__ uint32_t s[SCAN_TILE];
-  __shared__ uint32_t ws[33];
-  const int32_t* in;
-  int32_t* out;
-  const int64_t n = lane_ptrs(L, blockIdx.y, &in, &out);
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-  if (base >= n) return;  // uniform over the block
-  const int tid = threadIdx.x;
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int i = k * SCAN_THREADS + tid;
-    s[i] = base + i < n ? (uint32_t)__ldg(in + base + i) : 0u;
-  }
-  __syncthreads();
-  uint32_t loc[SCAN_ITEMS];
-  uint32_t acc = 0;
+  const uint32_t off = s_excl + s_warp[warp];
+  const bool vout = (((uintptr_t)out) & 15) == 0;
 #pragma unroll
-  for (int j = 0; j < SCAN_ITEMS; ++j) {
-    acc += s[tid * SCAN_ITEMS + j];
-    loc[j] = acc;
-  }
-  uint32_t total;
-  const uint32_t pre = block_exclusive_scan(acc, ws, &total);
+  for (int q = 0; q < SCAN_CHUNKS; ++q) {
+    const int e = e0 + q * 128;
+    if (vout && e + 4 <= cnt) {
+      *reinterpret_cast<int4*>(out + e) =
+          make_int4((int)(x[q][0] + off), (int)(x[q][1] + off),
+                    (int)(x[q][2] + off), (int)(x[q][3] + off));
+    } else {
 #pragma unroll
-  for (int j = 0; j < SCAN_ITEMS; ++j) s[tid * SCAN_ITEMS + j] = pre + loc[j];
-  __syncthreads();
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int i = k * SCAN_THREADS + tid;
-    if (base + i < n) out[base + i] = (int32_t)s[i];
-  }
-  if (tid == 0) tile_sums[(int64_t)blockIdx.y * nblk + blockIdx.x] = total;
-}
-
-// Phase 2: exclusive scan of one lane's tile totals; grid (lanes).
-__global__ void __launch_bounds__(1024)
-scan_tile_sums(Lanes L, uint32_t* __restrict__ tile_sums, int64_t nblk) {
-  __shared__ uint32_t ws[33];
-  const int32_t* in;
-  int32_t* out;
-  const int64_t n = lane_ptrs(L, blockIdx.x, &in, &out);
-  const int64_t nb = (n + SCAN_TILE - 1) / SCAN_TILE;
-  uint32_t* p = tile_sums + (int64_t)blockIdx.x * nblk;
-  uint32_t carry = 0;
-  for (int64_t off = 0; off < nb; off += blockDim.x) {
-    const int64_t i = off + threadIdx.x;
-    const uint32_t x = i < nb ? p[i] : 0u;
-    uint32_t total;
-    const uint32_t ex = block_exclusive_scan(x, ws, &total);
-    if (i < nb) p[i] = carry + ex;
-    carry += total;
+      for (int k = 0; k < 4; ++k)
+        if (e + k < cnt) out[e + k] = (int32_t)(x[q][k] + off);
+    }
   }
 }
 
-// Phase 3: add each tile's offset; grid (tiles, lanes).
-__global__ void __launch_bounds__(SCAN_THREADS)
-add_tile_offsets(Lanes L, const uint32_t* __restrict__ tile_sums,
-                 int64_t nblk) {
-  const int32_t* in;
-  int32_t* out;
-  const int64_t n = lane_ptrs(L, blockIdx.y, &in, &out);
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-  if (blockIdx.x == 0 || base >= n) return;
-  const uint32_t off = tile_sums[(int64_t)blockIdx.y * nblk + blockIdx.x];
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int64_t i = base + k * SCAN_THREADS + threadIdx.x;
-    if (i < n) out[i] = (int32_t)((uint32_t)out[i] + off);
-  }
-}
-
-// scratch: at least (1 + Kw) * ceil(max(T, M) / 4096) int32 words.
+// scratch: at least 1 + ceil(T/4096) + Kw * ceil(M/4096) 8-byte words
+// (the tile counter, then one status word a tile); zeroed here.
 extern "C" int crdt_prefix_sums(const void* boundary, void* out_b, int64_t T,
                                 const void* weights, void* out_w, int64_t Kw,
                                 int64_t M, void* scratch, int64_t scratch_len,
                                 void* stream) {
-  if (T < 0 || M < 0 || Kw < 0 || 1 + Kw > 65535)
+  if (T < 0 || M < 0 || Kw < 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles_b = (T + SCAN_TILE - 1) / SCAN_TILE;
+  const int64_t tiles_w = (M + SCAN_TILE - 1) / SCAN_TILE;
+  if (tiles_w > 0 && Kw > (0x7fffffff - tiles_b) / tiles_w)
     return (int)cudaErrorInvalidValue;
-  const int64_t longest = T > M ? T : M;
-  const int64_t nblk = (longest + SCAN_TILE - 1) / SCAN_TILE;
-  const int lanes = (int)(1 + Kw);
-  if (nblk == 0) return (int)cudaGetLastError();
-  if (scratch_len < lanes * nblk || nblk > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  Lanes L{(const int32_t*)boundary, (int32_t*)out_b, T,
-          (const int32_t*)weights, (int32_t*)out_w, M};
-  uint32_t* sums = (uint32_t*)scratch;
+  const int64_t tiles = tiles_b + Kw * tiles_w;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (tiles == 0) return (int)cudaSuccess;
+  if (scratch_len < 1 + tiles) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned int)nblk, lanes);
-  scan_tiles<<<grid, SCAN_THREADS, 0, s>>>(L, sums, nblk);
-  scan_tile_sums<<<lanes, 1024, 0, s>>>(L, sums, nblk);
-  add_tile_offsets<<<grid, SCAN_THREADS, 0, s>>>(L, sums, nblk);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(1 + tiles) * 8, s);
+  if (e != cudaSuccess) return (int)e;
+  Lanes L{(const int32_t*)boundary, (int32_t*)out_b, T,
+          (const int32_t*)weights, (int32_t*)out_w, M, tiles_b, tiles_w};
+  scan_lookback<<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
+      L, (unsigned long long*)scratch);
   return (int)cudaGetLastError();
 }

@@ -39,8 +39,8 @@ _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     # plane, R, C, idx, T, out, out2 (NULL = one hop), hop_col, stream
     "crdt_plane_rows": [_VP, _I64, _I64, _VP, _I64, _VP, _VP, _INT, _VP],
-    # boundary, out_b, T, weights, out_w, Kw, M, scratch, scratch_len,
-    # stream
+    # boundary, out_b, T, weights, out_w, Kw, M, scratch, scratch_len
+    # (8-byte words), stream
     "crdt_prefix_sums": [_VP, _VP, _I64, _VP, _VP, _I64, _I64, _VP, _I64,
                          _VP],
     # values, V, R, rid, T, out, stream
@@ -107,8 +107,13 @@ def _compile(out_dir: Path) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The bound kernel library, built on first call."""
+    """The bound kernel library, built on first call (under a lock; once
+    it is loaded, without one).  Its entry points are attributes that
+    ctypes looked up, and typed, once."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -133,6 +138,9 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """The current PyTorch CUDA stream of ``device``, as a raw handle."""
+    """The current PyTorch CUDA stream of ``device``, as a raw handle
+    (PyTorch's raw-handle query: it makes no ``Stream`` object)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    idx = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)

@@ -3,10 +3,10 @@
 ``prefix_sums(boundary, weights)`` returns the inclusive int32 cumsums of
 ``boundary[T]`` (the run-id stream over the Euler-tour tokens) and of
 each row of ``weights[Kw, M]`` (the node-weight lanes), every lane on its
-own.  On CUDA tensors it runs the three-phase scan of
+own.  On CUDA tensors it runs the single-pass decoupled look-back scan of
 ``csrc/prefix_sums.cu`` (the port of the reference's Pallas
-``tour_scan._kernel``); on CPU tensors its plain twin (the reference's
-``_lax_prefix``).
+``tour_scan._kernel``), over the tiles :func:`scan_plan` counts; on CPU
+tensors its plain twin (the reference's ``_lax_prefix``).
 
 The ops-axis sharded merge (``parallel.opsaxis``) splits the same scans
 into k contiguous chunks: each shard scans its own chunk (through
@@ -25,8 +25,9 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import kernels
+from ..kernels import build
 
-SCAN_TILE = 4096   # elements per block of csrc/prefix_sums.cu (SCAN_TILE)
+SCAN_TILE = 4096   # elements per tile of csrc/prefix_sums.cu (SCAN_TILE)
 RING_MAX_SHARDS = 64   # csrc/ring_carry.cu (RING_MAX_SHARDS)
 RING_OPS = ("add", "max")
 
@@ -38,34 +39,52 @@ def plain_prefix(boundary: torch.Tensor, weights: torch.Tensor
             torch.cumsum(weights, 1, dtype=torch.int32))
 
 
+def scan_plan(t: int, kw: int, m: int) -> Tuple[int, int, int]:
+    """The tile plan of kernel 3 for ``boundary[t]`` and ``weights[kw,
+    m]``: (tiles of the boundary lane, tiles of each weight lane, 8-byte
+    scratch words: the tile counter and one status word a tile — 0 when
+    there is nothing to scan)."""
+    if min(t, kw, m) < 0:
+        raise ValueError(f"negative extent in ({t}, {kw}, {m})")
+    tiles_b, tiles_w = -(-t // SCAN_TILE), -(-m // SCAN_TILE)
+    tiles = tiles_b + kw * tiles_w
+    return tiles_b, tiles_w, 1 + tiles if tiles else 0
+
+
 def prefix_sums(boundary: torch.Tensor, weights: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inclusive prefix sums of i32 ``boundary[T]`` and of each row of
     i32 ``weights[Kw, M]``: the CUDA kernel on CUDA tensors, the twin on
-    CPU tensors (any other device raises)."""
-    if boundary.device.type == "cpu":
-        return plain_prefix(boundary, weights)
-    if boundary.device.type != "cuda":
-        raise ValueError(f"unsupported device {boundary.device}")
-    from ..kernels import build
+    CPU tensors; any other device, and arguments the kernel does not
+    take, raise ``ValueError`` on either.
+
+    On the card both results and the kernel's scratch are views of one
+    allocation (each result starts on a 16-byte boundary)."""
+    dev = boundary.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     for x, nd in ((boundary, 1), (weights, 2)):
         if x.dtype != torch.int32 or x.dim() != nd or \
-                not x.is_contiguous() or x.device != boundary.device:
+                not x.is_contiguous() or x.device != dev:
             raise ValueError("boundary must be int32 [T] and weights int32 "
                              "[Kw, M], contiguous, on one device")
-    lib = build.load()
     t = boundary.shape[0]
     kw, m = weights.shape
-    ob = torch.empty_like(boundary)
-    ow = torch.empty_like(weights)
-    nblk = -(-max(t, m) // SCAN_TILE)
-    if nblk:
-        scratch = torch.empty((1 + kw) * nblk, dtype=torch.int32,
-                              device=boundary.device)
-        build.check(lib.crdt_prefix_sums(
-            boundary.data_ptr(), ob.data_ptr(), t, weights.data_ptr(),
-            ow.data_ptr(), kw, m, scratch.data_ptr(), scratch.numel(),
-            build.stream_ptr(boundary.device)), "crdt_prefix_sums")
+    if dev.type == "cpu":
+        return plain_prefix(boundary, weights)
+    _, _, words = scan_plan(t, kw, m)
+    # one allocation: [ob | ow | scratch], each part 16-byte aligned
+    at_w = -(-t // 4) * 4
+    at_s = at_w + -(-(kw * m) // 4) * 4
+    buf = torch.empty(at_s + 2 * words, dtype=torch.int32, device=dev)
+    ob = buf.as_strided((t,), (1,))
+    ow = buf.as_strided((kw, m), (m, 1), at_w)
+    if words:
+        p = buf.data_ptr()
+        build.check(build.load().crdt_prefix_sums(
+            boundary.data_ptr(), p, t, weights.data_ptr(), p + 4 * at_w, kw,
+            m, p + 4 * at_s, words, build.stream_ptr(dev)),
+            "crdt_prefix_sums")
         kernels.launches["prefix_sums"] += 1
     return ob, ow
 
@@ -100,7 +119,6 @@ _peers_enabled = set()
 def _enable_peers(lib, launch: torch.device, devices) -> None:
     """Open the launching card's context to every other card a buffer
     lies on (once per pair); raises where a pair has no peer path."""
-    from ..kernels import build
     for d in devices:
         pair = (launch.index, d.index)
         if pair not in _peers_enabled:
@@ -126,7 +144,6 @@ def ring_exclusive(vals: Sequence[torch.Tensor],
         return plain_ring_exclusive(vals, op)
     if types != {"cuda"}:
         raise ValueError(f"unsupported devices {sorted(types)}")
-    from ..kernels import build
     k = len(vals)
     shape = vals[0].shape
     if k > RING_MAX_SHARDS:

@@ -292,3 +292,141 @@ def test_cuda_opsaxis_shards_on_distinct_cards(cuda, monkeypatch):
     assert kernels.launches["plane_rows2"] == 0
     got = arrs["ts"][np.asarray(t.visible_values())]
     np.testing.assert_array_equal(got, workloads.chain_expected_ts(64, 65_536))
+
+
+# ---- kernel 4 and kernel 3 (the look-back scan) at their edges ----------
+
+# tokens per block of csrc/mono_gather.cu and of its staged variant
+# (csrc/variants/mono_gather_staged.cu)
+MG_TILES = (1024, 2048)
+
+
+def _at_offset(x, off, dev):
+    """``x`` (numpy int32) as a contiguous view that starts ``off``
+    elements into a larger buffer on ``dev`` (off the 16-byte boundary
+    for odd ``off``)."""
+    flat = torch.zeros(x.size + off + 3, dtype=torch.int32, device=dev)
+    flat[off:off + x.size] = _t(x.ravel()).to(dev)
+    return flat[off:off + x.size].view(x.shape)
+
+
+def _rid(rng, kind, t):
+    """A run-id stream of ``kind``: the merge's (steps 0/1), long single
+    runs (a block reads one column), all distinct, steps up to 2,
+    decreasing runs, and wild indices (negative, out of range): the last
+    three break the merge's monotone contract, which the kernel does not
+    rely on."""
+    if kind == "steps01":
+        inc = rng.integers(0, 2, t)
+        inc[0] = 0
+        rid = np.cumsum(inc)
+    elif kind == "one_run":
+        rid = np.arange(t) // 5000
+    elif kind == "distinct":
+        rid = np.arange(t)
+    elif kind == "steps2":
+        rid = np.cumsum(rng.integers(0, 3, t))
+    elif kind == "decreasing":
+        rid = (np.arange(t) % 3001)[::-1] // 2
+    else:
+        rid = rng.integers(-3 * t - 9, 3 * t + 9, t)
+        rid[:4] = [-1, -2**31, 2**31 - 1, t][:min(4, t)]
+    return np.clip(rid, 0, None).astype(np.int32) if kind != "wild" \
+        else rid.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [1, 4, 7, 9])
+@pytest.mark.parametrize("kind", ["steps01", "one_run", "distinct", "steps2",
+                                  "decreasing", "wild"])
+def test_cuda_monotone_gather_windows_and_escapes(cuda, v, kind):
+    """Kernel 4 equals its twin bit for bit: tokens on and across block
+    edges, every kind of ``rid``, V in {1, 4, 7, 9} (the generic
+    instantiation at 9), ``rid`` and ``values`` as views at odd offsets
+    and T odd."""
+    rng = np.random.default_rng(v * 17 + len(kind))
+    kernels.reset_launches()
+    calls = 0
+    edges = [e + d for e in MG_TILES for d in (-1, 0, 1)]
+    for t in (1, *edges, 3 * MG_TILES[0] + 1, 20_011):
+        rid = _rid(rng, kind, t)
+        r = max(int(rid.max()) + 1, 1) if kind != "wild" else t // 2 + 1
+        vals = rng.integers(-2**31, 2**31 - 1, (v, r),
+                            dtype=np.int64).astype(np.int32)
+        want = tmg.plain_gather(_t(vals), _t(rid)).numpy()
+        for off_v, off_r in ((0, 0), (1, 3), (2, 1), (3, 2)):
+            got = tmg.monotone_gather(_at_offset(vals, off_v, cuda),
+                                      _at_offset(rid, off_r, cuda))
+            calls += 1
+            np.testing.assert_array_equal(got.cpu().numpy(), want,
+                                          f"t={t} offsets={off_v, off_r}")
+    torch.cuda.synchronize()
+    assert kernels.launches["monotone_gather"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [0, 1, 2])
+def test_cuda_prefix_sums_lookback_edges(cuda, kw):
+    """Kernel 3 equals its twin bit for bit at lengths 0, 1, tile - 1,
+    tile and tile + 1 with T != M, at the sharded chunk lengths, with
+    values outside 0/1 that wrap past 2^31, and with both operands as
+    views at odd offsets (weight rows off 16-byte boundaries)."""
+    tile = tts.SCAN_TILE
+    rng = np.random.default_rng(kw)
+    lengths = (0, 1, tile - 1, tile, tile + 1)
+    cases = [(t, m) for t in lengths for m in lengths if t != m]
+    cases += [(65_526, 32_763), (2 * 125_001, 125_001), (500_001, 500_001)]
+    kernels.reset_launches()
+    calls = 0
+    for t, m in cases:
+        b = rng.integers(-2**31, 2**31 - 1, t, dtype=np.int64).astype(np.int32)
+        w = rng.integers(2**29, 2**31 - 1, (kw, m),
+                         dtype=np.int64).astype(np.int32)
+        wb, ww = tts.plain_prefix(_t(b), _t(w))
+        for off_b, off_w in ((0, 0), (1, 2), (3, 1)):
+            gb, gw = tts.prefix_sums(_at_offset(b, off_b, cuda),
+                                     _at_offset(w, off_w, cuda))
+            calls += tts.scan_plan(t, kw, m)[2] > 0
+            np.testing.assert_array_equal(gb.cpu().numpy(), wb.numpy(),
+                                          f"boundary t={t} m={m}")
+            np.testing.assert_array_equal(gw.cpu().numpy(), ww.numpy(),
+                                          f"weights t={t} m={m}")
+    torch.cuda.synchronize()
+    assert kernels.launches["prefix_sums"] == calls
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_sums_long_lookback_chain(cuda):
+    """One lane of 2^23 + 1 elements: a look-back chain of 2,049 tiles,
+    beside two weight lanes of another length."""
+    rng = np.random.default_rng(23)
+    t, m = 2**23 + 1, 2**22 + 3
+    b = rng.integers(-5, 9, t).astype(np.int32)
+    w = rng.integers(0, 2**31 - 1, (2, m), dtype=np.int64).astype(np.int32)
+    gb, gw = tts.prefix_sums(_t(b).to(cuda), _t(w).to(cuda))
+    wb, ww = tts.plain_prefix(_t(b), _t(w))
+    np.testing.assert_array_equal(gb.cpu().numpy(), wb.numpy())
+    np.testing.assert_array_equal(gw.cpu().numpy(), ww.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_sums_repeated_on_one_stream(cuda):
+    """100 calls back to back on one stream, alternating two inputs and
+    freeing each result, so the allocator hands the next call the same
+    scratch: a status word left from the call before would show as a
+    wrong sum."""
+    rng = np.random.default_rng(100)
+    t, m = 300_007, 150_001
+    ins = [(_t(rng.integers(-9, 9, t).astype(np.int32)).to(cuda),
+            _t(rng.integers(0, 2, (2, m)).astype(np.int32)).to(cuda))
+           for _ in range(2)]
+    want = [tts.plain_prefix(b, w) for b, w in ins]
+    kernels.reset_launches()
+    ok = torch.ones((), dtype=torch.bool, device=cuda)
+    for i in range(100):
+        gb, gw = tts.prefix_sums(*ins[i % 2])
+        ok &= (gb == want[i % 2][0]).all() & (gw == want[i % 2][1]).all()
+        del gb, gw
+    torch.cuda.synchronize()
+    assert bool(ok)
+    assert kernels.launches["prefix_sums"] == 100

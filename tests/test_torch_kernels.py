@@ -152,6 +152,72 @@ def test_prefix_sums_lanes_stay_independent():
     assert int(got_w[0, -1]) == 1 and int(got_w[1, -1]) == 0
 
 
+_TILE = tts.SCAN_TILE
+
+
+@pytest.mark.parametrize("t,kw,m", [
+    (0, 0, 0), (0, 2, 0), (0, 0, 5), (1, 0, 0), (1, 1, 1),
+    (_TILE - 1, 1, _TILE - 1), (_TILE, 2, _TILE), (_TILE + 1, 1, 1),
+    (2 * 1_000_002, 1, 1_000_002), (2 * 1_000_002, 2, 1_000_002),
+    (65_526, 0, 32_763), (2**23 + 1, 0, 0)])
+def test_prefix_sums_scan_plan_counts_tiles(t, kw, m):
+    """Kernel 3's grid is the flat list of every lane's tiles: ceil(t /
+    tile) for the boundary lane and ceil(m / tile) for each weight lane,
+    none empty; the scratch holds the tile counter and one status word a
+    tile, and nothing when there is nothing to scan."""
+    tb, tw, words = tts.scan_plan(t, kw, m)
+    assert tb * _TILE >= t > (tb - 1) * _TILE or tb == t == 0
+    assert tw * _TILE >= m > (tw - 1) * _TILE or tw == m == 0
+    tiles = tb + kw * tw
+    assert words == (1 + tiles if tiles else 0)
+    # every tile of the flat list holds at least one element of its lane
+    lens = [t] * tb + [m] * (kw * tw)
+    idx = [j for j in range(tb)] + [j for _ in range(kw) for j in range(tw)]
+    assert all(n - j * _TILE >= 1 for n, j in zip(lens, idx))
+
+
+def _cu_defines(name):
+    """The integer ``#define``s of ``csrc/<name>``, evaluated in order."""
+    import re
+    from pathlib import Path
+    src = (Path(tts.__file__).resolve().parent.parent / "csrc"
+           / name).read_text()
+    env = {}
+    for key, expr in re.findall(r"^#define (\w+) ([\w ()*+-]+?)\s*(?://.*)?$",
+                                src, re.M):
+        try:
+            env[key] = int(eval(expr, {}, dict(env)))
+        except (NameError, SyntaxError):
+            pass
+    return env
+
+
+def test_prefix_sums_scan_plan_matches_the_kernel_source():
+    """The Python tile equals csrc/prefix_sums.cu's SCAN_TILE, and a
+    negative extent raises."""
+    assert _cu_defines("prefix_sums.cu")["SCAN_TILE"] == _TILE
+    with pytest.raises(ValueError):
+        tts.scan_plan(-1, 0, 0)
+
+
+@pytest.mark.parametrize("t,m,kw", [
+    (0, 0, 0), (1, 1, 0), (1, 1, 1), (_TILE - 1, _TILE, 2),
+    (_TILE, _TILE - 1, 1), (_TILE + 1, 3, 2), (2 * _TILE + 3, _TILE + 1, 0)])
+def test_prefix_sums_twin_at_tile_edges_matches_reference(t, m, kw):
+    """Lengths 0, 1, tile - 1, tile and tile + 1, T != M, Kw = 0, and
+    values outside 0/1 that wrap past 2^31: the twin equals the
+    reference's ``_lax_prefix`` exactly."""
+    rng = np.random.default_rng(t * 3 + m + kw)
+    b = rng.integers(-2**31, 2**31 - 1, t, dtype=np.int64).astype(np.int32)
+    w = rng.integers(2**29, 2**31 - 1, (kw, m),
+                     dtype=np.int64).astype(np.int32)
+    got_b, got_w = tts.prefix_sums(_t(b), _t(w))
+    want_b, want_w = jts._lax_prefix(jnp.asarray(b), jnp.asarray(w))
+    assert got_w.shape == (kw, m)
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+
+
 # ---- kernel 4: monotone_gather -------------------------------------------
 
 @pytest.mark.parametrize("t,v", [(7, 4), (513, 7), (2048, 4), (5000, 7)])
@@ -211,3 +277,109 @@ def test_other_devices_raise():
         tts.prefix_sums(idx, idx[None])
     with pytest.raises(ValueError, match="unsupported device"):
         tmg.monotone_gather(idx[None], idx)
+
+
+_I32 = torch.int32
+
+
+@pytest.mark.parametrize("case", [
+    "values_int64", "values_1d", "values_no_rows", "values_no_cols",
+    "values_strided", "rid_int64", "rid_2d", "rid_strided"])
+def test_monotone_gather_refuses_bad_arguments(case):
+    """The wrapper's checks run on every device, so a CPU call refuses
+    what the kernel would not take, as a CUDA call does."""
+    values = torch.zeros(4, 6, dtype=_I32)
+    rid = torch.zeros(5, dtype=_I32)
+    if case == "values_int64":
+        values = values.long()
+    elif case == "values_1d":
+        values = values[0]
+    elif case == "values_no_rows":
+        values = values[:0]
+    elif case == "values_no_cols":
+        values = values[:, :0].contiguous()
+    elif case == "values_strided":
+        values = values[:, ::2]
+    elif case == "rid_int64":
+        rid = rid.long()
+    elif case == "rid_2d":
+        rid = rid[None]
+    else:
+        rid = torch.zeros(10, dtype=_I32)[::2]
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        tmg.monotone_gather(values, rid)
+    assert kernels.launches["monotone_gather"] == 0
+
+
+@pytest.mark.parametrize("case", [
+    "boundary_int64", "boundary_bool", "boundary_2d", "boundary_strided",
+    "weights_1d", "weights_int64", "weights_strided"])
+def test_prefix_sums_refuses_bad_arguments(case):
+    boundary = torch.ones(9, dtype=_I32)
+    weights = torch.ones(2, 5, dtype=_I32)
+    if case == "boundary_int64":
+        boundary = boundary.long()
+    elif case == "boundary_bool":
+        boundary = boundary.bool()
+    elif case == "boundary_2d":
+        boundary = boundary[None]
+    elif case == "boundary_strided":
+        boundary = boundary[::2]
+    elif case == "weights_1d":
+        weights = weights[0]
+    elif case == "weights_int64":
+        weights = weights.long()
+    else:
+        weights = weights.T
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        tts.prefix_sums(boundary, weights)
+    assert kernels.launches["prefix_sums"] == 0
+
+
+def test_wrappers_take_views_at_odd_offsets():
+    """Contiguous views that start off a 16-byte boundary (the ops-axis
+    chunks, T odd) are legal arguments: the twin answers them on the
+    CPU, and the kernels take them on the card (tests/test_torch_cuda.py)."""
+    base = torch.arange(1, 40, dtype=_I32)
+    b = base[1:12]
+    w = base[3:3 + 2 * 7].view(2, 7)
+    got_b, got_w = tts.prefix_sums(b, w)
+    assert torch.equal(got_b, torch.cumsum(b, 0, dtype=_I32))
+    assert torch.equal(got_w, torch.cumsum(w, 1, dtype=_I32))
+    values = base[5:5 + 3 * 9].view(3, 9)
+    rid = torch.remainder(base, 9)[1:8]
+    assert torch.equal(tmg.monotone_gather(values, rid),
+                       values[:, rid.long()])
+
+
+@pytest.mark.parametrize("kname", ["prefix_sums", "monotone_gather"])
+def test_kerneltime_library_call_and_work_of_kernels_3_and_4(kname):
+    """The library call that bench/kerneltime.py times beside kernels 3
+    and 4 computes the twin's function on the same inputs, and the work
+    it charges them is each input element they need read once and each
+    output written once, bound by bytes."""
+    from crdt_graph_tpu_torch.bench import kerneltime
+    rng = np.random.default_rng(5)
+    if kname == "prefix_sums":
+        b = torch.from_numpy(rng.integers(0, 2, 37).astype(np.int32))
+        w = torch.from_numpy(rng.integers(-5, 9, (2, 23)).astype(np.int32))
+        args = (b, w)
+        ob, ow = tts.plain_prefix(*args)
+        got = kerneltime.library(kname, args)()
+        assert torch.equal(got[0], ob) and torch.equal(got[1:, :23], ow)
+        nbytes, nops = 8 * (37 + 46), 37 + 46
+    else:
+        vals = torch.from_numpy(rng.integers(-9, 9, (3, 11)).astype(np.int32))
+        rid = torch.from_numpy(np.sort(rng.integers(0, 11, 29))
+                               .astype(np.int32))
+        args = (vals, rid)
+        got = kerneltime.library(kname, args)()
+        assert torch.equal(got, tmg.plain_gather(*args))
+        used = int(torch.unique(rid).numel())
+        nbytes, nops = 4 * 29 + 4 * 3 * used + 4 * 3 * 29, 0
+    assert kerneltime.work_of(kname, args) == (nbytes, nops)
+    ms, by = kerneltime.bound_ms(nbytes, nops)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / kerneltime.HBM_BYTES_PER_S * 1e3)
