@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from ``crdt_graph_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and, beside them, its native wire codec with ``g++``
 (``crdt_graph_tpu_torch/native``), holds each kernel against its plain
 PyTorch twin at the merge's real shapes (exact equality: integer data),
-and drives four paths, each with the launch counts set to 0 just before
+and drives five paths, each with the launch counts set to 0 just before
 it and read just after:
 
 - the merge: ``crdt_graph_tpu_torch.ops.merge.materialize`` in the
@@ -37,7 +37,18 @@ it and read just after:
   (``restore_tiered`` + ``Wal.replay_into``: a full merge on the card,
   then from the matz artifact) held to a never-crashed replica field for
   field and byte for byte; the damage taxonomy (scrub quarantine, a
-  broken manifest, a mid-log WAL flip, a torn final record).
+  broken manifest, a mid-log WAL flip, a torn final record);
+- the wire service (``crdt_graph_tpu_torch.service.make_server`` on the
+  card, durable, ``GRAFT_WAL_SYNC=commit``) hosting 8 documents:
+  document 0 bootstrapped by one ``POST`` of config 5 as wire JSON,
+  documents 1-7 by one staged round whose same-bucket merges group into
+  one batched merge (every kernel call of it held to its twin), then 64
+  writer sessions of 24 12-leaf deltas while 8 readers read; every acked
+  write reads back before and after a restart, each document's
+  ``/ops?since=0`` replays on a CPU replica to the served values.
+
+Then the docs-axis batched merge (``parallel.mesh``) is timed at B = 1,
+4 and 16 documents beside the same documents merged one by one.
 
 With ``--route-on`` the engine's and the durable replicas' bulk merges
 of 2^18 rows or more take the ops-axis route (off by default) where the
@@ -51,7 +62,9 @@ taken on.  Exits
 non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launches (all paths), errors and times.
+lists the kernels with their launches (all paths), errors and times;
+the ``serve:`` and ``mesh:`` lines carry the serving and batching
+numbers with the card's name and power limit.
 The full record also goes to ``build/chip_smoke.json``
 (``build/chip_smoke_route_on.json`` with ``--route-on``).
 """
@@ -1122,6 +1135,514 @@ def opsaxis_phase(dev, record, adds, dels, twins):
     return launches, timed
 
 
+N_DOCS = 8                     # documents the serve phase hosts
+N_WRITERS, N_WRITES, N_LEAVES = 64, 24, 12   # scripts/bench_serve_headline
+N_READERS = 8
+N_STAGED = 4096                # docs 1-7's staged bootstraps (kernel route)
+BACKSPACE_P = 0.1              # a writer's chance to delete its last char
+CALL_S = 120.0                 # every client call's timeout
+MESH_WIDTHS = (1, 4, 16)       # documents of the batched merge timing
+N_MESH = 65_536                # ops of each of them
+
+
+class Client:
+    """One keep-alive HTTP connection to the served port; every call
+    carries the connection's timeout, so a hung request fails the phase
+    instead of hanging it."""
+
+    def __init__(self, port: int, timeout: float = CALL_S):
+        from http.client import HTTPConnection
+        self.conn = HTTPConnection("127.0.0.1", port, timeout=timeout)
+
+    def call(self, method, path, body=None, headers=None):
+        """``(status, body, response)`` of one request."""
+        self.conn.request(method, path, body=body, headers=headers or {})
+        resp = self.conn.getresponse()
+        return resp.status, resp.read(), resp
+
+    def json(self, method, path, body=None, want=200):
+        st, raw, _ = self.call(method, path, body=body)
+        if st != want:
+            raise RuntimeError(f"{method} {path} -> {st}: {raw[:200]!r}")
+        return json.loads(raw)
+
+    def close(self):
+        self.conn.close()
+
+
+def run_threads(threads, timeout: float):
+    """Start ``threads``, join each within ``timeout`` overall, and raise
+    the first error any of them recorded (``t.error``)."""
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    hung = [t.name for t in threads if t.is_alive()]
+    if hung:
+        raise RuntimeError(f"threads still running after {timeout} s: "
+                           f"{hung[:4]}")
+    for t in threads:
+        if t.error is not None:
+            raise RuntimeError(f"{t.name}: {t.error!r}") from t.error
+
+
+class Worker(threading.Thread):
+    """A daemon thread that records its exception instead of printing."""
+
+    def __init__(self, name, fn):
+        super().__init__(name=name, daemon=True)
+        self.fn, self.error, self.result = fn, None, None
+
+    def run(self):
+        try:
+            self.result = self.fn()
+        except BaseException as e:   # noqa: BLE001 — reported by run_threads
+            self.error = e
+
+
+def serve_phase(dev, record, twins, card):
+    """The wire service on the card: ``make_server`` (the port's
+    ``ServingEngine`` on the card, durable, ``GRAFT_WAL_SYNC=commit``)
+    hosting 8 documents on 127.0.0.1.  Document 0 bootstraps by one
+    ``POST`` of config 5 as wire JSON (native ingest, chunked merges on the
+    card); documents 1-7 bootstrap in one staged round whose same-bucket
+    kernel merges group into one batched merge; then 64 writer sessions
+    push 24 12-leaf chain deltas each while 8 readers read and one
+    watcher follows document 1 by long-poll ``/watch``.  Every acked
+    write reads back, before and after a restart on the same directory;
+    each document's ``/ops?since=0`` replays into a fresh CPU replica to
+    the served values; ``/metrics/prom`` parses; shutdown leaves no
+    thread.  Returns the kernel launches of the served drive."""
+    import os
+    import random
+    import shutil
+    import numpy as np
+    from crdt_graph_tpu_torch import engine as engine_mod, kernels
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch, Delete
+    from crdt_graph_tpu_torch.obs import prom
+    from crdt_graph_tpu_torch.service import make_server
+
+    root = ROOT / "build" / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    env = {"GRAFT_DURABLE_DIR": str(root), "GRAFT_WAL_SYNC": "commit"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {"docs": N_DOCS, "writers": N_WRITERS, "writes": N_WRITES,
+           "leaves": N_LEAVES, "readers": N_READERS, "card": card}
+
+    def start():
+        srv = make_server(port=0)          # device=None: the card
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        if srv.store.device != dev:
+            raise RuntimeError(f"served engine on {srv.store.device}")
+        return srv, th
+
+    def stop(srv, th):
+        eng = srv.store
+        srv.shutdown()
+        srv.server_close()                 # closes the owned engine
+        th.join(60)
+        lanes = [t for t in (th, eng.scheduler, eng.maintenance,
+                             eng.sync_worker) if t is not None]
+        left = [t.name for t in lanes if t.is_alive()]
+        if left:
+            raise RuntimeError(f"shutdown left threads running: {left}")
+
+    def values_of(c, doc):
+        return c.json("GET", f"/docs/{doc}")["values"]
+
+    try:
+        srv, th = start()
+        eng, port = srv.store, srv.server_port
+        kernels.reset_launches()
+        c = Client(port, timeout=600.0)
+
+        # ---- document 0: config 5 in one POST (native ingest) ---------
+        for _ in range(N_REPLICAS):        # the 64 replicas claim their ids
+            rid = c.json("POST", "/docs/d0/replicas")["replica"]
+        if rid != N_REPLICAS:
+            raise RuntimeError(f"replica ids ran to {rid}")
+        arrs = workloads.chain_workload(N_REPLICAS, N_OPS)
+        wire = engine_mod.packed_since_bytes(packed_chain(arrs, N_OPS), 0)
+        t0 = time.perf_counter()
+        ack = c.json("POST", "/docs/d0/ops", body=wire)
+        out["giant_commit_ms"] = (time.perf_counter() - t0) * 1e3
+        out["giant_wire_bytes"] = len(wire)
+        if not ack["accepted"] or ack["applied_count"] != N_OPS:
+            raise RuntimeError(f"bootstrap ack {ack}")
+        del wire
+        if not eng.flush(CALL_S):
+            raise RuntimeError("the bootstrap never flushed")
+        giant = eng.flight.records()[-1].to_json()
+        out["giant_stages_ms"] = giant["stages_ms"]
+        out["giant_chunks"] = giant["chunk_count"]
+        log(f"serve: d0 bootstrap POST of {N_OPS} ops ({out['giant_wire_bytes']}"
+            f" wire bytes) acked in {out['giant_commit_ms']:.1f} ms; commit "
+            f"stages {out['giant_stages_ms']} ms, {out['giant_chunks']} chunks")
+
+        # ---- documents 1-7: one staged round, grouped on the card -----
+        def bootstrap(k):
+            cl = Client(port)
+            rid = cl.json("POST", f"/docs/d{k}/replicas")["replica"]
+            ops = [Add(rid * 2**32 + i, ((rid * 2**32 + i - 1) if i > 1
+                                         else 0,), f"b{k}.{i}")
+                   for i in range(1, N_STAGED + 1)]
+            body = json_codec.dumps(Batch(tuple(ops)))
+            a = cl.json("POST", f"/docs/d{k}/ops", body=body)
+            cl.close()
+            if a["applied_count"] != N_STAGED:
+                raise RuntimeError(f"d{k} bootstrap ack {a}")
+
+        for k in range(1, N_DOCS):
+            eng.get(f"d{k}")
+        # the scheduler holds its rounds until all seven pushes queue
+        eng.scheduler.pause()
+        boots = [Worker(f"boot-d{k}", lambda k=k: bootstrap(k))
+                 for k in range(1, N_DOCS)]
+
+        def staged_round():
+            for t in boots:
+                t.start()
+            deadline = time.monotonic() + CALL_S
+            while sum(len(eng.get(f"d{k}").queue)
+                      for k in range(1, N_DOCS)) < N_DOCS - 1:
+                if time.monotonic() > deadline or any(
+                        t.error for t in boots):
+                    raise RuntimeError("staged pushes never queued")
+                time.sleep(0.005)
+            eng.scheduler.resume()
+            for t in boots:
+                t.join(CALL_S)
+            if not eng.flush(CALL_S):
+                raise RuntimeError("staged round never flushed")
+
+        batches0 = eng.counters.get("cross_doc_batches")
+        caught = capture_inputs(staged_round, wrapper_modules())
+        for t in boots:
+            if t.is_alive() or t.error:
+                raise RuntimeError(f"{t.name}: {t.error!r}")
+        grouped = eng.counters.get("cross_doc_batches") - batches0
+        widths = sorted({r.batch_width for r in eng.flight.records()
+                         if r.batch_width})
+        if grouped < 1:
+            raise RuntimeError("the staged round never grouped on the card")
+        errs = twin_errors(caught, twins)
+        for k in ("plane_rows", "prefix_sums", "monotone_gather"):
+            if k not in errs:
+                raise RuntimeError(f"the batched merge never called {k}")
+        if any(e != 0 for e in errs.values()):
+            raise RuntimeError(f"batched-merge kernel calls differ: {errs}")
+        fold_errors(record, errs)
+        out["cross_doc_batches"] = grouped
+        out["batch_widths"] = widths
+        out["batched_twin_calls"] = {k: len(v) for k, v in caught.items()}
+        log(f"serve: staged round of {N_DOCS - 1} bootstraps -> "
+            f"{grouped} batched merge(s) of widths {widths}; "
+            f"{out['batched_twin_calls']} kernel calls == twins")
+        del caught
+
+        # ---- 64 writers and 8 readers ---------------------------------
+        stop_reads = threading.Event()
+
+        def writer(idx):
+            doc = f"d{idx % N_DOCS}"
+            cl = Client(port)
+            rid = cl.json("POST", f"/docs/{doc}/replicas")["replica"]
+            rng = random.Random(1000 + idx)
+            alive, gone, ms, counter = [], [], [], 0
+            for w in range(N_WRITES):
+                ops = []
+                for _ in range(N_LEAVES):
+                    if alive and rng.random() < BACKSPACE_P:
+                        ts, v = alive.pop()
+                        ops.append(Delete((ts,)))
+                        gone.append(v)
+                    else:
+                        counter += 1
+                        ts = rid * 2**32 + counter
+                        ops.append(Add(ts, (alive[-1][0] if alive else 0,),
+                                       f"s{idx}.{counter}"))
+                        alive.append((ts, f"s{idx}.{counter}"))
+                body = json_codec.dumps(Batch(tuple(ops)))
+                while True:
+                    t0 = time.perf_counter()
+                    st, raw, _ = cl.call("POST", f"/docs/{doc}/ops",
+                                         body=body)
+                    if st != 429:
+                        break
+                    time.sleep(0.05)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                a = json.loads(raw)
+                if st != 200 or not a["accepted"] \
+                        or a["applied_count"] != N_LEAVES:
+                    raise RuntimeError(f"{doc} write {w} -> {st} {a}")
+                # read-your-writes: the served log holds the write's
+                # newest add (its window from there is found)
+                last = max(o.ts for o in ops if isinstance(o, Add)) \
+                    if any(isinstance(o, Add) for o in ops) else None
+                if last is not None:
+                    st, _, r = cl.call(
+                        "GET", f"/docs/{doc}/ops?since={last}&limit=1")
+                    if st != 200 or r.getheader("X-Since-Found") != "1":
+                        raise RuntimeError(f"{doc}: write {w} not read "
+                                           f"back ({st})")
+            cl.close()
+            return doc, [v for _, v in alive], gone, ms
+
+        def reader(idx):
+            cl = Client(port)
+            ms, i = [], 0
+            since = N_REPLICAS * 2**32 + 15_000
+            while not stop_reads.is_set():
+                k = (idx + i) % N_DOCS
+                i += 1
+                path = (f"/docs/d0/ops?since={since}&limit=256"
+                        if k == 0 and i % 2 else
+                        "/docs/d0/clock" if k == 0 else f"/docs/d{k}")
+                t0 = time.perf_counter()
+                st, _, _ = cl.call("GET", path)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if st != 200:
+                    raise RuntimeError(f"read {path} -> {st}")
+            cl.close()
+            return ms
+
+        def watcher():
+            """Follows d1 by long-poll ``/watch`` on one keep-alive
+            connection (parked on the reactor between generations) into
+            a CPU replica, until the writers are done and a poll times
+            out caught up."""
+            cl = Client(port)
+            replica = engine_mod.init(998, device="cpu")
+            mark, events = 0, {}
+            while True:
+                # a poll that starts after the last ack and times out
+                # has seen every write
+                last = stop_reads.is_set()
+                st, raw, r = cl.call(
+                    "GET", f"/docs/d1/watch?since={mark}&timeout=1")
+                ev = r.getheader("X-Watch-Event")
+                if st != 200:
+                    raise RuntimeError(f"watch d1 -> {st} {ev}")
+                events[ev] = events.get(ev, 0) + 1
+                if ev == "timeout":
+                    if last:
+                        break
+                    continue
+                replica.apply_wire(raw)
+                mark = int(r.getheader("X-Since-Next"))
+            cl.close()
+            return replica.visible_values(), events
+
+        writers = [Worker(f"writer-{i}", lambda i=i: writer(i))
+                   for i in range(N_WRITERS)]
+        readers = [Worker(f"reader-{i}", lambda i=i: reader(i))
+                   for i in range(N_READERS)]
+        readers.append(Worker("watcher-d1", watcher))
+        for t in readers:
+            t.start()
+        t0 = time.perf_counter()
+        try:
+            run_threads(writers, 600.0)
+        finally:
+            wall = time.perf_counter() - t0
+            stop_reads.set()
+            for t in readers:
+                t.join(CALL_S)
+        for t in readers:
+            if t.is_alive() or t.error:
+                raise RuntimeError(f"{t.name}: {t.error!r}")
+        watched, watch_events = readers.pop().result
+        if not eng.flush(CALL_S):
+            raise RuntimeError("the served engine never flushed")
+        launches = dict(kernels.launches)
+        leaves = N_WRITERS * N_WRITES * N_LEAVES
+        # where a writer commit's time goes: p50 of each flight-record
+        # stage, document 0 (1M values) apart from the small documents
+        stages = {"d0": {}, "d1-7": {}}
+        n_commits = {"d0": 0, "d1-7": 0}
+        for r in eng.flight.records():
+            if r.num_ops > N_LEAVES * N_WRITERS or r.outcome != "committed":
+                continue
+            key = "d0" if r.doc_id == "d0" else "d1-7"
+            n_commits[key] += 1
+            for st_name, v in r.stages_ms.items():
+                stages[key].setdefault(st_name, []).append(v)
+            stages[key].setdefault("total", []).append(r.total_ms)
+        out["writer_commits"] = n_commits
+        out["writer_stage_p50_ms"] = {
+            k: {n: float(np.percentile(v, 50)) for n, v in d.items()}
+            for k, d in stages.items()}
+        commit_ms = [m for t in writers for m in t.result[3]]
+        read_ms = [m for t in readers for m in t.result]
+        out.update({
+            "acked_writes": N_WRITERS * N_WRITES, "acked_leaves": leaves,
+            "writer_wall_s": wall, "sustained_ops_per_s": leaves / wall,
+            "commit_p50_ms": float(np.percentile(commit_ms, 50)),
+            "commit_p99_ms": float(np.percentile(commit_ms, 99)),
+            "reads": len(read_ms),
+            "read_p50_ms": float(np.percentile(read_ms, 50)),
+            "read_p99_ms": float(np.percentile(read_ms, 99)),
+            "launches": launches,
+            "coalesce": eng.counters.get("fused_batches")})
+        for k in ("plane_rows", "plane_rows2", "prefix_sums",
+                  "monotone_gather"):
+            if launches.get(k, 0) < 1:
+                raise RuntimeError(f"the served path never launched {k}")
+
+        # ---- what the service serves -----------------------------------
+        exp_ts = workloads.chain_expected_ts(N_REPLICAS, N_OPS)
+        per = N_OPS // N_REPLICAS
+        exp_rows = ((exp_ts >> 32) - 1) * per + (exp_ts & 0xFFFFFFFF) - 1
+
+        def check_served(c, tag):
+            served = {}
+            for k in range(N_DOCS):
+                served[k] = values_of(c, f"d{k}")
+            ints = np.array([v for v in served[0] if isinstance(v, int)])
+            if not np.array_equal(ints, exp_rows):
+                raise RuntimeError(f"{tag}: d0's bootstrap order wrong")
+            for t in writers:
+                doc, alive, gone, _ = t.result
+                vals = served[int(doc[1:])]
+                pos = {v: i for i, v in enumerate(vals)
+                       if isinstance(v, str)}
+                got = [pos.get(v) for v in alive]
+                if None in got or got != sorted(got) or \
+                        any(v in pos for v in gone):
+                    raise RuntimeError(f"{tag}: {t.name}'s acked writes "
+                                       f"do not read back on {doc}")
+            for k in range(1, N_DOCS):
+                if sum(1 for v in served[k] if str(v).startswith(
+                        f"b{k}.")) != N_STAGED:
+                    raise RuntimeError(f"{tag}: d{k} lost its bootstrap")
+            return served
+
+        served = check_served(c, "live")
+        if watched != served[1]:
+            raise RuntimeError("d1 followed by /watch differs from the "
+                               "served values")
+        out["watch_events"] = watch_events
+        t0 = time.perf_counter()
+        for k in range(N_DOCS):
+            st, body, _ = c.call("GET", f"/docs/d{k}/ops?since=0")
+            replica = engine_mod.init(999, device="cpu")
+            replica.apply_wire(body)
+            if replica.visible_values() != served[k]:
+                raise RuntimeError(f"d{k}: /ops?since=0 replayed on the "
+                                   "CPU differs from the served values")
+        out["replay_s"] = time.perf_counter() - t0
+        fams = prom.parse_text(c.call("GET", "/metrics/prom")[1].decode())
+        out["prom_families"] = len(fams)
+        flight = c.json("GET", "/debug/flight")
+        out["flight_records"] = len(flight["records"])
+        c.close()
+        stop(srv, th)
+
+        # ---- restart on the same directory ----------------------------
+        t0 = time.perf_counter()
+        srv, th = start()
+        out["restart_s"] = time.perf_counter() - t0
+        c = Client(srv.server_port, timeout=600.0)
+        again = check_served(c, "restart")
+        if again != served:
+            raise RuntimeError("the restarted server serves other values")
+        c.close()
+        stop(srv, th)
+        log("serve: " + json.dumps({
+            "card": card, "acked_writes": out["acked_writes"],
+            "acked_leaves": leaves,
+            "sustained_ops_per_s": round(out["sustained_ops_per_s"], 1),
+            "read_p50_ms": round(out["read_p50_ms"], 3),
+            "read_p99_ms": round(out["read_p99_ms"], 3),
+            "commit_p50_ms": round(out["commit_p50_ms"], 3),
+            "giant_commit_ms": round(out["giant_commit_ms"], 1),
+            "cross_doc_batches": grouped, "batch_widths": widths,
+            "launches": launches}))
+        log(f"serve: writer commits {n_commits}, p50 stage ms "
+            + json.dumps({k: {n: round(v, 3) for n, v in d.items()}
+                          for k, d in out["writer_stage_p50_ms"].items()}))
+        log(f"serve: every acked write read back, live and after a restart "
+            f"({out['restart_s']:.1f} s); each document's /ops?since=0 == "
+            f"its served values on a CPU replica ({out['replay_s']:.1f} s); "
+            f"d1 followed by long-poll /watch {watch_events} == its served "
+            f"values; "
+            f"/metrics/prom {len(fams)} families; shutdown clean")
+        record["serve"] = out
+        return launches
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_phase(dev, record, twins, card):
+    """The docs-axis batched merge on the card: 16 documents of 65,536
+    chain ops (4 to 512 replicas each), batched at B = 1, 4 and 16 and
+    timed beside the same B documents merged one by one (the join leg
+    the batch runs, and the vouched leg a single commit would take).
+    Every document's slice == its single merge, and every kernel call
+    of the B = 16 batch == its twin.  Launches counted here do not feed
+    the ``kernels`` line (the serve phase is the main path)."""
+    import numpy as np
+    from crdt_graph_tpu_torch import convert
+    from crdt_graph_tpu_torch.bench import honest, workloads
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.parallel import mesh
+
+    docs = [packed_chain(workloads.chain_workload(4 << (i % 8), N_MESH),
+                         N_MESH) for i in range(max(MESH_WIDTHS))]
+    out = {"ops_per_doc": N_MESH, "card": card, "widths": {}}
+    for b in MESH_WIDTHS:
+        stacked, aligned = mesh.stack_aligned(docs[:b])
+        cols = [p.arrays() for p in aligned]   # host columns, made once
+        legs = {
+            "batched": lambda: mesh.materialize_each(stacked, device=dev),
+            "singles_join": lambda: [merge.materialize(
+                a, hints="join", device=dev) for a in cols],
+            "singles_vouched": lambda: [merge.materialize(
+                a, hints="exhaustive", device=dev) for a in cols]}
+        times = {}
+        for name in ("batched", "singles_join", "singles_vouched",
+                     "singles_join", "batched"):
+            times.setdefault(name, []).extend(honest.time_with_readback(
+                legs[name], repeats=5)["times_ms"])
+        row = {n: float(np.median(v)) / b for n, v in times.items()}
+        out["widths"][b] = {"per_doc_ms": row, "times_ms": times}
+        if b == max(MESH_WIDTHS):
+            got = {}
+            caught = capture_inputs(
+                lambda: got.setdefault("t", legs["batched"]()),
+                wrapper_modules())
+            errs = twin_errors(caught, twins)
+            if any(e != 0 for e in errs.values()):
+                raise RuntimeError(f"batched kernel calls differ: {errs}")
+            fold_errors(record, errs)
+            for i, c in enumerate(cols):
+                a = convert.table_to_numpy(got["t"][i])
+                s = convert.table_to_numpy(merge.materialize(
+                    c, hints="join", device=dev))
+                if any(not np.array_equal(a[f], s[f])
+                       for f in merge.FIELDS):
+                    raise RuntimeError(f"doc {i}'s slice != its merge")
+            out["twin_calls"] = {k: len(v) for k, v in caught.items()}
+    record["mesh"] = out
+    log("mesh: " + json.dumps({
+        "card": card, "ops_per_doc": N_MESH,
+        "per_doc_ms": {b: {n: round(v, 4) for n, v in
+                           out["widths"][b]["per_doc_ms"].items()}
+                       for b in MESH_WIDTHS}}))
+    log(f"mesh: B = {max(MESH_WIDTHS)} slices == single merges; "
+        f"{out['twin_calls']} kernel calls == twins")
+
+
 def flip_zip_data(path) -> None:
     """One bit-rot event inside the data of an npz's largest member (a
     flip in a zip local header is benign and legitimately not flagged)."""
@@ -1407,7 +1928,13 @@ def main(argv=None) -> int:
     # ---- 7. the ops-axis sharded merge (its own counted drive) --------
     ops_launches, ring_args = opsaxis_phase(dev, record, adds, dels, twins)
 
-    # ---- 8. timing ------------------------------------------------------
+    # ---- 8. the wire service (its own counted drive) ------------------
+    serve_launches = serve_phase(dev, record, twins, card)
+
+    # ---- 9. the docs-axis batched merge, B = 1, 4, 16 ------------------
+    mesh_phase(dev, record, twins, card)
+
+    # ---- 10. timing -----------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -1470,13 +1997,16 @@ def main(argv=None) -> int:
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[kname] + engine_launches[kname]
-                     + dur_launches[kname] + ops_launches[kname],
+                     + dur_launches[kname] + ops_launches[kname]
+                     + serve_launches.get(kname, 0),
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms,
                      "device_ms": k_ms, "cold_ms": c_ms,
                      "events_ms": tk["kernel"]["events_ms"],
                      "host_us": tk["kernel"]["host_us"]})
+    log(f"profiler sessions that recorded no device time and were taken "
+        f"again: {kerneltime.empty_sessions}")
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

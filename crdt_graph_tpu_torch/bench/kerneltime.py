@@ -75,29 +75,43 @@ def events_ms(fn, reps: int = 20) -> float:
     return s.elapsed_time(e) / reps
 
 
+# profiler sessions tried before device_ms gives up: a session now and
+# then hands back no device events at all for work that ran
+PROFILE_TRIES = 3
+# sessions that recorded no device time and were taken again, this process
+empty_sessions = 0
+
+
 def device_ms(fn, reps: int = 20, by_name: dict = None) -> float:
     """Device time a call of ``fn``: the spans of everything it ran on the
     card summed over ``reps`` calls by ``torch.profiler``, over ``reps``.
     ``by_name``, when given, receives the same time split by the name of
-    each span (kernels, fills, copies).  Raises when the profiler records
-    no device time."""
+    each span (kernels, fills, copies).  A session that records no device
+    time is taken again, up to ``PROFILE_TRIES`` sessions in all; then it
+    raises."""
+    global empty_sessions
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = 0.0
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) == cuda:
-            t = ev.time_range.elapsed_us()
-            us += t
-            if by_name is not None:
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + t / reps / 1e3
-    if not us:
-        raise RuntimeError("the profiler recorded no device time")
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(ev.name, ev.time_range.elapsed_us())
+                 for ev in prof.events()
+                 if getattr(ev, "device_type", None) == cuda]
+        us = sum(t for _, t in spans)
+        if us:
+            break
+        empty_sessions += 1
+    else:
+        raise RuntimeError(f"the profiler recorded no device time in "
+                           f"{PROFILE_TRIES} sessions")
+    if by_name is not None:
+        for name, t in spans:
+            by_name[name] = by_name.get(name, 0.0) + t / reps / 1e3
     return us / reps / 1e3
 
 

@@ -1,8 +1,8 @@
 """Environment switches, read at call time.
 
-Copies of the reference package's ``flag_on`` and ``env_int``, so the
-port reads the same ``GRAFT_*`` names with the same rules (the op log's
-``GRAFT_OPLOG_*`` sizing knobs among them).  The reference's CPU-mesh
+Copies of the reference package's ``flag_on``, ``env_int`` and
+``env_float``, so the port reads the same ``GRAFT_*`` names with the
+same rules (the op log's ``GRAFT_OPLOG_*`` sizing knobs among them).  The reference's CPU-mesh
 helpers are left out: they pin a JAX process to its host platform, which
 this package never starts.
 """
@@ -28,5 +28,13 @@ def env_int(name: str, default: int) -> int:
     default instead of crashing process start."""
     try:
         return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    """One float env knob, with :func:`env_int`'s fallback rule."""
+    try:
+        return float(os.environ.get(name, default))
     except ValueError:
         return default

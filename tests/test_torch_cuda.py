@@ -430,3 +430,156 @@ def test_cuda_prefix_sums_repeated_on_one_stream(cuda):
     torch.cuda.synchronize()
     assert bool(ok)
     assert kernels.launches["prefix_sums"] == 100
+
+
+# -- the docs-axis batched merge and the wire service on the card ---------
+
+
+def _chain_docs(n_docs, n_ops):
+    """``n_docs`` vouched chain documents of ``n_ops`` ops (2 to 64
+    replicas each), a with-deletes one among them."""
+    from crdt_graph_tpu_torch.bench import workloads
+    docs = []
+    for i in range(n_docs):
+        arrs = workloads.chain_workload(2 << (i % 6), n_ops)
+        docs.append(_vouched(arrs, n_ops))
+    return docs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_cuda_batched_equals_singles_and_cpu(cuda, b):
+    """``batched_materialize`` on the card: every document's slice equals
+    its own single merge on the card and the whole batch equals the CPU
+    batch, field for field; the join leg launches kernels 1, 3 and 4."""
+    from crdt_graph_tpu_torch import convert
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import packed
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.parallel import mesh
+    docs = _chain_docs(b, 8192)
+    if b > 1:
+        dels = workloads.chain_with_deletes(4096, 16, 8)
+        docs[1] = packed.PackedOps(
+            **{k: dels[k] for k in ("kind", "ts", "parent_ts", "anchor_ts",
+                                    "depth", "paths", "value_ref", "pos",
+                                    "parent_pos", "anchor_pos",
+                                    "target_pos")},
+            values=list(range(dels["kind"].shape[0])),
+            num_ops=int(dels["kind"].shape[0]))
+    stacked, aligned = mesh.stack_aligned(docs)
+    kernels.reset_launches()
+    got = mesh.batched_materialize(stacked)
+    torch.cuda.synchronize()
+    for k in ("plane_rows", "prefix_sums", "monotone_gather"):
+        assert kernels.launches[k] >= b, k
+    assert got.status.device.type == "cuda"
+    want = convert.table_to_numpy(mesh.batched_materialize(stacked,
+                                                           device="cpu"))
+    have = convert.table_to_numpy(got)
+    for f in merge.FIELDS:
+        np.testing.assert_array_equal(have[f], want[f], err_msg=f)
+    for i, p in enumerate(aligned):
+        one = convert.table_to_numpy(merge.materialize(p.arrays(),
+                                                       hints="join"))
+        two = convert.table_to_numpy(mesh.doc_table(got, i))
+        for f in merge.FIELDS:
+            np.testing.assert_array_equal(two[f], one[f],
+                                          err_msg=f"doc {i} {f}")
+
+
+def _chain_body(rid, n, start=1, tag="v"):
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch
+    off = 2**32
+    return json_codec.dumps(Batch(tuple(
+        Add(rid * off + c, ((rid * off + c - 1) if c > 1 else 0,),
+            f"{tag}{rid}.{c}") for c in range(start, start + n))))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_engine_commits_a_grouped_round(cuda):
+    """``ServingEngine()`` (the card) groups three same-bucket kernel
+    pushes staged into one round into one batched merge; the documents
+    equal a CPU engine's that merged them one by one."""
+    import threading
+    import time
+    from crdt_graph_tpu_torch.obs import flight
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    eng = ServingEngine(start=False, flight=flight.FlightRecorder(),
+                        submit_timeout_s=120)
+    ref = ServingEngine(device="cpu", cross_doc=False,
+                        flight=flight.FlightRecorder(),
+                        submit_timeout_s=120)
+    try:
+        assert eng.device.type == "cuda"
+        bodies = {f"g{i}": _chain_body(i + 2, 2048) for i in range(3)}
+        boxes = {}
+        ths = [threading.Thread(
+            target=lambda d=d, b=b: boxes.__setitem__(d, eng.submit(d, b)),
+            daemon=True) for d, b in bodies.items()]
+        for t in ths:
+            t.start()
+        deadline = time.monotonic() + 60
+        while sum(len(eng.get(d).queue) for d in bodies) < 3:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        kernels.reset_launches()
+        assert eng.scheduler.step() == 3
+        for t in ths:
+            t.join(120)
+            assert not t.is_alive()
+        assert eng.counters.get("cross_doc_batches") == 1
+        assert kernels.launches["plane_rows"] >= 3
+        for d, b in bodies.items():
+            assert boxes[d][0]
+            assert ref.submit(d, b)[0]
+            a, r = eng.get(d).snapshot_view(), ref.get(d).snapshot_view()
+            assert list(a.values) == list(r.values)
+            assert a.state_fingerprint() == r.state_fingerprint()
+            assert bytes(a.ops_since_bytes(0)) == bytes(r.ops_since_bytes(0))
+    finally:
+        eng.close()
+        ref.close()
+
+
+@pytest.mark.cuda
+def test_cuda_document_store_merges_from_two_threads(cuda):
+    """The legacy ``DocumentStore`` merges on handler threads: two
+    documents' kernel merges launch from two threads at once, and each
+    document equals its CPU twin."""
+    import threading
+    from crdt_graph_tpu_torch.service import DocumentStore
+    store, ref = DocumentStore(), DocumentStore(device="cpu")
+    assert store.device.type == "cuda"
+    bodies = {"p": [_chain_body(2, 3000), _chain_body(2, 2000, start=3001)],
+              "q": [_chain_body(3, 2500), _chain_body(4, 2600)]}
+    errors = []
+    go = threading.Barrier(2)
+
+    def push(doc):
+        try:
+            go.wait(30)
+            for b in bodies[doc]:
+                ok, _ = store.get(doc).apply_body(b.encode())
+                assert ok
+        except BaseException as e:   # noqa: BLE001 — reported below
+            errors.append(e)
+
+    kernels.reset_launches()
+    ths = [threading.Thread(target=push, args=(d,), daemon=True)
+           for d in bodies]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(120)
+        assert not t.is_alive()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert kernels.launches["prefix_sums"] >= 4
+    for doc, bs in bodies.items():
+        for b in bs:
+            assert ref.get(doc).apply_body(b.encode())[0]
+        assert store.get(doc).snapshot() == ref.get(doc).snapshot()
+        assert store.get(doc).dumps_since_bytes(0) == \
+            ref.get(doc).dumps_since_bytes(0)

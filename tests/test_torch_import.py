@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports and merges with ``jax``
-blocked (the ops-axis sharded merge, the durability modules and the
-native codec included), none of
+blocked (the ops-axis sharded merge, the durability modules, the native
+codec and the serving stack — ``serve``, ``service``, ``obs`` and
+``parallel.mesh`` — included), none of
 its sources (nor ``chip_smoke.py``) imports ``jax`` or the JAX package,
 and its entry point never falls back to the CPU quietly."""
 import ast
@@ -165,6 +166,68 @@ def test_durability_modules_import_and_run_with_jax_blocked(tmp_path):
     assert ref_pkg not in native.so_path().parents
 
 
+def test_serving_stack_imports_and_serves_with_jax_blocked(tmp_path):
+    """``serve``, ``service``, ``obs`` and ``parallel.mesh`` import with
+    ``jax`` and the reference package blocked; the HTTP server answers a
+    durable session on the CPU path (a batched merge of two documents
+    included) and a restart serves every acked write."""
+    d = str(tmp_path / "srv")
+    code = (
+        "import sys, json\n"
+        "from http.client import HTTPConnection\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['crdt_graph_tpu'] = None\n"
+        "import threading\n"
+        "import crdt_graph_tpu_torch as c\n"
+        "from crdt_graph_tpu_torch import obs, serve, service\n"
+        "from crdt_graph_tpu_torch.obs import prom\n"
+        "from crdt_graph_tpu_torch.parallel import mesh\n"
+        "from crdt_graph_tpu_torch.codec import json_codec\n"
+        "def chain(r, n):\n"
+        "    return json_codec.dumps(c.Batch(tuple(c.Add(r * 2**32 + i,"
+        " ((r * 2**32 + i - 1) if i > 1 else 0,), i)"
+        " for i in range(1, n + 1))))\n"
+        f"d = {d!r}\n"
+        "eng = serve.ServingEngine(device='cpu', durable_dir=d,"
+        " wal_sync='commit', start=False, submit_timeout_s=60)\n"
+        "out = {}\n"
+        "ths = [threading.Thread(target=lambda k=k: out.__setitem__(k,"
+        " eng.submit(k, chain(k == 'a' and 2 or 3, 1100))))"
+        " for k in ('a', 'b')]\n"
+        "[t.start() for t in ths]\n"
+        "import time\n"
+        "while sum(len(eng.get(k).queue) for k in ('a', 'b')) < 2:\n"
+        "    time.sleep(0.01)\n"
+        "assert eng.scheduler.step() == 2\n"
+        "[t.join(60) for t in ths]\n"
+        "assert eng.counters.get('cross_doc_batches') == 1\n"
+        "eng.scheduler.start()\n"
+        "srv = service.make_server(port=0, store=eng)\n"
+        "th = threading.Thread(target=srv.serve_forever, daemon=True)\n"
+        "th.start()\n"
+        "conn = HTTPConnection('127.0.0.1', srv.server_port, timeout=60)\n"
+        "conn.request('POST', '/docs/a/ops', body=chain(5, 3))\n"
+        "r = conn.getresponse(); body = json.loads(r.read())\n"
+        "assert r.status == 200 and body['applied_count'] == 3, body\n"
+        "conn.request('GET', '/metrics/prom')\n"
+        "prom.parse_text(conn.getresponse().read().decode())\n"
+        "conn.close(); srv.shutdown(); srv.server_close(); eng.close()\n"
+        "th.join(60)\n"
+        "eng2 = serve.ServingEngine(device='cpu', durable_dir=d,"
+        " wal_sync='commit')\n"
+        "print(len(eng2.get('a').snapshot()), len(eng2.get('b').snapshot()))\n"
+        "eng2.close()\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "or m.startswith('crdt_graph_tpu.') "
+        "for m, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), GRAFT_OBS_AUDIT_EVERY="0")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "1103 1100"
+
+
 def test_materialize_without_device_refuses_cpu_fallback():
     from crdt_graph_tpu_torch.bench import workloads
     from crdt_graph_tpu_torch.ops import merge
@@ -178,3 +241,14 @@ def test_materialize_without_device_refuses_cpu_fallback():
     from crdt_graph_tpu_torch import engine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.init(1)
+    from crdt_graph_tpu_torch.parallel import mesh
+    from crdt_graph_tpu_torch.codec import packed
+    from crdt_graph_tpu_torch import Add
+    p = packed.pack([Add(1, (0,), "a")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.batched_materialize(mesh.stack_packed([p]))
+    from crdt_graph_tpu_torch import serve, service
+    for make in (serve.ServingEngine, service.DocumentStore,
+                 service.make_server):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
