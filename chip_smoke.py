@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``crdt_graph_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and, beside them, its native wire codec with ``g++``
 (``crdt_graph_tpu_torch/native``), holds each kernel against its plain
 PyTorch twin at the merge's real shapes (exact equality: integer data),
-and drives five paths, each with the launch counts set to 0 just before
+and drives six paths (five here, the fleet below), each with the launch
+counts set to 0 just before
 it and read just after:
 
 - the merge: ``crdt_graph_tpu_torch.ops.merge.materialize`` in the
@@ -48,7 +49,19 @@ it and read just after:
   ``/ops?since=0`` replays on a CPU replica to the served values.
 
 Then the docs-axis batched merge (``parallel.mesh``) is timed at B = 1,
-4 and 16 documents beside the same documents merged one by one.
+4 and 16 documents beside the same documents merged one by one, and the
+fleet runs (a sixth counted path): one merge worker on the card
+(``crdt_graph_tpu_torch.mergetier``, real HTTP, registered in a
+``FileKV`` pool) and three ``FleetServer`` front-ends
+(``crdt_graph_tpu_torch.cluster``, durable engines on the card).  16
+documents of 65,536 ops in one staged round and config 5 as one
+``POST`` ship to the worker, which merges each linger window as one
+batched merge (every kernel call held to its twin, no fallback); 48
+writer sessions write through non-primary nodes (forwarded) and
+anti-entropy converges the three replicas; the worker then crashes and
+one more round falls back, one ``transport`` fallback a document, to
+merges on the front-ends' card.  Every replica equals a ``TpuTree`` on
+the card fed the same ops and serves every acked write.
 
 With ``--route-on`` the engine's and the durable replicas' bulk merges
 of 2^18 rows or more take the ops-axis route (off by default) where the
@@ -63,8 +76,8 @@ non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times;
-the ``serve:`` and ``mesh:`` lines carry the serving and batching
-numbers with the card's name and power limit.
+the ``serve:``, ``mesh:`` and ``fleet:`` lines carry the serving,
+batching and fleet numbers with the card's name and power limit.
 The full record also goes to ``build/chip_smoke.json``
 (``build/chip_smoke_route_on.json`` with ``--route-on``).
 """
@@ -1643,6 +1656,488 @@ def mesh_phase(dev, record, twins, card):
         f"{out['twin_calls']} kernel calls == twins")
 
 
+
+N_FLEET_DOCS = 16              # the clean leg's documents (as the mesh phase)
+FLEET_NODES = ("n0", "n1", "n2")
+FLEET_WRITERS, FLEET_WRITES = 48, 12   # writer sessions, writes each
+FLEET_LINGER_MS = 250.0        # the merge worker's linger window
+FLEET_DELTA_CAP = 1 << 20      # anti-entropy window: the 1M doc in one
+DEATH_DOCS = 2                 # worker-death round: documents a node
+DEATH_OPS = 16_384             # and ops each: >= GRAFT_MERGETIER_MIN_OPS,
+                               # and >= 1/8 of the log (the bulk route)
+
+
+def fleet_phase(dev, record, twins, card):
+    """The merge tier and the replica fleet on the card.  One merge
+    worker (``MergeWorkerServer``, real HTTP on 127.0.0.1) owns the
+    card's batched merges and registers in a ``FileKV`` pool; three
+    ``FleetServer`` front-ends, each over a durable ``ServingEngine`` on
+    the card (``GRAFT_WAL_SYNC=commit``), find it through the pool.
+
+    - Clean leg: 16 documents of 65,536 chain ops (4-512 replicas) in
+      one staged round over the three front-ends (their grouped runs
+      ship to the worker), then config 5's 1M ops as one ``POST`` to
+      n0 (a giant single).  At least one epoch carries documents of two
+      or more front-ends; the worker merged every routed document; no
+      rung of the fallback ladder fired; every kernel call of the
+      epochs equals its twin.
+    - Fleet leg: 48 writer sessions × 12 writes × 12 leaves, each sent
+      to a node that is not the document's primary (forwarded); then
+      anti-entropy rounds until every document's ``state_fingerprint``
+      agrees on the three replicas.
+    - Worker-death leg: a staged round of remote-eligible deltas (2
+      documents a node) merges on the worker; the worker crashes; one
+      more such round counts exactly one ``transport`` fallback per
+      document and merges each on its front-end's card (kernel calls
+      held to their twins).
+    Then every replica's fingerprint equals a ``TpuTree`` on the card
+    fed the same ops, and every acked write reads back from every
+    replica.  Returns the kernel launches of the drive."""
+    import os
+    import random
+    import shutil
+    import numpy as np
+    from crdt_graph_tpu_torch import engine as engine_mod, kernels
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.cluster import FileKV, FleetServer, mergepool
+    from crdt_graph_tpu_torch.cluster import kv as kv_mod
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch, Delete
+    from crdt_graph_tpu_torch.mergetier import MergeTierClient, MergeWorker
+    from crdt_graph_tpu_torch.mergetier.worker import MergeWorkerServer
+    from crdt_graph_tpu_torch.obs import fleettrace, flight
+    from crdt_graph_tpu_torch.serve import ServingEngine, snapshot
+    from crdt_graph_tpu_torch.serve.engine import SERVER_REPLICA
+
+    root = ROOT / "build" / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    # the canary is off: its probe reads wake the peers' anti-entropy
+    # daemons (a priority pull), and those background rounds would mix
+    # with the rounds each leg drives and counts
+    env = {"GRAFT_WAL_SYNC": "commit", "GRAFT_CANARY": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    threads_before = set(threading.enumerate())
+    t_phase = time.perf_counter()
+    out = {"card": card, "docs": N_FLEET_DOCS, "ops_per_doc": N_MESH,
+           "writers": FLEET_WRITERS, "writes": FLEET_WRITES,
+           "leaves": N_LEAVES, "linger_ms": FLEET_LINGER_MS}
+    ws = keeper = None
+    fleet = {}
+    try:
+        kv = FileKV(str(root / "kv"))
+        ws = MergeWorkerServer(MergeWorker(
+            linger_ms=FLEET_LINGER_MS, max_width=N_FLEET_DOCS, name="w0"))
+        if ws.worker.device != dev:
+            raise RuntimeError(f"merge worker on {ws.worker.device}")
+        keeper = mergepool.MergePoolKeeper(kv, "w0", ws.addr).start()
+        # each epoch's riders: (document, the front-end that sent it)
+        epochs = []
+        launch = ws.worker.batcher._launch
+
+        def spy(cargo):
+            epochs.append([(m["doc_id"], (fleettrace.parse_span_ctx(
+                (m.get("trace") or {}).get("span_ctx")) or ("?",))[0])
+                for _, m in cargo])
+            return launch(cargo)
+        ws.worker.batcher._launch = spy
+        for n in FLEET_NODES:
+            mt = MergeTierClient.from_env(src=n, kv=kv)
+            if mt is None:
+                raise RuntimeError("the pool lists no merge worker")
+            eng = ServingEngine(durable_dir=str(root / n), mergetier=mt,
+                                flight=flight.FlightRecorder())
+            if eng.device != dev:
+                raise RuntimeError(f"{n}'s engine on {eng.device}")
+            fleet[n] = FleetServer(n, kv, engine=eng, ttl_s=600.0,
+                                   ae_interval_s=3600.0,
+                                   delta_cap=FLEET_DELTA_CAP)
+        for fs in fleet.values():
+            fs.node.refresh_ring()
+        ring = fleet["n0"].node.ring()
+        port = {n: fs.port for n, fs in fleet.items()}
+        engines = {n: fs.node.engine for n, fs in fleet.items()}
+        docs = [f"m{i}" for i in range(N_FLEET_DOCS)]
+        big = next(f"c5-{i}" for i in range(500)
+                   if ring.primary(f"c5-{i}") == "n0")
+        primary = {d: ring.primary(d) for d in docs + [big]}
+        if set(primary[d] for d in docs) != set(FLEET_NODES):
+            raise RuntimeError(f"documents not spread: {primary}")
+        sent = {d: [] for d in docs + [big]}    # every acked body, in order
+        n_rep = {}
+        for i, d in enumerate(docs):
+            n_rep[d] = 4 << (i % 8)
+            p = packed_chain(workloads.chain_workload(n_rep[d], N_MESH),
+                             N_MESH)
+            sent[d].append(engine_mod.packed_since_bytes(p, 0))
+        n_rep[big] = N_REPLICAS
+        sent[big].append(engine_mod.packed_since_bytes(
+            packed_chain(workloads.chain_workload(N_REPLICAS, N_OPS), N_OPS),
+            0))
+        # the bootstrap's replicas hold their fleet-unique ids first (the
+        # counter /docs/{id}/replicas allocates from), so a writer's id
+        # never collides with a bootstrap replica's timestamps
+        for d, r in n_rep.items():
+            for _ in range(r):
+                kv_mod.next_counter(kv, f"replica/{d}")
+
+        def push(d, body, n_ops):
+            cl = Client(port[primary[d]], timeout=600.0)
+            t0 = time.perf_counter()
+            a = cl.json("POST", f"/docs/{d}/ops", body=body)
+            cl.close()
+            if not a["accepted"] or a["applied_count"] != n_ops:
+                raise RuntimeError(f"{d} push ack {a}")
+            return (time.perf_counter() - t0) * 1e3
+
+        def staged(pushes):
+            """One scheduler round on every node: the pushes queue on
+            their primaries with the schedulers paused, then all
+            resume together."""
+            for e in engines.values():
+                e.scheduler.pause()
+            ths = [Worker(f"push-{d}", fn) for d, fn in pushes.items()]
+            for t in ths:
+                t.start()
+            deadline = time.monotonic() + CALL_S
+            while sum(len(engines[primary[d]].get(d).queue)
+                      for d in pushes) < len(pushes):
+                if time.monotonic() > deadline or any(
+                        t.error for t in ths):
+                    raise RuntimeError("staged pushes never queued")
+                time.sleep(0.005)
+            for e in engines.values():
+                e.scheduler.resume()
+            for t in ths:
+                t.join(600.0)
+                if t.is_alive() or t.error:
+                    raise RuntimeError(f"{t.name}: {t.error!r}")
+
+        def tier():
+            """(remote docs, remote ops, fallbacks by rung) summed over
+            the front-ends."""
+            rd, ro, fb = 0, 0, {}
+            for e in engines.values():
+                st = e.mergetier.stats()
+                rd += st["remote_docs"]
+                ro += st["remote_ops"]
+                for k, v in st["fallbacks"].items():
+                    fb[k] = fb.get(k, 0) + v
+            return rd, ro, fb
+
+        kernels.reset_launches()
+
+        # ---- clean leg --------------------------------------------------
+        def clean_leg():
+            t0 = time.perf_counter()
+            staged({d: (lambda d=d: push(d, sent[d][0], N_MESH))
+                    for d in docs})
+            out["staged_round_s"] = time.perf_counter() - t0
+            out["giant_commit_ms"] = push(big, sent[big][0], N_OPS)
+
+        caught = capture_inputs(clean_leg, wrapper_modules())
+        errs = twin_errors(caught, twins)
+        for k in ("plane_rows", "prefix_sums", "monotone_gather"):
+            if k not in errs:
+                raise RuntimeError(f"the worker's epochs never called {k}")
+        if any(e != 0 for e in errs.values()):
+            raise RuntimeError(f"epoch kernel calls differ: {errs}")
+        fold_errors(record, errs)
+        out["epoch_twin_calls"] = {k: len(v) for k, v in caught.items()}
+        del caught
+        routed, routed_ops, fallbacks = tier()
+        wst = ws.worker.stats()
+        mixed = [e for e in epochs
+                 if len(e) >= 2 and len({src for _, src in e}) >= 2]
+        out["clean"] = {
+            "epochs": len(epochs), "widths": [len(e) for e in epochs],
+            "cross_frontend_epochs": len(mixed),
+            "routed_docs": routed, "routed_ops": routed_ops,
+            "merged_docs": wst["merged_docs"], "fallbacks": fallbacks}
+        if routed != N_FLEET_DOCS + 1 or wst["merged_docs"] != routed:
+            raise RuntimeError(f"clean leg routed {routed}, worker "
+                               f"merged {wst['merged_docs']}")
+        if fallbacks or any(e.counters.get("mergetier_fallbacks")
+                            for e in engines.values()):
+            raise RuntimeError(f"clean leg fell back: {fallbacks}")
+        if not mixed:
+            raise RuntimeError(f"no epoch drew riders from two front-ends: "
+                               f"{epochs}")
+        if [big] not in [[d for d, _ in e] for e in epochs]:
+            raise RuntimeError("the 1M-op POST did not ship as one rider")
+        log(f"fleet: clean leg: {len(epochs)} epochs of widths "
+            f"{out['clean']['widths']}, {len(mixed)} drawn from two or more "
+            f"front-ends; {routed} documents ({routed_ops} ops) routed, "
+            f"{wst['merged_docs']} merged by the worker, no fallback; "
+            f"{out['epoch_twin_calls']} kernel calls == twins; staged "
+            f"round {out['staged_round_s']:.2f} s, 1M-op POST acked in "
+            f"{out['giant_commit_ms']:.1f} ms")
+
+        # ---- fleet leg: forwarded writers, then anti-entropy ------------
+        def writer(idx):
+            doc = docs[idx % N_FLEET_DOCS]
+            owner = primary[doc]
+            entry = FLEET_NODES[(FLEET_NODES.index(owner) + 1 + idx % 2)
+                                % len(FLEET_NODES)]
+            cl = Client(port[entry])
+            rid = cl.json("POST", f"/docs/{doc}/replicas")["replica"]
+            rng = random.Random(3000 + idx)
+            alive, gone, ms, bodies, counter = [], [], [], [], 0
+            for w in range(FLEET_WRITES):
+                ops = []
+                for _ in range(N_LEAVES):
+                    if alive and rng.random() < BACKSPACE_P:
+                        ts, v = alive.pop()
+                        ops.append(Delete((ts,)))
+                        gone.append(v)
+                    else:
+                        counter += 1
+                        ts = rid * 2**32 + counter
+                        ops.append(Add(ts, (alive[-1][0] if alive else 0,),
+                                       f"f{idx}.{counter}"))
+                        alive.append((ts, f"f{idx}.{counter}"))
+                body = json_codec.dumps(Batch(tuple(ops))).encode()
+                while True:
+                    t0 = time.perf_counter()
+                    st, raw, _ = cl.call("POST", f"/docs/{doc}/ops",
+                                         body=body)
+                    if st not in (429, 503):
+                        break
+                    time.sleep(0.05)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                a = json.loads(raw)
+                if st != 200 or not a["accepted"] \
+                        or a["applied_count"] != N_LEAVES \
+                        or a["served_by"]["name"] != owner:
+                    raise RuntimeError(f"{doc} write {w} via {entry} -> "
+                                       f"{st} {a}")
+                bodies.append(body)
+            cl.close()
+            return doc, [v for _, v in alive], gone, ms, bodies
+
+        writers = [Worker(f"writer-{i}", lambda i=i: writer(i))
+                   for i in range(FLEET_WRITERS)]
+        t0 = time.perf_counter()
+        run_threads(writers, 600.0)
+        out["writer_wall_s"] = time.perf_counter() - t0
+        for t in writers:
+            sent[t.result[0]].extend(t.result[4])
+        acked_ms = [m for t in writers for m in t.result[3]]
+        out["acked_write_p50_ms"] = float(np.percentile(acked_ms, 50))
+        out["acked_write_p99_ms"] = float(np.percentile(acked_ms, 99))
+        out["forwards"] = sum(fs.node.counters["forwarded_ok"]
+                              for fs in fleet.values())
+        if out["forwards"] < FLEET_WRITERS * FLEET_WRITES:
+            raise RuntimeError(f"only {out['forwards']} forwards")
+
+        def fingerprints(d):
+            got = {}
+            for n, e in engines.items():
+                doc = e.get(d, create=False)
+                got[n] = None if doc is None \
+                    else doc.read_view().state_fingerprint()
+            return got
+
+        def converge(tag):
+            t0 = time.perf_counter()
+            for rounds in range(1, 11):
+                run_threads([Worker(f"ae-{n}", fs.node.antientropy.sync_now)
+                             for n, fs in fleet.items()], 600.0)
+                split = {d: f for d in docs + [big]
+                         if len(set((f := fingerprints(d)).values())) != 1}
+                if not split:
+                    out[f"{tag}_converge_s"] = time.perf_counter() - t0
+                    out[f"{tag}_converge_rounds"] = rounds
+                    return
+            raise RuntimeError(f"{tag}: no convergence: {split}")
+
+        converge("fleet")
+        out["fleet_fallbacks"] = tier()[2]
+        ae = [r for e in engines.values() for r in e.flight.records()
+              if r.outcome in ("committed", "partial")
+              and any(t.startswith("ae-") for t in r.trace_ids)]
+        out["ae_commits"] = len(ae)
+        out["ae_commit_stage_p50_ms"] = {
+            k: float(np.percentile([r.stages_ms[k] for r in ae
+                                    if k in r.stages_ms], 50))
+            for k in sorted({k for r in ae for k in r.stages_ms})}
+        out["ae_commit_total_ms"] = float(sum(r.total_ms for r in ae))
+        log(f"fleet: {FLEET_WRITERS} writers x {FLEET_WRITES} writes acked "
+            f"in {out['writer_wall_s']:.1f} s through {out['forwards']} "
+            f"forwards (p50 {out['acked_write_p50_ms']:.1f} ms, p99 "
+            f"{out['acked_write_p99_ms']:.1f} ms); anti-entropy converged "
+            f"every document in {out['fleet_converge_rounds']} rounds, "
+            f"{out['fleet_converge_s']:.1f} s ({out['ae_commits']} commits "
+            f"of pulled windows, {out['ae_commit_total_ms']:.0f} ms in all, "
+            f"p50 stage ms {out['ae_commit_stage_p50_ms']}; fallbacks "
+            f"{out['fleet_fallbacks']})")
+
+        # ---- worker-death leg -------------------------------------------
+        # a healthy remote round first: its successes close every
+        # front-end's breaker streak (the fleet leg may end on failed
+        # attempts), so the round after the crash meets the transport
+        # rung, not an open breaker
+        death = [d for n in FLEET_NODES
+                 for d in [x for x in docs if primary[x] == n][:DEATH_DOCS]]
+        drid = {}
+
+        def delta_round():
+            rids = {d: kv_mod.next_counter(kv, f"replica/{d}")
+                    for d in death}
+            bodies = {d: json_codec.dumps(Batch(tuple(
+                Add(r * 2**32 + c, ((r * 2**32 + c - 1) if c > 1 else 0,),
+                    f"x{r}.{c}") for c in range(1, DEATH_OPS + 1)))).encode()
+                for d, r in rids.items()}
+            staged({d: (lambda d=d: push(d, bodies[d], DEATH_OPS))
+                    for d in death})
+            for d in death:
+                sent[d].append(bodies[d])
+                drid.setdefault(d, []).append(rids[d])
+
+        routed0, _, fb0 = tier()
+        delta_round()
+        routed1, _, fb1 = tier()
+        if routed1 - routed0 != len(death) or fb1 != fb0:
+            raise RuntimeError(f"the healthy round routed "
+                               f"{routed1 - routed0}, fallbacks {fb1}")
+        if any(w.fail_streak for e in engines.values()
+               for w in e.mergetier.workers):
+            raise RuntimeError("a breaker streak outlived the healthy "
+                               "round")
+        ws.crash()
+        fb_counter0 = sum(e.counters.get("mergetier_fallbacks")
+                          for e in engines.values())
+        kernels_before = dict(kernels.launches)
+        caught = capture_inputs(delta_round, wrapper_modules())
+        local = {k: kernels.launches.get(k, 0) - kernels_before.get(k, 0)
+                 for k in kernels.launches}
+        errs = twin_errors(caught, twins)
+        if not errs or any(e != 0 for e in errs.values()):
+            raise RuntimeError(f"fallback merges' kernel calls: {errs}")
+        fold_errors(record, errs)
+        routed2, _, fb2 = tier()
+        new_fb = {k: fb2.get(k, 0) - fb1.get(k, 0) for k in fb2
+                  if fb2.get(k, 0) != fb1.get(k, 0)}
+        fb_counter = sum(e.counters.get("mergetier_fallbacks")
+                         for e in engines.values()) - fb_counter0
+        out["death"] = {"docs": len(death), "fallbacks": new_fb,
+                        "local_launches": local,
+                        "twin_calls": {k: len(v) for k, v in caught.items()}}
+        del caught
+        if new_fb != {"transport": len(death)} or routed2 != routed1 \
+                or fb_counter != len(death):
+            raise RuntimeError(f"worker death: fallbacks {new_fb}, routed "
+                               f"{routed2 - routed1}, counted {fb_counter}")
+        if sum(local.values()) < 1:
+            raise RuntimeError("the fallback merges launched no kernel")
+        converge("death")
+        launches = dict(kernels.launches)
+        log(f"fleet: worker crashed; {len(death)} routed documents fell "
+            f"back {new_fb}, merged on their front-ends' card "
+            f"({out['death']['twin_calls']} kernel calls == twins); "
+            f"converged again in {out['death_converge_s']:.1f} s")
+
+        # ---- what the fleet serves --------------------------------------
+        t0 = time.perf_counter()
+        for d in docs + [big]:
+            tree = engine_mod.init(SERVER_REPLICA, device=dev)
+            for body in sent[d]:
+                tree.apply_wire(body)
+            want = snapshot.derive(d, 0, tree).state_fingerprint()
+            got = fingerprints(d)
+            if set(got.values()) != {want}:
+                raise RuntimeError(f"{d}: replicas {got} != a TpuTree on "
+                                   f"the card fed the same ops ({want})")
+            served = {}
+            for n in FLEET_NODES:
+                c = Client(port[n], timeout=600.0)
+                st, raw, r = c.call("GET", f"/docs/{d}")
+                c.close()
+                if st != 200 or r.getheader("X-State-Fingerprint") != want:
+                    raise RuntimeError(f"GET {d} on {n} -> {st}")
+                served[n] = json.loads(raw)["values"]
+            for t in writers:
+                doc, alive, gone, _, _ = t.result
+                if doc != d:
+                    continue
+                for n, vals in served.items():
+                    pos = {v: i for i, v in enumerate(vals)
+                           if isinstance(v, str)}
+                    got_pos = [pos.get(v) for v in alive]
+                    if None in got_pos or got_pos != sorted(got_pos) or \
+                            any(v in pos for v in gone):
+                        raise RuntimeError(f"{t.name}'s acked writes do "
+                                           f"not read back on {n}")
+            for r in drid.get(d, ()):
+                for n, vals in served.items():
+                    if sum(1 for v in vals if str(v).startswith(
+                            f"x{r}.")) != DEATH_OPS:
+                        raise RuntimeError(f"{d}: the delta of replica "
+                                           f"{r} is not on {n}")
+            del tree
+        out["verify_s"] = time.perf_counter() - t0
+
+        records = [r for e in engines.values() for r in e.flight.records()]
+
+        def p50(key):
+            v = [r.stages_ms[key] for r in records if key in r.stages_ms]
+            return float(np.percentile(v, 50)) if v else None
+
+        out.update({
+            "epochs": len(epochs),
+            "width_hist": ws.worker.width_hist.export(),
+            "routed_docs": tier()[0], "routed_ops": tier()[1],
+            "fallbacks": tier()[2],
+            "ae_rounds": sum(fs.node.antientropy.stats()["rounds"]
+                             for fs in fleet.values()),
+            "remote_transport_p50_ms": p50("remote_transport"),
+            "remote_queue_p50_ms": p50("remote_queue"),
+            "remote_launch_p50_ms": p50("remote_launch"),
+            "launches": launches})
+    finally:
+        for fs in fleet.values():
+            fs.stop()
+        if keeper is not None:
+            keeper.stop()
+        if ws is not None and not ws.worker.stats()["dead"]:
+            ws.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    deadline = time.monotonic() + 30
+    while True:
+        left = [t.name for t in set(threading.enumerate()) - threads_before
+                if t.is_alive()]
+        if not left:
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"the fleet left threads running: {left}")
+        time.sleep(0.1)
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["fleet"] = out
+    log("fleet: " + json.dumps({
+        "card": card, "epochs": out["epochs"],
+        "width_hist": out["width_hist"],
+        "cross_frontend_epochs": out["clean"]["cross_frontend_epochs"],
+        "routed_docs": out["routed_docs"], "routed_ops": out["routed_ops"],
+        "fallbacks": out["fallbacks"],
+        "fleet_leg_fallbacks": out["fleet_fallbacks"],
+        "death_leg_fallbacks": out["death"]["fallbacks"],
+        "forwards": out["forwards"],
+        "ae_rounds": out["ae_rounds"],
+        "converge_s": round(out["fleet_converge_s"], 3),
+        "remote_transport_p50_ms": out["remote_transport_p50_ms"],
+        "remote_queue_p50_ms": out["remote_queue_p50_ms"],
+        "remote_launch_p50_ms": out["remote_launch_p50_ms"],
+        "acked_write_p50_ms": round(out["acked_write_p50_ms"], 3),
+        "acked_write_p99_ms": round(out["acked_write_p99_ms"], 3),
+        "phase_s": round(out["phase_s"], 1), "launches": out["launches"]}))
+    return out["launches"]
+
+
 def flip_zip_data(path) -> None:
     """One bit-rot event inside the data of an npz's largest member (a
     flip in a zip local header is benign and legitimately not flagged)."""
@@ -1934,7 +2429,10 @@ def main(argv=None) -> int:
     # ---- 9. the docs-axis batched merge, B = 1, 4, 16 ------------------
     mesh_phase(dev, record, twins, card)
 
-    # ---- 10. timing -----------------------------------------------------
+    # ---- 10. the merge tier and the fleet (their own counted drive) ----
+    fleet_launches = fleet_phase(dev, record, twins, card)
+
+    # ---- 11. timing -----------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -1998,7 +2496,8 @@ def main(argv=None) -> int:
                      "replaces": replaces,
                      "launches": launches[kname] + engine_launches[kname]
                      + dur_launches[kname] + ops_launches[kname]
-                     + serve_launches.get(kname, 0),
+                     + serve_launches.get(kname, 0)
+                     + fleet_launches.get(kname, 0),
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms,

@@ -16,6 +16,13 @@ recorder, and the Prometheus/JSON exposition surface.
   oracle: read-your-writes / monotonic-read / convergence checks over
   the trace+flight stream, with seeded fault injection
   (``GRAFT_ORACLE_FAULT``) proving the detection path.
+- :mod:`~crdt_graph_tpu_torch.obs.fleettrace` — fleet-wide causal
+  tracing: per-node span rings, ``X-Span-Ctx`` on forwarded and
+  offloaded requests, ``X-Trace-Frontier`` on anti-entropy windows.
+- :mod:`~crdt_graph_tpu_torch.obs.ledger` — the write-to-visibility
+  ledger (ack, durable, delivered, visible at each replica).
+- :mod:`~crdt_graph_tpu_torch.obs.canary` — the fleet node's continuous
+  canary write/read prober.
 
 See docs/OBSERVABILITY.md for the lifecycle, the record schema, and
 the dump-trigger contract.

@@ -597,6 +597,49 @@ def render_engine(engine) -> str:
     w.counter("crdt_opsaxis_routed_ops_total",
               "Candidate-set rows merged through the sharded kernel",
               ax["routed_ops"])
+    # -- disaggregated merge tier (mergetier/; docs/MERGETIER.md) ---------
+    # rendered ONLY when a client is armed — GRAFT_MERGETIER=0 (or no
+    # workers) leaves the scrape byte-identical to the local-only engine
+    mergetier = getattr(engine, "mergetier", None)
+    if mergetier is not None:
+        mst = mergetier.stats()
+        w.gauge("crdt_mergetier_workers",
+                "Merge workers in this front-end's pool",
+                len(mst["workers"]))
+        w.gauge("crdt_mergetier_workers_open",
+                "Pool members whose circuit breaker is open",
+                sum(1 for ws in mst["workers"] if ws["breaker_open"]))
+        w.counter("crdt_mergetier_breaker_opens_total",
+                  "Worker breaker open transitions",
+                  sum(ws["breaker_opens"] for ws in mst["workers"]))
+        w.counter("crdt_mergetier_rounds_total",
+                  "Scheduler rounds shipped to the merge tier",
+                  mst["remote_rounds"])
+        w.counter("crdt_mergetier_remote_docs_total",
+                  "Document commits whose frame a merge worker "
+                  "materialized", mst["remote_docs"])
+        w.counter("crdt_mergetier_remote_ops_total",
+                  "Delta rows committed off remote-materialized "
+                  "frames", mst["remote_ops"])
+        w.family("crdt_mergetier_fallbacks_total", "counter",
+                 "Remote merges that fell back to the bit-identical "
+                 "local path, by ladder rung")
+        for reason, cnt in sorted(mst["fallbacks"].items()):
+            w.sample("crdt_mergetier_fallbacks_total",
+                     "crdt_mergetier_fallbacks_total", cnt,
+                     {"reason": reason})
+        for hname, hkey, htext in (
+                ("crdt_mergetier_batch_width", "width",
+                 "Worker-reported cross-fleet launch width each "
+                 "remote commit rode in"),
+                ("crdt_mergetier_remote_ms", "remote_ms",
+                 "Remote merge round-trip latency (encode to "
+                 "verified frame)")):
+            h = mst[hkey]
+            if h and h.get("count"):
+                w.family(hname, "histogram", htext)
+                w.histogram(hname, htext, h["bounds"], h["counts"],
+                            h["count"], h["sum"])
     maint = getattr(engine, "maintenance", None)
     if maint is not None:
         ms = maint.stats()
@@ -703,6 +746,299 @@ def render_engine(engine) -> str:
                 "Acked writes awaiting commit-record resolution",
                 ost["pending_writes"])
     return w.render()
+
+
+def render_merge_worker(worker) -> str:
+    """The ``crdt_mergetier_worker_*`` families for one merge worker
+    process (``GET /metrics/prom`` on a worker server — same naming
+    contract and strict parser as the engine scrape).  The linger
+    batcher's occupancy and launch-width distribution live HERE: the
+    worker is the only process that sees the cross-fleet batch."""
+    w = _Writer()
+    st = worker.stats()
+    w.gauge("crdt_mergetier_worker_up",
+            "0 after crash()/close(): the worker answers 503",
+            0.0 if st["dead"] else 1.0)
+    w.counter("crdt_mergetier_worker_requests_total",
+              "Decoded /merge requests admitted to the batcher",
+              st["requests"])
+    w.counter("crdt_mergetier_worker_merged_docs_total",
+              "Documents materialized and answered", st["merged_docs"])
+    w.counter("crdt_mergetier_worker_merged_ops_total",
+              "Delta rows across answered documents", st["merged_ops"])
+    w.counter("crdt_mergetier_worker_wire_errors_total",
+              "Requests rejected by the wire codec (400s)",
+              st["wire_errors"])
+    w.counter("crdt_mergetier_worker_launch_errors_total",
+              "Requests failed by a failed epoch launch (500s)",
+              st["launch_errors"])
+    b = st["batcher"]
+    w.counter("crdt_mergetier_worker_launches_total",
+              "Batched epoch launches", b["launches"])
+    w.counter("crdt_mergetier_worker_full_launches_total",
+              "Epochs launched early at the max-width cap",
+              b["full_launches"])
+    w.counter("crdt_mergetier_worker_linger_waits_total",
+              "Epoch leaders that lingered the full window",
+              b["linger_waits"])
+    w.gauge("crdt_mergetier_worker_linger_occupancy",
+            "Requests riding the CURRENT linger window", b["pending"])
+    w.gauge("crdt_mergetier_worker_linger_ms",
+            "Configured linger window (GRAFT_MERGETIER_BATCH_MS)",
+            b["linger_ms"])
+    w.gauge("crdt_mergetier_worker_max_width",
+            "Configured launch-width cap (GRAFT_MERGETIER_MAX_WIDTH)",
+            b["max_width"])
+    h = st["batch_width"]
+    if h and h.get("count"):
+        w.family("crdt_mergetier_worker_batch_width", "histogram",
+                 "Achieved cross-fleet docs per epoch launch")
+        w.histogram("crdt_mergetier_worker_batch_width",
+                    "Achieved cross-fleet docs per epoch launch",
+                    h["bounds"], h["counts"], h["count"], h["sum"])
+    return w.render()
+
+
+def render_cluster(node) -> str:
+    """The ``crdt_cluster_*`` families for one fleet node
+    (cluster/gateway.py appends this to :func:`render_engine`'s text —
+    same naming contract, same strict parser).  Anti-entropy **lag** is
+    first-class: ``crdt_cluster_antientropy_sync_age_seconds{peer=}``
+    is how long ago each peer was last fully pulled — the replication
+    staleness an operator alerts on — next to per-peer pull/failure
+    counters, the backoff gauge, and the round-latency histogram."""
+    cs = node.cluster_stats()
+    w = _Writer()
+    me = cs["node"]
+    w.gauge("crdt_cluster_node_id",
+            "This node's leased numeric replica id",
+            me["id"], {"node": me["name"]})
+    w.gauge("crdt_cluster_lease_epoch",
+            "Fencing token of the current lease",
+            me["epoch"], {"node": me["name"]})
+    if me["lease_remaining_s"] is not None:
+        w.gauge("crdt_cluster_lease_remaining_seconds",
+                "Time until this node's lease expires unrenewed",
+                max(0.0, me["lease_remaining_s"]))
+    w.counter("crdt_cluster_lease_losses_total",
+              "Times this node's lease was fenced or lost",
+              me["lease_losses"])
+    w.counter("crdt_cluster_lease_reacquired_total",
+              "Times this node re-acquired after a lost lease",
+              me["lease_reacquired"])
+    w.gauge("crdt_cluster_members", "Live members in the lease table",
+            len(cs["members"]))
+    w.gauge("crdt_cluster_primary_docs",
+            "Local documents whose ring primary is this node",
+            sum(1 for p in cs["primaries"].values()
+                if p == me["name"]))
+    for key, help_text in (
+            ("forwarded_ok", "Client writes relayed to a primary"),
+            ("forwarded_err",
+             "Write forwards that exhausted the retry budget"),
+            ("forward_retries", "Forward connection retries"),
+            ("forward_budget_exhausted",
+             "Forwards cut off by the end-to-end deadline budget"),
+            ("forwarded_in",
+             "Writes received already forwarded by a peer"),
+            ("replica_ids_assigned",
+             "Fleet-unique client replica ids allocated"),
+            ("staleness_503",
+             "Reads refused for exceeding their staleness bound"),
+            ("repair_fetches",
+             "Quarantined ranges successfully fetched from a peer"),
+            ("repair_fetch_failures",
+             "Peer-repair fetches that found no usable peer")):
+        w.counter(f"crdt_cluster_{key}_total", help_text,
+                  cs["counters"].get(key, 0))
+    # the bounded-staleness contract's server-side gauge: what
+    # X-Ae-Lag-Seconds stamps on every read (docs/CLUSTER.md
+    # §Partitions & staleness)
+    # cluster_stats keeps the JSON wire RFC-valid by nulling an
+    # unbounded (never-synced) lag; the prom text format has a real
+    # +Inf, so re-expand it here
+    w.gauge("crdt_cluster_ae_lag_seconds",
+            "Max seconds since any live peer was last fully synced",
+            float("inf") if cs["ae_lag_s"] is None
+            else cs["ae_lag_s"])
+    ae = cs["antientropy"]
+    w.counter("crdt_cluster_antientropy_rounds_total",
+              "Anti-entropy rounds completed", ae["rounds"])
+    w.counter("crdt_cluster_antientropy_local_shed_total",
+              "Pulls shed on the local admission queue",
+              ae["local_shed"])
+    w.counter("crdt_cluster_antientropy_probe_pulls_total",
+              "Bounded open-breaker probe pulls",
+              ae["probe_pulls"])
+    h = ae["round_ms_export"]
+    w.histogram("crdt_cluster_antientropy_round_ms",
+                "Anti-entropy round latency", h["bounds"], h["counts"],
+                h["count"], h["sum"])
+    peer_families = (
+        ("crdt_cluster_antientropy_pulls_total", "counter",
+         "Windows pulled from the peer", "pulls"),
+        ("crdt_cluster_antientropy_ops_applied_total", "counter",
+         "Leaves applied from the peer (duplicates excluded)",
+         "ops_applied"),
+        ("crdt_cluster_antientropy_failures_total", "counter",
+         "Failed sync attempts against the peer", "failures"),
+        ("crdt_cluster_antientropy_dup_window_304s_total", "counter",
+         "Duplicate windows skipped by a bodyless conditional-GET "
+         "304", "dup_window_304s"),
+        ("crdt_cluster_antientropy_sync_age_seconds", "gauge",
+         "Seconds since the peer was last fully synced (the lag)",
+         "sync_age_s"),
+        ("crdt_cluster_antientropy_backoff_seconds", "gauge",
+         "Remaining backoff before the peer is retried", "backoff_s"),
+    )
+    # per-peer health + circuit breaker (docs/CLUSTER.md §Partitions
+    # & staleness): the degradation surface an operator alerts on
+    peer_families = peer_families + (
+        ("crdt_peer_health", "gauge",
+         "Peer success-rate EWMA (1.0 = healthy)", "health"),
+        ("crdt_peer_breaker_open", "gauge",
+         "1 while the peer's circuit breaker is open "
+         "(probes only, no full rounds)", "breaker_open"),
+        ("crdt_peer_breaker_opens_total", "counter",
+         "Times the peer's circuit breaker tripped open",
+         "breaker_opens"),
+        ("crdt_peer_probes_total", "counter",
+         "Bounded probe pulls sent while the breaker was open",
+         "probes"),
+    )
+    for fname, ftype, help_text, _ in peer_families:
+        w.family(fname, ftype, help_text)
+    for peer, st in ae["peers"].items():
+        for fname, _, _, key in peer_families:
+            w.sample(fname, fname, st[key], {"peer": peer})
+    # pooled inter-node connections (cluster/pool.py): the
+    # persistent-connection proof (reuses ≫ opens on a healthy fleet)
+    # and the chaos interaction (poisoned = faults that evicted
+    # exactly the pooled connection they hit)
+    cp = cs.get("connpool")
+    if cp is not None:
+        for key, help_text in (
+                ("opens", "Pooled connections opened (cache misses)"),
+                ("reuses", "Requests served over a reused pooled "
+                           "connection"),
+                ("evictions", "Pooled connections evicted (idle "
+                              "overflow, max-age, server-close)"),
+                ("poisoned", "Pooled connections poisoned by a "
+                             "transport/chaos failure"),
+                ("stale_retries", "Requests retried once after a "
+                                  "stale keep-alive reuse")):
+            w.counter(f"crdt_connpool_{key}_total", help_text,
+                      cp.get(key, 0))
+        w.gauge("crdt_connpool_idle_connections",
+                "Idle pooled connections held right now",
+                cp.get("idle", 0))
+        w.gauge("crdt_connpool_links",
+                "Distinct (src,dst,host,port) links pooled",
+                cp.get("links", 0))
+    # deterministic network fault injection (cluster/netchaos.py) —
+    # rendered only when a fault plan is armed on this node
+    nc = cs.get("netchaos")
+    if nc is not None:
+        w.gauge("crdt_netchaos_seed",
+                "Seed of the armed fault plan (replay key)",
+                nc["seed"])
+        w.gauge("crdt_netchaos_links",
+                "Distinct (src, dst) links the plan has seen",
+                nc["links"])
+        w.gauge("crdt_netchaos_blocked_links",
+                "Links currently cut by a programmatic partition",
+                nc["blocked_links"])
+        w.counter("crdt_netchaos_requests_total",
+                  "Requests that passed through the fault plan",
+                  nc["counters"]["requests"])
+        w.family("crdt_netchaos_faults_total", "counter",
+                 "Faults injected, by kind")
+        for kind in ("drops", "delays", "throttles", "cuts", "dups",
+                     "partition_blocks"):
+            w.sample("crdt_netchaos_faults_total",
+                     "crdt_netchaos_faults_total",
+                     nc["counters"][kind], {"kind": kind})
+    # fleet tracing + visibility ledger + canary (
+    # docs/OBSERVABILITY.md §Fleet tracing & visibility ledger) —
+    # every family below is ABSENT under GRAFT_FLEETTRACE=0 /
+    # GRAFT_CANARY=0 (cluster_stats nulls the sections), the same
+    # disabled-tier contract the netchaos families keep
+    ft = cs.get("fleettrace")
+    if ft is not None:
+        w.gauge("crdt_fleettrace_traces",
+                "Trace ids held in this node's span ring",
+                ft["traces"])
+        w.counter("crdt_fleettrace_evicted_traces_total",
+                  "Traces FIFO-evicted from the bounded span ring",
+                  ft["evicted_traces"])
+        w.counter("crdt_fleettrace_federated_fetches_total",
+                  "Peer fetches made assembling /debug/trace trees",
+                  ft["federated_fetches"])
+        w.family("crdt_fleettrace_spans_total", "counter",
+                 "Causal spans recorded on this node, by hop kind")
+        for kind in sorted(ft["spans_by_kind"]):
+            w.sample("crdt_fleettrace_spans_total",
+                     "crdt_fleettrace_spans_total",
+                     ft["spans_by_kind"][kind], {"kind": kind})
+    vis = cs.get("visibility")
+    if vis is not None:
+        w.counter("crdt_visibility_commits_total",
+                  "Commits entered into the visibility ledger",
+                  vis["commits"])
+        w.counter("crdt_visibility_replica_applies_total",
+                  "Anti-entropy frontier applies stamped on this "
+                  "node as the puller", vis["replica_applies"])
+        w.counter("crdt_visibility_skew_clamped_total",
+                  "Cross-node lag bounds clamped at zero (negative "
+                  "clock skew)", vis["skew_clamped"])
+        if vis["lag"]:
+            w.family("crdt_visibility_lag_seconds", "histogram",
+                     "Write-to-visibility lag by stage (cross-node "
+                     "stages are one-way BOUNDS, not truths)")
+            for row in vis["lag"]:
+                h = row["hist"]
+                w.histogram("crdt_visibility_lag_seconds",
+                            "Write-to-visibility lag by stage",
+                            h["bounds"], h["counts"], h["count"],
+                            h["sum"], {"stage": row["stage"],
+                                       "peer": row["peer"]})
+    can = cs.get("canary")
+    if can is not None:
+        w.counter("crdt_canary_probes_total",
+                  "Synthetic canary probes written through the real "
+                  "admission path", can["probes"])
+        w.counter("crdt_canary_slo_breaches_total",
+                  "Probes with a stage over GRAFT_CANARY_SLO_MS",
+                  can["slo_breaches"])
+        w.family("crdt_canary_failures_total", "counter",
+                 "Canary hop failures, by hop")
+        for hop in sorted(can["failures"]):
+            w.sample("crdt_canary_failures_total",
+                     "crdt_canary_failures_total",
+                     can["failures"][hop], {"hop": hop})
+        h = can["e2e"]
+        if h.get("count"):
+            w.family("crdt_canary_visibility_seconds", "histogram",
+                     "Canary write-to-global-visibility, end to end")
+            w.histogram("crdt_canary_visibility_seconds",
+                        "Canary write-to-global-visibility, end to "
+                        "end", h["bounds"], h["counts"], h["count"],
+                        h["sum"])
+        if can["stages"]:
+            w.family("crdt_canary_stage_seconds", "histogram",
+                     "Canary per-stage visibility lag "
+                     "(ack/watch/peer_first/peer_all)")
+            for stage in sorted(can["stages"]):
+                h = can["stages"][stage]
+                w.histogram("crdt_canary_stage_seconds",
+                            "Canary per-stage visibility lag",
+                            h["bounds"], h["counts"], h["count"],
+                            h["sum"], {"stage": stage})
+    return w.render()
+
+
+class PromParseError(ValueError):
+    """The exposition violated the format or the naming contract."""
 
 
 class PromParseError(ValueError):

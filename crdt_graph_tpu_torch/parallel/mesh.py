@@ -30,7 +30,8 @@ Entry points:
 - :func:`batched_materialize` — the same tables stacked into one
   ``NodeTable`` of ``[B, ...]`` tensors.
 - :func:`doc_table` — document ``i``'s slice of a batched table.
-- :class:`LingerBatcher` — the cross-caller accumulation window.
+- :class:`LingerBatcher` — the cross-caller accumulation window (the
+  merge worker's epochs, mergetier/worker.py).
 """
 from __future__ import annotations
 
@@ -112,7 +113,7 @@ class LingerBatcher:
     """Cross-caller batch accumulation window for the batched merge.
 
     Many threads each hold ONE item (a document's prepared candidate
-    set) and want it materialized; a wide ``batched_materialize``
+    set) and want it materialized; a wide batched merge
     amortizes launch overhead across all of them, but only if their
     arrivals meet in the same launch.  :meth:`submit` parks the caller
     while a shared window fills: the FIRST arrival becomes the epoch's

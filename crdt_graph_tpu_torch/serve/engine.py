@@ -19,7 +19,9 @@ inverted, the same shape as a continuous-batching inference server:
   host mirrors and published snapshots.  The engine's ``device`` is the
   card unless the caller passes another (``device="cpu"`` runs the
   kernels' plain twins); without a card and without ``device=`` it
-  raises.
+  raises.  With a merge-tier client (``mergetier=``), the scheduler
+  ships grouped runs and giant singles to a merge worker instead, and
+  merges a document here only when its remote merge fails.
 
 Consistency: coalesced deltas adopt the engine's large-batch SET
 semantics across (and within) deltas — any causally valid arrival order
@@ -100,12 +102,6 @@ _UNPORTED_SWITCHES = (("GRAFT_READCACHE", True), ("GRAFT_SENDFILE", True),
                       ("GRAFT_WAL_SHARED", False))
 
 
-def _env_is(name: str, value: str) -> bool:
-    """``name`` is EXPLICITLY set to ``value``."""
-    raw = os.environ.get(name)
-    return raw is not None and raw.strip() == value
-
-
 class ServedDoc:
     """One served document: engine tree (scheduler-owned), write queue,
     published snapshot, counters.  Read methods are Document-compatible
@@ -160,7 +156,9 @@ class ServedDoc:
             if engine.oplog_hot_ops > 0:
                 # cascade tiering (oplog.py): hot tail in memory,
                 # sealed cold segments on scratch disk, watermark-gated
-                # GC.
+                # GC.  A fleet node (cluster/gateway.py) turns
+                # auto-stability off and feeds explicit anti-entropy
+                # watermarks instead.
                 # The subdir is PREFIXED: the wire route's doc-id
                 # charset ([A-Za-z0-9_.-]) admits "." and ".." verbatim,
                 # which as bare path components would alias (or escape)
@@ -171,6 +169,7 @@ class ServedDoc:
                     hot_ops=engine.oplog_hot_ops,
                     hot_bytes=_env_int("GRAFT_OPLOG_HOT_BYTES", 0),
                     gc_min_segs=_env_int("GRAFT_OPLOG_GC_SEGS", 4),
+                    auto_stable=not engine.external_stability,
                     ephemeral=True, cache=engine.oplog_cache)
         self.queue = DocQueue(max_requests=engine.max_queue_requests,
                               max_leaves=engine.max_queue_leaves)
@@ -251,6 +250,7 @@ class ServedDoc:
             hot_ops=max(1, engine.oplog_hot_ops),
             hot_bytes=_env_int("GRAFT_OPLOG_HOT_BYTES", 0),
             gc_min_segs=_env_int("GRAFT_OPLOG_GC_SEGS", 4),
+            auto_stable=not engine.external_stability,
             ephemeral=False, durable=True,
             cache=engine.oplog_cache)
         if had_manifest:
@@ -334,10 +334,11 @@ class ServedDoc:
     def run_scrub(self) -> Dict:
         """One scrub pass (maintenance-lane thread): checksum sweep of
         every cold segment, base chunk, and the matz artifact; corrupt
-        tier files quarantine (a typed error on touch, never wrong
-        data; healing from a fleet peer waits on the fleet, ROADMAP
-        Queue 1 item 6).  Pure numpy + file I/O — no CUDA tensor,
-        maintenance-lane safe."""
+        tier files quarantine (typed refusals until healed) and, when
+        the engine has a fleet ``repair_fetcher`` (cluster/gateway.py),
+        each quarantined range is re-fetched from a peer through the
+        ordinary window machinery and re-sealed in place.  Pure numpy
+        + file + HTTP I/O — no CUDA tensor, maintenance-lane safe."""
         log = self.tree._log
         if not log.tiering_enabled:
             return {}
@@ -365,6 +366,24 @@ class ServedDoc:
                     self._engine.flight.dump(reason="wal-corruption")
                 except Exception:  # noqa: BLE001 — recorder boundary
                     pass
+        fetcher = self._engine.repair_fetcher
+        for seg in log.quarantined_segments():
+            if fetcher is None:
+                # single node: nothing to heal from — the quarantine
+                # stands as a typed error on touch (never wrong
+                # data).  NOT counted as a failed repair: no attempt
+                # was made, and the standing condition is already the
+                # quarantined gauge — repair_failed must keep meaning
+                # "a peer fetch was tried and didn't work"
+                continue
+            spec = log.repair_spec(seg)
+            if spec is None:
+                continue            # raced a concurrent repair
+            rows = fetcher(self.doc_id, spec)
+            if rows is not None and log.repair_segment(seg, rows):
+                st["repaired"] += 1
+            else:
+                st["repair_failed"] += 1
         return report
 
     # -- snapshot publication (scheduler thread only) ---------------------
@@ -628,15 +647,8 @@ class ServingEngine:
         # every served document merges on this device: the card unless
         # the caller names another; no card and no device= raises
         self.device = merge_mod.resolve_device(device)
-        # two switches of the reference engine are not ported yet;
-        # asking for either raises instead of being ignored
-        tier_asked = mergetier is not None \
-            and not _env_is("GRAFT_MERGETIER", "0")
-        if tier_asked or _env_on("GRAFT_MERGETIER", "0"):
-            raise NotImplementedError(
-                "the disaggregated merge tier (mergetier=, "
-                "GRAFT_MERGETIER) is not ported yet: ROADMAP Queue 1 "
-                "item 5")
+        # the host-shared body cache is not ported yet; asking for it
+        # raises instead of being ignored
         if shmcache is None:
             shmcache = _env_on("GRAFT_SHMCACHE", "0")
         if shmcache:
@@ -736,6 +748,10 @@ class ServingEngine:
             import tempfile
             self.oplog_dir = tempfile.mkdtemp(prefix="graft-oplog-")
             self._own_oplog_dir = True
+        # a fleet gateway flips this ON before traffic so served logs
+        # wait for explicit anti-entropy stability watermarks instead
+        # of auto-stabilizing (cluster/gateway.py)
+        self.external_stability = False
         self.max_queue_requests = max_queue_requests
         self.max_queue_leaves = max_queue_leaves
         self.chunk_ops = chunk_ops
@@ -756,15 +772,19 @@ class ServingEngine:
         # a SessionOracle attached via oracle.attach_engine() — renders
         # the crdt_oracle_* prom families when present
         self.oracle: Optional[oracle_mod.SessionOracle] = None
-        # fleet-wide tracing + visibility ledger: not ported (ROADMAP
-        # Queue 1 item 6); None, as on a single-engine deployment of
-        # the reference
+        # fleet-wide tracing + visibility ledger (obs/fleettrace.py,
+        # obs/ledger.py): a ClusterNode wires both; single-engine
+        # deployments leave them None and record_commit pays nothing
         self.fleettrace = None
-        # scrub (docs/DURABILITY.md §Scrub & repair): the maintenance
-        # worker sweeps each tiered doc's cold files on this cadence
-        # (0 = off)
+        self.ledger = None
+        # scrub-with-peer-repair (docs/DURABILITY.md §Scrub & repair):
+        # the maintenance worker sweeps each tiered doc's cold files
+        # on this cadence (0 = off; the fleet __main__ arms it);
+        # repair_fetcher is installed by a ClusterNode — single-node
+        # engines quarantine without healing (typed error on touch)
         self.scrub_interval_s = _env_float("GRAFT_SCRUB_INTERVAL_S",
                                            0.0)
+        self.repair_fetcher = None
         # size/age spill-policy knobs (maintenance worker policy tick)
         self.oplog_hot_age_s = _env_float("GRAFT_OPLOG_HOT_AGE_S", 0.0)
         self.oplog_resident_bytes = _env_int(
@@ -785,6 +805,29 @@ class ServingEngine:
             # docs/DURABILITY.md §Sync backends)
             self.sync_worker = WalSyncWorker(
                 self, backend=wal_sync_backend)
+        # disaggregated merge tier (mergetier/; docs/MERGETIER.md):
+        # off unless a client (or worker list) is handed in or
+        # GRAFT_MERGETIER arms one from GRAFT_MERGETIER_WORKERS.
+        # GRAFT_MERGETIER=0 EXPLICITLY set is the kill switch and
+        # overrides even an explicit client — every crdt_mergetier_*
+        # family then disappears and merges run the local path.
+        # Construction failure degrades to local-only serving.
+        from ..mergetier import client as mergetier_mod
+        self.mergetier: Optional[mergetier_mod.MergeTierClient] = None
+        if not mergetier_mod.tier_killed():
+            try:
+                if mergetier is not None:
+                    if isinstance(mergetier,
+                                  mergetier_mod.MergeTierClient):
+                        self.mergetier = mergetier
+                    else:
+                        self.mergetier = mergetier_mod.MergeTierClient(
+                            list(mergetier))
+                elif mergetier_mod.tier_enabled():
+                    self.mergetier = \
+                        mergetier_mod.MergeTierClient.from_env()
+            except (ValueError, OSError):
+                self.mergetier = None
         self.scheduler = MergeScheduler(self)
         # workers start before recovery: recovered docs arm their
         # spill policies against them at construction
@@ -961,6 +1004,42 @@ class ServingEngine:
             })
         except Exception:            # noqa: BLE001 — recorder boundary
             self.counters.add("flight_record_errors")
+        if self.fleettrace is not None or self.ledger is not None:
+            try:
+                self._stamp_visibility(doc, ct)
+            except Exception:        # noqa: BLE001 — same boundary:
+                # tracing must never take down the scheduler
+                self.counters.add("fleettrace_stamp_errors")
+
+    def _stamp_visibility(self, doc: ServedDoc,
+                          ct: trace_mod.CommitTrace) -> None:
+        """Fleet-node commit stamping (docs/OBSERVABILITY.md §Fleet
+        tracing & visibility ledger): register the local admission →
+        fsync → publish spans for every trace id the fused commit
+        served, append the visibility-ledger entry, and fold the
+        trace ids into the doc's anti-entropy trace frontier — ONE
+        seam, the same one that feeds the flight recorder."""
+        from ..obs import fleettrace as fleettrace_mod
+        if not fleettrace_mod.enabled() \
+                or ct.outcome not in ("committed", "partial"):
+            return
+        stages = ct.stage_breakdown()
+        wal_ms = sum(v for k, v in stages.items()
+                     if k.startswith("wal_"))
+        durable_ms = round(wal_ms, 3) if wal_ms > 0.0 else None
+        seq = doc.snapshot_view().seq
+        total_ms = round(ct.total_ms, 3)
+        ft = self.fleettrace
+        if ft is not None:
+            for tid in ct.trace_ids:
+                ft.record(tid, "admission", doc=ct.doc_id, seq=seq)
+                if durable_ms is not None:
+                    ft.record(tid, "fsync", ms=durable_ms)
+                ft.record(tid, "publish", ms=total_ms, seq=seq)
+            ft.note_commit(ct.doc_id, ct.trace_ids)
+        if self.ledger is not None:
+            self.ledger.record_commit(ct.doc_id, seq, ct.trace_ids,
+                                      durable_ms, ct.total_ms)
 
     def presample_audit(self, ct: trace_mod.CommitTrace) -> None:
         """Pipelined rounds sample the chain audit on the scheduler
@@ -993,9 +1072,10 @@ class ServingEngine:
         # ops-axis sharded-merge routing (parallel/opsaxis.py)
         from ..parallel import opsaxis
         out["opsaxis"] = opsaxis.stats()
-        # disaggregated merge tier: not ported, so always None (the
-        # reference's value with the tier off)
-        out["mergetier"] = None
+        # disaggregated merge tier (mergetier/): None when off — the
+        # key's absence is the contract the prom renderer keys off
+        out["mergetier"] = None if self.mergetier is None \
+            else self.mergetier.stats()
         return out
 
     def render_prom(self) -> str:

@@ -29,9 +29,11 @@ Scheduling policy, per round:
    client's follow-up read sees its write.
 
 The scheduler thread is the only thread that touches live trees or
-launches on the card.  The reference's merge-tier route
-(``_process_remote``) is not ported: this package has no merge tier
-yet, so every grouped run merges locally.
+launches on the card of this engine.  With a merge-tier client armed
+(mergetier/), every grouped run and every giant single ships to a
+pooled merge worker instead (``_process_remote``); each verified frame
+commits through the same ``finish_packed`` as a local grouped merge,
+and any failure merges that document locally, on this engine's device.
 Any non-CRDT exception while processing a document is recorded on that
 document's tickets (handlers answer 500) and counted — the scheduler
 itself stays up.
@@ -49,6 +51,7 @@ import numpy as np
 from .. import wal as wal_mod
 from ..codec import packed as packed_mod
 from ..core.errors import CRDTError
+from ..obs import fleettrace as fleettrace_mod
 from ..obs.trace import CommitTrace
 from ..utils import profiling
 from .queue import (SchedulerError, SchedulerStopped, WalUnavailable,
@@ -425,10 +428,35 @@ class MergeScheduler(threading.Thread):
                 grouped_runs.append(items)
             else:
                 singles.extend(items)
+        # disaggregated merge tier (mergetier/, docs/MERGETIER.md):
+        # with a client armed, coalescible rounds (every grouped run —
+        # the worker coalesces them with the whole FLEET's traffic, so
+        # same-bucket grouping is no longer a constraint) and giant
+        # singles (>= GRAFT_MERGETIER_MIN_OPS) ship remote; any
+        # failure falls back per-document to the bit-identical local
+        # merge below
+        remote_items: List[_WorkItem] = []
+        if self.engine.mergetier is not None:
+            from ..mergetier import client as mtclient_mod
+            min_ops = mtclient_mod.route_min_ops()
+            kept = []
+            for item in singles:
+                doc, _, fused, _, _ = item
+                if doc.tree.packed_route(fused.num_ops) \
+                        and fused.num_ops >= min_ops:
+                    remote_items.append(item)
+                else:
+                    kept.append(item)
+            singles = kept
+            for items in grouped_runs:
+                remote_items.extend(items)
+            grouped_runs = []
         for item in singles:
             self._guarded(self._commit_single, item)
         for items in grouped_runs:
             self._process_grouped(items)
+        if remote_items:
+            self._process_remote(remote_items)
         if not self._pipeline_active():
             self._finish_wal_round()
             # persisted-materialization refresh LAST: every ticket
@@ -489,7 +517,8 @@ class MergeScheduler(threading.Thread):
             # under-report the dominant device step to the SLO tripwire
             ct.total_ms = (time.perf_counter() - t0) * 1e3 \
                 + ct.stages_ms.get("batch_prepare", 0.0) \
-                + ct.stages_ms.get("batched_launch", 0.0)
+                + ct.stages_ms.get("batched_launch", 0.0) \
+                + ct.stages_ms.get("remote_merge", 0.0)
             self.engine.record_commit(doc, ct)
             return
         # a grouped commit's shared prepare + batched launch ran BEFORE
@@ -498,7 +527,8 @@ class MergeScheduler(threading.Thread):
         # blind to the dominant device step of exactly these commits
         total_ms = (time.perf_counter() - t0) * 1e3 \
             + ct.stages_ms.get("batch_prepare", 0.0) \
-            + ct.stages_ms.get("batched_launch", 0.0)
+            + ct.stages_ms.get("batched_launch", 0.0) \
+            + ct.stages_ms.get("remote_merge", 0.0)
         ct.total_ms = total_ms
         if ct.wal_deferred:
             # group commit: the round barrier fsyncs, publishes,
@@ -960,3 +990,93 @@ class MergeScheduler(threading.Thread):
             return
         self._attribute_and_publish(doc, tickets, spans,
                                     doc.tree.last_applied_mask, ct)
+
+    def _process_remote(self, items: List[_WorkItem]) -> None:
+        """The merge tier's async remote-merge stage (docs/MERGETIER.md):
+        prepare each document's candidate set locally (exactly what the
+        local grouped launch would stack), ship the round to the worker
+        pool in one fan-out (so even a single front-end's documents ride
+        ONE worker linger window), then commit each verified frame with
+        the SAME ``finish_packed`` the local grouped path uses — the
+        frame's columns are re-aligned from OUR candidate copy
+        (``with_capacity`` to the worker's shared capacity, the
+        deterministic twin of ``stack_aligned``'s alignment), so the
+        worker contributes compute, never state.  Every per-document
+        failure — transport, timeout, digest, dry-check, breaker —
+        falls back to the bit-identical local merge; nothing is acked
+        before its commit, so a dead worker can only cost latency."""
+        from ..codec import packed as pk
+        from ..mergetier.client import MergeFallback
+        mt = self.engine.mergetier
+        reqs = []
+        for item in items:
+            doc, _, fused, _, ct = item
+            t0 = time.perf_counter()
+            try:
+                with profiling.span("serve.batch_prepare"):
+                    prep = doc.tree.prepare_packed(fused)
+            except Exception:   # noqa: BLE001 — a failed local prepare
+                # falls back whole (the local path re-prepares; if the
+                # failure is real it surfaces there, guarded)
+                prep = None
+            ct.stages_ms["batch_prepare"] = round(
+                (time.perf_counter() - t0) * 1e3, 3)
+            reqs.append((item, prep))
+        sendable = [(item, prep) for item, prep in reqs
+                    if prep is not None]
+        ft = self.engine.fleettrace
+        traced = fleettrace_mod.enabled()
+        src = ft.node if ft is not None else mt.src
+
+        def _tctx(ct):
+            if not traced or not ct.trace_ids:
+                return None
+            return {"trace_ids": list(ct.trace_ids)[:8],
+                    "span_ctx": fleettrace_mod.encode_span_ctx(
+                        src, "remote_merge")}
+
+        t0 = time.perf_counter()
+        with profiling.span("serve.remote_merge"):
+            results = mt.merge_round(
+                [(item[0].doc_id, prep, item[2].num_ops,
+                  _tctx(item[4]))
+                 for item, prep in sendable])
+        remote_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        # crash site: responses in hand, nothing committed or acked —
+        # a front-end dying HERE must lose no acked write (the crash
+        # matrix's mid-remote-merge leg)
+        wal_mod.maybe_crash("mid-remote-merge")
+        outcome = {id(item): None for item, _ in reqs}
+        for (item, prep), res in zip(sendable, results):
+            outcome[id(item)] = res
+        for item, prep in reqs:
+            ct = item[4]
+            ct.stages_ms["remote_merge"] = remote_ms
+            res = outcome[id(item)]
+            if isinstance(res, tuple):
+                table, shared, width, sub = res
+                ct.batch_width = width
+                if sub is not None:
+                    # the worker's echoed split (satellite: transport
+                    # vs linger-queue vs launch inside remote_merge)
+                    ct.stages_ms["remote_transport"] = sub["transport"]
+                    ct.stages_ms["remote_queue"] = sub["queue"]
+                    ct.stages_ms["remote_launch"] = sub["launch"]
+                    if ft is not None:
+                        for tid in list(ct.trace_ids)[:8]:
+                            ft.record(tid, "remote_merge",
+                                      doc=item[0].doc_id,
+                                      worker=sub["worker"],
+                                      ms=remote_ms,
+                                      transport_ms=sub["transport"],
+                                      queue_ms=sub["queue"],
+                                      launch_ms=sub["launch"])
+                p = pk.with_capacity(prep, shared)
+                self._guarded(self._finish_grouped, item, p, table)
+            else:
+                # MergeFallback (reason already counted by the client)
+                # or an unsendable prepare: the bit-identical local
+                # merge — same candidate set, same commit, same acks
+                if isinstance(res, MergeFallback):
+                    self.engine.counters.add("mergetier_fallbacks")
+                self._guarded(self._commit_single, item)

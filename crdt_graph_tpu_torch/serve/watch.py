@@ -199,7 +199,8 @@ class WatchStats:
 
 class WatchRegistry:
     """One document's parked-watcher registry: a bounded admission
-    count plus the published generation the reactor delivers against.
+    count plus the published generation the reactor delivers against
+    (and an in-process waiter, the fleet canary, parks on).
 
     The publisher (:meth:`notify`, called from
     ``ServedDoc.publish_prepared`` right after the pointer swap) does
@@ -219,8 +220,9 @@ class WatchRegistry:
         self.park_s = float(park_s)
         self.heartbeat_s = float(heartbeat_s)
         self.stats = stats if stats is not None else WatchStats()
-        self._mu = threading.Lock()
+        self._mu = threading.Condition()
         self._registered = 0    # admitted watcher slots currently held
+        self._parked = 0        # in-process waiters inside wait_beyond
         self._reactor_parked = 0   # slots parked on the reactor
         self._seq = 0           # latest published generation
         self._published_at = 0.0   # perf_counter of that publish
@@ -242,6 +244,7 @@ class WatchRegistry:
             if seq > self._seq:
                 self._seq = seq
                 self._published_at = now
+            self._mu.notify_all()
         r = self.reactor
         if r is not None:
             # outside the condition: the reactor enqueues a command +
@@ -254,6 +257,7 @@ class WatchRegistry:
         engine."""
         with self._mu:
             self._closed = True
+            self._mu.notify_all()
         r = self.reactor
         if r is not None:
             # reactor-parked watchers get the same named close (503 /
@@ -287,6 +291,27 @@ class WatchRegistry:
         with self._mu:
             self._reactor_parked += n
 
+    def wait_beyond(self, seq: int, timeout: float):
+        """Park the calling thread until a generation PAST ``seq``
+        publishes.  Returns ``("new", published_at)`` on a wake,
+        ``("timeout", None)`` when the budget expires first,
+        ``("closed", None)`` on shutdown.  ``published_at`` is the
+        ``perf_counter`` stamp of the pointer swap."""
+        deadline = time.monotonic() + max(0.0, timeout)
+        with self._mu:
+            self._parked += 1
+            try:
+                while not self._closed and self._seq <= seq:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return "timeout", None
+                    self._mu.wait(remaining)
+                if self._closed:
+                    return "closed", None
+                return "new", self._published_at
+            finally:
+                self._parked -= 1
+
     def published_state(self):
         """``(seq, published_at, closed)`` — the reactor re-checks
         this when it picks a park command up, closing the missed-wake
@@ -298,7 +323,7 @@ class WatchRegistry:
     def counts(self) -> Dict[str, int]:
         with self._mu:
             return {"registered": self._registered,
-                    "parked": self._reactor_parked,
+                    "parked": self._parked + self._reactor_parked,
                     "reactor_parked": self._reactor_parked,
                     "max": self.max_watchers}
 

@@ -583,3 +583,116 @@ def test_cuda_document_store_merges_from_two_threads(cuda):
         assert store.get(doc).snapshot() == ref.get(doc).snapshot()
         assert store.get(doc).dumps_since_bytes(0) == \
             ref.get(doc).dumps_since_bytes(0)
+
+
+def _epoch_on(worker, bodies):
+    """Every body into ``worker.handle_merge`` from its own thread,
+    released together: one epoch of ``len(bodies)`` riders."""
+    import threading
+    gate = threading.Barrier(len(bodies))
+    out = [None] * len(bodies)
+
+    def ride(i):
+        gate.wait(60)
+        out[i] = worker.handle_merge(bodies[i])
+
+    ths = [threading.Thread(target=ride, args=(i,), daemon=True)
+           for i in range(len(bodies))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(300)
+        assert not t.is_alive()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_merge_worker_epoch_equals_cpu(cuda):
+    """One worker epoch of four riders on the card equals the same epoch
+    on the CPU twins, frame for frame and field for field; the epoch
+    launches kernels 1, 3 and 4."""
+    from crdt_graph_tpu_torch.mergetier import MergeWorker, wire
+    from crdt_graph_tpu_torch.ops.merge import FIELDS
+    docs = _chain_docs(4, 65_536)
+    bodies = [wire.encode_request(f"d{i}", p, p.num_ops)
+              for i, p in enumerate(docs)]
+    card = MergeWorker(linger_ms=60_000.0, max_width=4, name="w")
+    cpu = MergeWorker(linger_ms=60_000.0, max_width=4, name="w",
+                      device="cpu")
+    assert card.device.type == "cuda"
+    try:
+        kernels.reset_launches()
+        got = _epoch_on(card, bodies)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        want = _epoch_on(cpu, bodies)
+    finally:
+        card.close()
+        cpu.close()
+    for k in ("plane_rows", "prefix_sums", "monotone_gather"):
+        assert launches.get(k, 0) >= 4, launches
+    assert card.stats()["batcher"]["launches"] == 1
+    for (gs, gb, _), (ws, wb, _) in zip(got, want):
+        assert gs == ws == 200
+        gt, gm = wire.decode_response(gb)
+        wt, wm = wire.decode_response(wb)
+        assert gm == wm and gm["width"] == 4
+        for f in FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(gt, f)),
+                                          np.asarray(getattr(wt, f)))
+
+
+@pytest.mark.cuda
+def test_cuda_two_node_fleet_converges(cuda):
+    """Two fleet nodes on the card, their grouped and giant merges
+    shipped to a merge worker on the card over HTTP, converge by
+    anti-entropy to equal fingerprints, equal to a CPU replica fed the
+    same ops."""
+    import json
+    from http.client import HTTPConnection
+    from crdt_graph_tpu_torch import cluster, engine, mergetier
+    from crdt_graph_tpu_torch.cluster import mergepool
+    from crdt_graph_tpu_torch.mergetier.worker import MergeWorkerServer
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    kv = cluster.MemoryKV()
+    ws = MergeWorkerServer(mergetier.MergeWorker(linger_ms=50.0))
+    mergepool.register(kv, "w0", ws.addr)
+    fleet = {}
+    try:
+        for n in ("n0", "n1"):
+            eng = ServingEngine(
+                mergetier=mergetier.MergeTierClient.from_env(src=n, kv=kv))
+            assert eng.device.type == "cuda"
+            fleet[n] = cluster.FleetServer(n, kv, engine=eng, ttl_s=600.0,
+                                           ae_interval_s=3600.0)
+        ring = fleet["n0"].node.refresh_ring()
+        bodies = {f"d{i}": _chain_body(2 + i, 5000) for i in range(4)}
+        for doc, body in bodies.items():
+            entry = "n0" if ring.primary(doc) == "n1" else "n1"
+            conn = HTTPConnection("127.0.0.1", fleet[entry].port,
+                                  timeout=300)
+            conn.request("POST", f"/docs/{doc}/ops", body=body)
+            r = conn.getresponse()
+            ack = json.loads(r.read())
+            conn.close()
+            assert r.status == 200 and ack["applied_count"] == 5000, ack
+            assert ack["served_by"]["name"] != entry
+        for fs in fleet.values():
+            fs.node.antientropy.sync_now()
+        for doc, body in bodies.items():
+            replica = engine.init(99, device="cpu")
+            replica.apply_wire(body.encode())
+            fps = {fs.node.engine.get(doc).read_view().state_fingerprint()
+                   for fs in fleet.values()}
+            assert len(fps) == 1, (doc, fps)
+            for fs in fleet.values():
+                assert fs.node.engine.get(doc).snapshot() == \
+                    replica.visible_values()
+        for fs in fleet.values():
+            st = fs.node.engine.mergetier.stats()
+            assert st["remote_docs"] >= 1 and not st["fallbacks"], st
+        assert ws.worker.stats()["launch_errors"] == 0
+    finally:
+        for fs in fleet.values():
+            fs.stop()
+        ws.stop()

@@ -5,6 +5,7 @@ codec and the serving stack — ``serve``, ``service``, ``obs`` and
 its sources (nor ``chip_smoke.py``) imports ``jax`` or the JAX package,
 and its entry point never falls back to the CPU quietly."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -252,3 +253,102 @@ def test_materialize_without_device_refuses_cpu_fallback():
                  service.make_server):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_fleet_and_merge_tier_import_and_run_with_jax_blocked():
+    """``cluster``, ``mergetier`` and ``obs.fleettrace`` / ``ledger`` /
+    ``canary`` import with ``jax`` and the reference package blocked;
+    a 2-node fleet on the CPU path ships a giant write, entered through
+    the non-primary, to a merge worker over HTTP and converges by
+    anti-entropy."""
+    code = (
+        "import sys, json\n"
+        "from http.client import HTTPConnection\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['crdt_graph_tpu'] = None\n"
+        "import crdt_graph_tpu_torch as c\n"
+        "from crdt_graph_tpu_torch import cluster, mergetier\n"
+        "from crdt_graph_tpu_torch.cluster import mergepool\n"
+        "from crdt_graph_tpu_torch.obs import canary, fleettrace, ledger\n"
+        "from crdt_graph_tpu_torch.codec import json_codec\n"
+        "from crdt_graph_tpu_torch.mergetier.worker import "
+        "MergeWorkerServer\n"
+        "from crdt_graph_tpu_torch.serve import ServingEngine\n"
+        "kv = cluster.MemoryKV()\n"
+        "ws = MergeWorkerServer(device='cpu')\n"
+        "mergepool.register(kv, 'w0', ws.addr)\n"
+        "fleet = {}\n"
+        "for n in ('n0', 'n1'):\n"
+        "    mt = mergetier.MergeTierClient.from_env(src=n, kv=kv)\n"
+        "    eng = ServingEngine(device='cpu', mergetier=mt)\n"
+        "    fleet[n] = cluster.FleetServer(n, kv, engine=eng,"
+        " ttl_s=600.0, ae_interval_s=3600.0)\n"
+        "ring = fleet['n0'].node.refresh_ring()\n"
+        "doc = next(f'd{i}' for i in range(99)"
+        " if ring.primary(f'd{i}') == 'n1')\n"
+        "ops = tuple(c.Add(3 * 2**32 + i, ((3 * 2**32 + i - 1)"
+        " if i > 1 else 0,), i) for i in range(1, 4201))\n"
+        "conn = HTTPConnection('127.0.0.1', fleet['n0'].port, timeout=60)\n"
+        "conn.request('POST', f'/docs/{doc}/ops',"
+        " body=json_codec.dumps(c.Batch(ops)))\n"
+        "r = conn.getresponse(); ack = json.loads(r.read()); conn.close()\n"
+        "assert r.status == 200 and ack['served_by']['name'] == 'n1', ack\n"
+        "fleet['n0'].node.antientropy.sync_now()\n"
+        "fps = {n: fs.node.engine.get(doc).read_view().state_fingerprint()"
+        " for n, fs in fleet.items()}\n"
+        "assert len(set(fps.values())) == 1, fps\n"
+        "st = fleet['n1'].node.engine.mergetier.stats()\n"
+        "assert st['remote_docs'] == 1 and not st['fallbacks'], st\n"
+        "print(ws.worker.stats()['merged_docs'],"
+        " len(fleet['n0'].node.engine.get(doc).snapshot()))\n"
+        "for fs in fleet.values():\n"
+        "    fs.stop()\n"
+        "ws.stop()\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "or m.startswith('crdt_graph_tpu.') "
+        "for m, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), GRAFT_OBS_AUDIT_EVERY="0")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    # n1's commit and n0's anti-entropy pull both ship as giant singles
+    assert out.stdout.strip() == "2 4200"
+
+
+def test_fleet_entry_points_refuse_cpu_fallback(tmp_path):
+    """The merge worker, its server and the fleet node build their
+    engines on the card; without one they raise unless the caller asks
+    for the CPU.  ``python -m crdt_graph_tpu_torch.cluster`` likewise
+    raises without ``--cpu`` and serves with it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from crdt_graph_tpu_torch import cluster
+    from crdt_graph_tpu_torch.mergetier import MergeWorker
+    from crdt_graph_tpu_torch.mergetier.worker import MergeWorkerServer
+    for make in (MergeWorker, MergeWorkerServer,
+                 lambda: cluster.ClusterNode("n0", cluster.MemoryKV()),
+                 lambda: cluster.FleetServer("n0", cluster.MemoryKV())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "crdt_graph_tpu_torch.cluster",
+           "--name", "n0", "--kv-dir", str(tmp_path / "kv"), "--port", "0"]
+    out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run(cmd + ["--cpu", "--wal-shared"], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+    proc = subprocess.Popen(cmd + ["--cpu"], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY "), line
+        ready = json.loads(line[len("READY "):])
+        assert ready["name"] == "n0" and ready["id"] == 0
+        assert ready["epoch"] == 1
+    finally:
+        proc.terminate()
+        assert proc.wait(60) == 0

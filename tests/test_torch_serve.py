@@ -544,11 +544,21 @@ def test_prom_parses_and_unported_switches_raise(tmp_path, monkeypatch):
             f.startswith("crdt_span") for f in fams)
     finally:
         eng.close()
-    with pytest.raises(NotImplementedError, match="merge tier"):
-        TEngine(device="cpu", mergetier=["127.0.0.1:1"], start=False)
+    # the merge tier is ported: a worker list arms a client; the env
+    # switch with no worker named stays local, as in the reference
+    eng = TEngine(device="cpu", mergetier=["127.0.0.1:1"], start=False)
+    try:
+        assert eng.mergetier is not None
+        assert eng.mergetier.workers[0].endpoint == "127.0.0.1:1"
+    finally:
+        eng.close()
     monkeypatch.setenv("GRAFT_MERGETIER", "1")
-    with pytest.raises(NotImplementedError, match="merge tier"):
-        TEngine(device="cpu", start=False)
+    monkeypatch.delenv("GRAFT_MERGETIER_WORKERS", raising=False)
+    eng = TEngine(device="cpu", start=False)
+    try:
+        assert eng.mergetier is None
+    finally:
+        eng.close()
     monkeypatch.delenv("GRAFT_MERGETIER")
     monkeypatch.setenv("GRAFT_SHMCACHE", "1")
     with pytest.raises(NotImplementedError, match="GRAFT_SHMCACHE"):
