@@ -8,9 +8,9 @@ Builds the port's CUDA kernels from ``crdt_graph_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and, beside them, its native wire codec with ``g++``
 (``crdt_graph_tpu_torch/native``), holds each kernel against its plain
 PyTorch twin at the merge's real shapes (exact equality: integer data),
-and drives six paths (five here, the fleet below), each with the launch
-counts set to 0 just before
-it and read just after:
+and drives seven paths (five here, the fleet and the benches below),
+each with the launch counts set to 0 just before it and read just
+after:
 
 - the merge: ``crdt_graph_tpu_torch.ops.merge.materialize`` in the
   vouched ``hints="exhaustive"`` mode on the 64-replica, 1M-op chain
@@ -63,6 +63,16 @@ one more round falls back, one ``transport`` fallback a document, to
 merges on the front-ends' card.  Every replica equals a ``TpuTree`` on
 the card fed the same ops and serves every acked write.
 
+Last, the benches run on the card (a seventh counted path,
+the ``bench`` phase): ``bench.runner`` over configs 1-8 at full size
+and the config-5 headline, the editor's per-op latency and bulk deltas
+(``bench.incremental`` on ``models.TextBuffer``), the in-process
+serving bench, and the oracle-checked load generator against a durable
+server (64 sessions, 8 watchers, a 262,144-op giant) and a three-node
+fleet; every row is order-exact with its timing audit ok, both load
+runs have zero violations, and every kernel call of the benches is
+held to its twin.
+
 With ``--route-on`` the engine's and the durable replicas' bulk merges
 of 2^18 rows or more take the ops-axis route (off by default) where the
 host has two or more cards, and those phases hold kernel 5 to its twin
@@ -76,8 +86,9 @@ non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times;
-the ``serve:``, ``mesh:`` and ``fleet:`` lines carry the serving,
-batching and fleet numbers with the card's name and power limit.
+the ``serve:``, ``mesh:``, ``fleet:`` and ``bench:`` lines carry the
+serving, batching, fleet and benchmark numbers with the card's name and
+power limit.
 The full record also goes to ``build/chip_smoke.json``
 (``build/chip_smoke_route_on.json`` with ``--route-on``).
 """
@@ -2138,6 +2149,214 @@ def fleet_phase(dev, record, twins, card):
     return out["launches"]
 
 
+BENCH_EDIT_SIZES = (1_000, 10_000, 100_000)     # incremental.run documents
+BENCH_EDITS = 1_000                             # edits on each
+BENCH_BULK_SIZES = (10_000, 100_000, 1_000_000)  # incremental.run_bulk
+BENCH_BULK_DELTAS = (1_000, 10_000)
+BENCH_SERVE = (4, 5.0, 100_000)     # serving.run: docs, seconds, bootstrap
+LOADGEN_SHAPE = dict(n_sessions=64, writes_per_session=12, delta_size=12,
+                     n_docs=4, n_watchers=8, giant_ops=262_144)
+FLEET_SHAPE = dict(n_servers=3, n_sessions=24, writes_per_session=6,
+                   delta_size=12, n_docs=4, giant_ops=65_536)
+
+
+def bench_phase(dev, record, twins, card):
+    """The port's benches on the card, each through its own entry point
+    with no ``device=`` (the card is the default):
+
+    - ``bench.runner.run`` over configs 1-8 at their full
+      ``workloads.CONFIGS`` sizes (``hints=None``), and
+      ``runner.headline()`` (config 5, exhaustive): every row
+      order-exact with its timing audit ok;
+    - ``bench.incremental.run`` (editor per-op latency on seeded
+      documents of 1k, 10k and 100k characters, 1,000 edits each) and
+      ``run_bulk`` (deltas of 1k and 10k on 10k, 100k and 1M);
+    - ``bench.serving.run`` (4 documents, 5 s, a 100k-op bootstrap);
+    - ``bench.loadgen.run`` against a durable server: 64 sessions × 12
+      writes × 12 leaves over 4 documents, 8 watchers and a 262,144-op
+      giant racer; zero oracle violations, no errors, every acked leaf
+      merged, a coalesced commit of width >= 2;
+    - ``bench.loadgen.run_fleet`` on 3 servers: 24 sessions × 6 writes ×
+      12 leaves over 4 documents and a 65,536-op giant; zero
+      violations, no errors, every document converged.
+
+    Every kernel call of the benches is recorded and held to its twin
+    afterwards (a device copy of its arguments and result; nothing runs
+    twice).  The runner's timed repeats are not recorded, so that no
+    copy is timed: the first, untimed call of each row's timed function
+    is, on the same inputs.  Returns the kernel launches of the drive."""
+    import contextlib
+    import io
+    import shutil
+    from crdt_graph_tpu_torch import kernels
+    from crdt_graph_tpu_torch.bench import incremental, loadgen, runner, \
+        serving
+    from crdt_graph_tpu_torch.obs import flight
+    from crdt_graph_tpu_torch.serve import ServingEngine
+
+    root = ROOT / "build" / "bench"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    out = {"card": card, "twin_calls": {}, "bench_s": {}}
+    errs_all = {}
+
+    def checked(name, fn):
+        """Run ``fn`` with every kernel call recorded; hold each call to
+        its twin; keep the bench's seconds and return its result."""
+        got = {}
+        t0 = time.perf_counter()
+        # the benches print their own rows; the phase logs them as
+        # ``bench:`` lines instead
+        with contextlib.redirect_stdout(io.StringIO()):
+            caught = capture_inputs(lambda: got.setdefault("r", fn()),
+                                    wrapper_modules())
+        out["bench_s"][name] = out["bench_s"].get(name, 0.0) + \
+            time.perf_counter() - t0
+        errs = twin_errors(caught, twins)
+        for k, e in errs.items():
+            errs_all[k] = max(errs_all.get(k, 0.0), e)
+        calls = {k: len(v) for k, v in caught.items()}
+        for k, n in calls.items():
+            out["twin_calls"][k] = out["twin_calls"].get(k, 0) + n
+        del caught
+        if any(e != 0 for e in errs.values()):
+            raise RuntimeError(f"{name}: kernel calls differ from their "
+                               f"twins: {errs}")
+        return got["r"]
+
+    # the runner: the first call of each row's timed function recorded
+    summary = runner._summary_fn
+
+    def first_call_recorded(*a, **kw):
+        fn = summary(*a, **kw)
+        calls = []
+
+        def once(*args):
+            calls.append(1)
+            if len(calls) > 1:
+                return fn(*args)
+            return checked("runner_first_calls", lambda: fn(*args))
+        return once
+
+    kernels.reset_launches()
+    runner._summary_fn = first_call_recorded
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            rows = runner.run()
+            out["bench_s"]["runner"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            head = runner.headline()
+            out["bench_s"]["headline"] = time.perf_counter() - t0
+    finally:
+        runner._summary_fn = summary
+    for row in rows + [head]:
+        log("bench: " + json.dumps(dict(row, card=card)))
+    bad = [r["config"] for r in rows if r["order_check"] != "exact"
+           or not r["audit"]["ok"]]
+    if bad or not head["audit"]["ok"]:
+        raise RuntimeError(f"runner rows not order-exact or audit failed: "
+                           f"{bad} {head['audit']}")
+    out["runner"] = rows
+    out["headline"] = head
+
+    edit_rows = checked("incremental", lambda: incremental.run(
+        BENCH_EDIT_SIZES, BENCH_EDITS))
+    bulk_rows = checked("incremental_bulk", lambda: incremental.run_bulk(
+        BENCH_BULK_SIZES, BENCH_BULK_DELTAS))
+    for row in edit_rows + bulk_rows:
+        log("bench: " + json.dumps(dict(row, card=card)))
+    out["incremental"], out["bulk"] = edit_rows, bulk_rows
+
+    n_docs, secs, boot = BENCH_SERVE
+    srv = checked("serving", lambda: serving.run(
+        n_docs=n_docs, seconds=secs, bootstrap_ops=boot))
+    if srv["errors"]:
+        raise RuntimeError(f"serving: {srv['errors']}")
+    out["serving"] = {k: srv[k] for k in (
+        "docs", "writers", "readers", "wall_s", "ops_merged",
+        "merge_ops_per_sec", "reads", "read_p50_ms", "read_p99_ms",
+        "read_max_ms", "bootstrap_ops", "bootstrap_commit_s", "device")}
+    log("bench: " + json.dumps(dict(out["serving"], bench="serving",
+                                    card=card)))
+
+    cfg = loadgen.LoadgenConfig(seed=8, **LOADGEN_SHAPE)
+    eng = ServingEngine(durable_dir=str(root / "serve"),
+                        max_queue_requests=cfg.max_queue_requests,
+                        flight=flight.FlightRecorder(capacity=8192))
+    if eng.device != dev:
+        raise RuntimeError(f"the loadgen engine on {eng.device}")
+    try:
+        rep = checked("loadgen", lambda: loadgen.run(cfg, engine=eng))
+    finally:
+        eng.close()
+    head_keys = ("sessions", "docs", "writes_acked", "leaves_acked",
+                 "ops_merged", "load_wall_s", "ops_per_sec", "reads",
+                 "read_p50_ms", "read_p99_ms", "ack_p50_ms", "ack_p99_ms",
+                 "shed_429", "giant_ops", "giant_commit_s", "wal_sync",
+                 "staged_first_round")
+    out["loadgen"] = {k: rep[k] for k in head_keys}
+    out["loadgen"].update(
+        violations=len(rep["violations"]), errors=rep["errors"],
+        max_coalesce_width=rep["oracle"]["max_coalesce_width"],
+        watch={k: rep["watch"][k] for k in (
+            "watchers", "deliveries", "notifies", "heartbeats")},
+        ack_breakdown_ms=rep["ack_breakdown_ms"])
+    log("bench: " + json.dumps(dict(out["loadgen"], bench="loadgen",
+                                    card=card)))
+    if rep["errors"] or rep["violations"] or \
+            rep["oracle"]["violations_total"]:
+        raise RuntimeError(f"loadgen: errors {rep['errors']}, violations "
+                           f"{rep['violations'][:4]}")
+    if rep["ops_merged"] != rep["leaves_acked"]:
+        raise RuntimeError(f"loadgen: {rep['ops_merged']} ops merged, "
+                           f"{rep['leaves_acked']} leaves acked")
+    if rep["oracle"]["max_coalesce_width"] < 2:
+        raise RuntimeError("loadgen: no coalesced commit of width >= 2")
+
+    fcfg = loadgen.LoadgenConfig(seed=9, **FLEET_SHAPE)
+    frep = checked("loadgen_fleet", lambda: loadgen.run_fleet(fcfg))
+    fleet_keys = ("servers", "sessions", "docs", "writes_acked",
+                  "leaves_acked", "load_wall_s", "ops_per_sec",
+                  "read_primary_p50_ms", "read_primary_p99_ms",
+                  "read_replica_p50_ms", "read_replica_p99_ms",
+                  "lag_probes", "lag_censored", "lag_p50_s", "lag_p99_s",
+                  "shed_429", "retry_409", "read_refused_503")
+    out["fleet"] = {k: frep[k] for k in fleet_keys}
+    out["fleet"].update(violations=len(frep["violations"]),
+                        errors=frep["errors"],
+                        converged=sorted(frep["converged"]),
+                        giant=frep["giant"])
+    log("bench: " + json.dumps(dict(out["fleet"], bench="loadgen_fleet",
+                                    card=card)))
+    if frep["errors"] or frep["violations"] or \
+            frep["oracle"]["violations_total"]:
+        raise RuntimeError(f"fleet loadgen: errors {frep['errors']}, "
+                           f"violations {frep['violations'][:4]}")
+    want_docs = {f"load{i}" for i in range(fcfg.n_docs)}
+    if set(frep["converged"]) != want_docs:
+        raise RuntimeError(f"fleet loadgen: converged "
+                           f"{sorted(frep['converged'])}")
+
+    launches = dict(kernels.launches)
+    for k in MERGE_KERNELS:
+        if launches[k] < 1:
+            raise RuntimeError(f"the bench phase never launched {k}")
+    fold_errors(record, errs_all)
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["twin_err"] = errs_all
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["bench"] = out
+    log("bench: " + json.dumps({
+        "card": card, "phase_s": round(out["phase_s"], 1),
+        "bench_s": {k: round(v, 2) for k, v in out["bench_s"].items()},
+        "launches": launches, "twin_calls": out["twin_calls"],
+        "twin_max_abs_err": errs_all}))
+    return launches
+
+
 def flip_zip_data(path) -> None:
     """One bit-rot event inside the data of an npz's largest member (a
     flip in a zip local header is benign and legitimately not flagged)."""
@@ -2432,7 +2651,10 @@ def main(argv=None) -> int:
     # ---- 10. the merge tier and the fleet (their own counted drive) ----
     fleet_launches = fleet_phase(dev, record, twins, card)
 
-    # ---- 11. timing -----------------------------------------------------
+    # ---- 11. the benches (their own counted drive) ---------------------
+    bench_launches = bench_phase(dev, record, twins, card)
+
+    # ---- 12. timing -----------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -2497,7 +2719,8 @@ def main(argv=None) -> int:
                      "launches": launches[kname] + engine_launches[kname]
                      + dur_launches[kname] + ops_launches[kname]
                      + serve_launches.get(kname, 0)
-                     + fleet_launches.get(kname, 0),
+                     + fleet_launches.get(kname, 0)
+                     + bench_launches.get(kname, 0),
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms,

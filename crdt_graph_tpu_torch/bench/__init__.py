@@ -1,2 +1,3 @@
-"""Workload generators and honest timing on the card."""
+"""Benchmark harness: the workload generators, honest timing on the card,
+the config runner and the serving benches."""
 from . import workloads

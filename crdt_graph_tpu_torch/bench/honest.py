@@ -12,6 +12,15 @@ int32 weighted sum, int64 leaves folded as two int32 halves.  Here every
 partial sum is taken in int64, where it cannot overflow at any size this
 package handles, and wrapped to int32 once at the end — so the order in
 which the card adds the terms cannot change the answer.
+
+- :func:`force` — the device→host copy that closes a timed region.
+- :func:`audit_async_gap` — dispatch, sleep past the expected run time,
+  then time the readback alone: a readback that is still long after the
+  sleep means the work had not run during it, and the dispatch →
+  readback times would not bracket it.  Here it checks that a CUDA
+  stream's work is waited for by the readback a timed repeat ends on.
+- :func:`overhead_floor_ms` — the round trip of a trivial launch and an
+  8-byte copy, the fixed cost inside every timed repeat.
 """
 from __future__ import annotations
 
@@ -65,6 +74,26 @@ def fingerprint(tree: Any) -> torch.Tensor:
     return ((s + 2**31) & 0xFFFFFFFF) - 2**31
 
 
+def synchronize() -> None:
+    """Wait for every stream of the card, where this process has used
+    one (a no-op on a CPU-only run)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def force(tree: Any) -> Any:
+    """``tree`` with every tensor leaf copied to the host as a numpy
+    array (the copy waits for the stream that produces it).  Give a
+    timed function one stacked tensor to return, so this is one copy."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(force(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: force(v) for k, v in tree.items()}
+    return tree
+
+
 def time_with_readback(fn: Callable[..., Any], *args, repeats: int = 5,
                        log: Callable[[str], None] = lambda m: None,
                        ) -> Dict[str, Any]:
@@ -74,7 +103,7 @@ def time_with_readback(fn: Callable[..., Any], *args, repeats: int = 5,
     times, their p50 and min in ms, and the last fingerprint."""
     def once():
         out = fn(*args)
-        torch.cuda.synchronize()
+        synchronize()
         return int(fingerprint(out))
 
     t0 = time.perf_counter()
@@ -95,3 +124,45 @@ def time_with_readback(fn: Callable[..., Any], *args, repeats: int = 5,
         "warm_ms": warm * 1e3,
         "fingerprint": fp,
     }
+
+
+def audit_async_gap(fn: Callable[..., Any], *args, expected_s: float,
+                    log: Callable[[str], None] = lambda m: None,
+                    ) -> Dict[str, Any]:
+    """Dispatch ``fn(*args)``, sleep past the expected run time, then
+    time the readback (:func:`force`) alone.  ``ok`` is False when the
+    readback after the sleep took more than half the expected time (or
+    250 ms): the work then only ran at the readback, and a timed repeat
+    would not have bracketed it."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    dispatch_s = time.perf_counter() - t0
+    sleep_s = max(2 * expected_s, 0.5)
+    time.sleep(sleep_s)
+    t0 = time.perf_counter()
+    force(out)
+    readback_s = time.perf_counter() - t0
+    ok = readback_s < max(0.5 * expected_s, 0.25)
+    log(f"audit: dispatch {dispatch_s * 1e3:.1f} ms, slept {sleep_s:.1f} "
+        f"s, readback {readback_s * 1e3:.3f} ms -> "
+        f"{'ok' if ok else 'SUSPECT'}")
+    return {
+        "dispatch_ms": dispatch_s * 1e3,
+        "slept_s": sleep_s,
+        "readback_after_sleep_ms": readback_s * 1e3,
+        "ok": bool(ok),
+    }
+
+
+def overhead_floor_ms(device, repeats: int = 3) -> float:
+    """Median round trip of a trivial launch on ``device`` (a sum of 8
+    int32) plus the 8-byte copy of its result: the fixed cost of one
+    honest repeat, to read throughput against."""
+    tiny = torch.arange(8, dtype=torch.int32, device=device)
+    force(torch.sum(tiny + 1))
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        force(torch.sum(tiny + 1))
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] * 1e3

@@ -9,9 +9,11 @@ in-body imports by putting the port's module in ``sys.modules`` (and on
 the parent package) under the reference's name.  ``monkeypatch`` undoes
 both when the test ends.
 """
+import functools
 import importlib
 import inspect
 import sys
+import types
 
 import pytest
 
@@ -46,11 +48,13 @@ def cases(ref, needs_more):
     return out
 
 
-def run(ref, name, index, tmp_path, monkeypatch, names=(), modules=()):
+def run(ref, name, index, tmp_path, monkeypatch, names=(), modules=(),
+        fixtures=None):
     """Run ``ref.<name>`` (case ``index`` of its parametrize mark) with
     each ``(attribute, port_value)`` of ``names`` set on ``ref`` and each
     ``(reference_module_name, port_module)`` of ``modules`` standing in
-    for the reference module."""
+    for the reference module; ``fixtures`` gives the values of any other
+    fixture the test asks for."""
     for attr, value in names:
         assert hasattr(ref, attr), f"{ref.__name__} has no {attr}"
         monkeypatch.setattr(ref, attr, value)
@@ -60,7 +64,8 @@ def run(ref, name, index, tmp_path, monkeypatch, names=(), modules=()):
         monkeypatch.setitem(sys.modules, ref_name, port_mod)
         monkeypatch.setattr(package, leaf, port_mod, raising=False)
     fn = getattr(ref, name)
-    given = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
+    given = {"tmp_path": tmp_path, "monkeypatch": monkeypatch,
+             **(fixtures or {})}
     if index is not None:
         mark = next(m for m in fn.pytestmark if m.name == "parametrize")
         argnames = [a.strip() for a in mark.args[0].split(",")] \
@@ -70,3 +75,16 @@ def run(ref, name, index, tmp_path, monkeypatch, names=(), modules=()):
             values = (values,)
         given.update(zip(argnames, values))
     fn(**{a: given[a] for a in inspect.signature(fn).parameters})
+
+
+def port_loadgen():
+    """A stand-in for the reference's ``bench.loadgen`` module: the
+    port's, with every engine the harness builds itself on the CPU."""
+    from crdt_graph_tpu_torch.bench import loadgen
+    return types.SimpleNamespace(
+        LoadgenConfig=functools.partial(loadgen.LoadgenConfig,
+                                        device="cpu"),
+        run=loadgen.run, run_fleet=loadgen.run_fleet)
+
+
+LOADGEN = "crdt_graph_tpu.bench.loadgen"

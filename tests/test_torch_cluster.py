@@ -3,12 +3,12 @@
 Two patterns:
 
 - **Replay**: each test of ``tests/test_cluster.py`` but those marked
-  slow and those that need the load generator (``NEEDS_MORE``) runs
-  again with
-  its names pointed at the port (``FleetServer`` builds its engine with
-  ``device="cpu"``): the KV contracts, the ring, the lease protocol, the
-  anti-entropy windows and the in-process fleet's forwarding, failover
-  and rejoin.
+  slow (``NEEDS_MORE``) runs again with its names pointed at the port
+  (``FleetServer`` builds its engine with ``device="cpu"``; the in-body
+  ``bench.loadgen`` import resolves to the port's, on the CPU): the KV
+  contracts, the ring, the lease protocol, the anti-entropy windows,
+  the in-process fleet's forwarding, failover and rejoin, and the
+  oracle-checked fleet load generator.
 - **Lockstep**: one scripted session drives a 3-node reference fleet
   and a 3-node port fleet (``MemoryKV`` each) through the same requests:
   replica ids, writes entering through non-primary nodes (forwarded),
@@ -42,10 +42,9 @@ from crdt_graph_tpu_torch.codec import packed as tpacked  # noqa: E402
 from crdt_graph_tpu_torch.core import operation as top  # noqa: E402
 from crdt_graph_tpu_torch.obs import prom as tprom  # noqa: E402
 
-# tests marked slow (a subprocess fleet, the headline run) and those
-# that need the reference's load generator
+# tests marked slow (a subprocess fleet, the headline run)
 NEEDS_MORE = {"test_fleet_soak_sigkill_primary_mid_merge",
-              "test_fleet_headline_full", "test_fleet_loadgen_smoke"}
+              "test_fleet_headline_full"}
 REQ_S = 60
 TIMING = {"Date", "Server", "X-Ae-Lag-Seconds"}
 
@@ -72,7 +71,8 @@ def test_cluster_test_passes_on_port(name, index, tmp_path, monkeypatch):
         ("json_codec", tjson),
         ("packed_mod", tpacked),
         ("Add", top.Add), ("Batch", top.Batch), ("Delete", top.Delete),
-        ("prom_mod", tprom)))
+        ("prom_mod", tprom)),
+        modules=((_torch_replay.LOADGEN, _torch_replay.port_loadgen()),))
 
 
 # -- placement and leases ----------------------------------------------------

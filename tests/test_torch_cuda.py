@@ -696,3 +696,40 @@ def test_cuda_two_node_fleet_converges(cuda):
         for fs in fleet.values():
             fs.stop()
         ws.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_runner_rows_config1_and_config5(cuda):
+    """``bench.runner.run`` with no ``device=`` times configs 1 and 5
+    (full size) on the card: order-exact in every repeat, the timing
+    audit ok, and the merge's kernels launched."""
+    from crdt_graph_tpu_torch.bench import runner
+    kernels.reset_launches()
+    rows = runner.run([1, 5], repeats=2)
+    assert [r["config"] for r in rows] == [1, 5]
+    for r in rows:
+        assert r["device"].startswith("cuda"), r
+        assert r["order_check"] == "exact", r
+        assert r["audit"]["ok"], r["audit"]
+    assert rows[1]["n_ops"] == rows[1]["num_visible"] == 1_000_000
+    assert kernels.launches["prefix_sums"] > 0
+    assert kernels.launches["monotone_gather"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_text_buffer_bulk_apply_launches_kernels(cuda):
+    """A ``TextBuffer`` on the card (the default): seeding it with one
+    5,000-character remote batch merges through the kernels, and an
+    editor session on top reads the same as an oracle replica that
+    pulls its deltas."""
+    from crdt_graph_tpu_torch.bench import incremental
+    from crdt_graph_tpu_torch.models import TextBuffer
+    buf = TextBuffer(70)
+    kernels.reset_launches()
+    incremental.seed_document(buf, 5000)
+    assert kernels.launches["prefix_sums"] > 0, dict(kernels.launches)
+    oracle = TextBuffer(71, engine="oracle")
+    oracle.sync_from(buf)
+    incremental.editor_replay(buf, 300)
+    oracle.sync_from(buf)
+    assert buf.text() == oracle.text() and len(buf) > 5000

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports and merges with ``jax``
 blocked (the ops-axis sharded merge, the durability modules, the native
-codec and the serving stack — ``serve``, ``service``, ``obs`` and
-``parallel.mesh`` — included), none of
+codec, the serving stack — ``serve``, ``service``, ``obs`` and
+``parallel.mesh`` — and the benches and document models
+included), none of
 its sources (nor ``chip_smoke.py``) imports ``jax`` or the JAX package,
 and its entry point never falls back to the CPU quietly."""
 import ast
@@ -352,3 +353,66 @@ def test_fleet_entry_points_refuse_cpu_fallback(tmp_path):
     finally:
         proc.terminate()
         assert proc.wait(60) == 0
+
+
+def test_benches_and_models_import_and_run_with_jax_blocked():
+    """``bench.runner``, ``incremental``, ``serving``, ``loadgen`` and
+    ``models`` import with ``jax`` and the reference package blocked,
+    and a config-1 runner row runs on the CPU path, order-exact."""
+    code = (
+        "import sys, json\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['crdt_graph_tpu'] = None\n"
+        "from crdt_graph_tpu_torch.bench import incremental, loadgen,"
+        " runner, serving\n"
+        "from crdt_graph_tpu_torch import models\n"
+        "from crdt_graph_tpu_torch.models import OutlineDoc, TextBuffer\n"
+        "buf = TextBuffer(1, device='cpu')\n"
+        "buf.insert(0, 'abc')\n"
+        "assert buf.text() == 'abc'\n"
+        "(row,) = runner.run([1], repeats=1, device='cpu')\n"
+        "assert row['order_check'] == 'exact' and row['audit']['ok']\n"
+        "print(row['n_ops'], row['num_nodes'], row['num_visible'],"
+        " file=sys.stderr)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "or m.startswith('crdt_graph_tpu.') "
+        "for m, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stderr.strip().splitlines()[-1] == "1000 732 464"
+
+
+def test_bench_entry_points_refuse_cpu_fallback():
+    """The runner, the models' ``tpu`` engine, the incremental and
+    serving benches and both load-generator modes run on the card; with
+    no ``device=`` they raise without one, and so does ``python -m
+    crdt_graph_tpu_torch.bench`` without ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from crdt_graph_tpu_torch.bench import incremental, loadgen, runner, \
+        serving
+    from crdt_graph_tpu_torch.models import OutlineDoc, TextBuffer
+    for make in (lambda: runner.run([1], repeats=1),
+                 lambda: runner.headline(),
+                 lambda: TextBuffer(1, engine="tpu"),
+                 lambda: OutlineDoc(1),
+                 lambda: incremental.run((10,), n_ops=1),
+                 lambda: incremental.run_bulk((10,), (300,)),
+                 lambda: serving.run(1, 0.1),
+                 lambda: loadgen.run(loadgen.LoadgenConfig()),
+                 lambda: loadgen.run_fleet(loadgen.LoadgenConfig(
+                     n_servers=3))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert TextBuffer(1, engine="oracle").text() == ""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for mod in ("crdt_graph_tpu_torch.bench",
+                "crdt_graph_tpu_torch.bench.incremental",
+                "crdt_graph_tpu_torch.bench.loadgen"):
+        out = subprocess.run([sys.executable, "-m", mod], cwd=str(ROOT),
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr, mod

@@ -1,14 +1,14 @@
 """The port's merge tier, held to the reference's.
 
-- **Replay**: each test of ``tests/test_mergetier.py`` but those marked
-  slow and those that need the load generator (``NEEDS_MORE``) runs
-  again with its names pointed at the port (``MergeWorker`` and
-  ``ServingEngine`` on ``device="cpu"``; the in-body ``cluster``
-  imports resolve to the port's): the wire codec, the linger batcher,
-  remote == local commits over both transports, dead workers, digest
-  mismatches, breakers, the kill switch, the ``mid-remote-merge`` crash
-  leg, a netchaos cut on the merge link, the prom families and the
-  worker registry.
+- **Replay**: each test of ``tests/test_mergetier.py`` but the one
+  marked slow (``NEEDS_MORE``) runs again with its names pointed at the
+  port (``MergeWorker`` and ``ServingEngine`` on ``device="cpu"``; the
+  in-body ``cluster`` and ``bench.loadgen`` imports resolve to the
+  port's): the wire codec, the linger batcher, remote == local commits
+  over both transports, dead workers, digest mismatches, breakers, the
+  kill switch, the ``mid-remote-merge`` crash leg, a netchaos cut on
+  the merge link, the prom families, the worker registry, and a
+  closed-loop load-generator run with the tier armed.
 - **Wire**: request and frame bytes and digests equal the reference's
   for the same input, and each package decodes the other's.
 - **Epochs**: one epoch of four riders of different sizes, its
@@ -64,10 +64,8 @@ from crdt_graph_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from crdt_graph_tpu_torch.serve import SchedulerStopped  # noqa: E402
 from crdt_graph_tpu_torch.serve import ServingEngine as TEngine  # noqa: E402
 
-# tests marked slow (the headline run of a reference script) and those
-# that need the reference's load generator
-NEEDS_MORE = {"test_bench_mergetier_headline_full",
-              "test_loadgen_with_mergetier_zero_violations"}
+# the test marked slow (the headline run of a reference script)
+NEEDS_MORE = {"test_bench_mergetier_headline_full"}
 OFF = 2**32
 N = 1200            # above the kernel crossover, one chunk
 GIANT = 4200        # at or above GRAFT_MERGETIER_MIN_OPS (4096)
@@ -102,7 +100,8 @@ def test_mergetier_test_passes_on_port(name, index, tmp_path,
         ("SchedulerStopped", SchedulerStopped)), modules=(
         ("crdt_graph_tpu.cluster.netchaos", tnc),
         ("crdt_graph_tpu.cluster.mergepool", tpool),
-        ("crdt_graph_tpu.cluster.kv", tkv)))
+        ("crdt_graph_tpu.cluster.kv", tkv),
+        (_torch_replay.LOADGEN, _torch_replay.port_loadgen())))
 
 
 # -- inputs -----------------------------------------------------------------

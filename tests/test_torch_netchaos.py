@@ -1,13 +1,14 @@
 """The port's network fault injection, held to the reference's.
 
-- **Replay**: each test of ``tests/test_netchaos.py`` but those marked
-  slow and those that need the load generator (``NEEDS_MORE``) runs
-  again with its names pointed at the port (``FleetServer`` builds its
-  engine with ``device="cpu"``; the in-body ``cluster.netchaos`` import
-  resolves to the port's): the spec grammar, seeded determinism, the
-  partition/heal matrix, cuts and duplicated windows through the real
-  anti-entropy wire, the peer breakers, the staleness contract and the
-  forward budget.
+- **Replay**: each test of ``tests/test_netchaos.py`` but the one
+  marked slow (``NEEDS_MORE``) runs again with its names pointed at the
+  port (``FleetServer`` builds its engine with ``device="cpu"``; the
+  in-body ``cluster.netchaos`` and ``bench.loadgen`` imports resolve to
+  the port's): the spec grammar, seeded determinism, the partition/heal
+  matrix, cuts and duplicated windows through the real anti-entropy
+  wire, the peer breakers, the staleness contract, the forward budget,
+  and the fleet load generator under chaos on the inter-node and the
+  client links.
 - **Lockstep**: the same spec and seed give the same fault-decision
   sequence in both packages, link by link: refusals, delays, cuts,
   duplicates and throttles, request by request.
@@ -26,11 +27,8 @@ from crdt_graph_tpu_torch.cluster import netchaos as tnc  # noqa: E402
 from crdt_graph_tpu_torch.codec import json_codec as tjson  # noqa: E402
 from crdt_graph_tpu_torch.core import operation as top  # noqa: E402
 
-# tests marked slow (the multi-process soak) and those that need the
-# reference's load generator
-NEEDS_MORE = {"test_fleet_soak_processes_under_netchaos",
-              "test_fleet_loadgen_under_netchaos_zero_violations",
-              "test_fleet_loadgen_client_links_under_chaos"}
+# the test marked slow (the multi-process soak)
+NEEDS_MORE = {"test_fleet_soak_processes_under_netchaos"}
 
 
 @pytest.mark.parametrize("name,index",
@@ -44,7 +42,8 @@ def test_netchaos_test_passes_on_port(name, index, tmp_path, monkeypatch):
         ("NetChaosSpecError", tnc.NetChaosSpecError),
         ("json_codec", tjson),
         ("Add", top.Add), ("Batch", top.Batch)),
-        modules=(("crdt_graph_tpu.cluster.netchaos", tnc),))
+        modules=(("crdt_graph_tpu.cluster.netchaos", tnc),
+                 (_torch_replay.LOADGEN, _torch_replay.port_loadgen())))
 
 
 def _decisions(mod, seed, spec, links, n):
