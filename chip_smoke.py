@@ -43,8 +43,8 @@ after:
   card, durable, ``GRAFT_WAL_SYNC=commit``) hosting 8 documents:
   document 0 bootstrapped by one ``POST`` of config 5 as wire JSON,
   documents 1-7 by one staged round whose same-bucket merges group into
-  one batched merge (every kernel call of it held to its twin), then 64
-  writer sessions of 24 12-leaf deltas while 8 readers read; every acked
+  one batched merge (every kernel call of it held to its twin), then 16
+  writer sessions of 8 12-leaf deltas while 8 readers read; every acked
   write reads back before and after a restart, each document's
   ``/ops?since=0`` replays on a CPU replica to the served values.
 
@@ -56,7 +56,7 @@ fleet runs (a sixth counted path): one merge worker on the card
 (``crdt_graph_tpu_torch.cluster``, durable engines on the card).  16
 documents of 65,536 ops in one staged round and config 5 as one
 ``POST`` ship to the worker, which merges each linger window as one
-batched merge (every kernel call held to its twin, no fallback); 48
+batched merge (every kernel call held to its twin, no fallback); 24
 writer sessions write through non-primary nodes (forwarded) and
 anti-entropy converges the three replicas; the worker then crashes and
 one more round falls back, one ``transport`` fallback a document, to
@@ -73,6 +73,19 @@ fleet; every row is order-exact with its timing audit ok, both load
 runs have zero violations, and every kernel call of the benches is
 held to its twin.
 
+Then the serving tier's host-side durability and cache run on the card
+(the eighth and ninth counted paths, one launch column): the
+``walshared`` phase serves 64 documents from one durable engine on ONE
+shared group-commit WAL stream (config 5 as one ``POST``, 63 documents
+in one staged round, 64 writers while 8 readers read), reads fsyncs a
+round and covered documents a fsync from ``/metrics/prom``, kills the
+server at ``post-fsync-pre-publish`` and recovers every document on the
+card with its ``state_fingerprint``, then runs the same load with a WAL
+a document for the same numbers; the ``shmcache`` phase serves config 5
+from this process and a child ``python -m crdt_graph_tpu_torch.service``
+in one shared-memory namespace: identical bodies, one encode on the
+host, no segment left.
+
 With ``--route-on`` the engine's and the durable replicas' bulk merges
 of 2^18 rows or more take the ops-axis route (off by default) where the
 host has two or more cards, and those phases hold kernel 5 to its twin
@@ -86,8 +99,9 @@ non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times;
-the ``serve:``, ``mesh:``, ``fleet:`` and ``bench:`` lines carry the
-serving, batching, fleet and benchmark numbers with the card's name and
+the ``serve:``, ``mesh:``, ``fleet:``, ``bench:``, ``walshared:`` and
+``shmcache:`` lines carry the serving, batching, fleet, benchmark, WAL
+and shared-cache numbers with the card's name and
 power limit.
 The full record also goes to ``build/chip_smoke.json``
 (``build/chip_smoke_route_on.json`` with ``--route-on``).
@@ -1160,7 +1174,11 @@ def opsaxis_phase(dev, record, adds, dels, twins):
 
 
 N_DOCS = 8                     # documents the serve phase hosts
-N_WRITERS, N_WRITES, N_LEAVES = 64, 24, 12   # scripts/bench_serve_headline
+N_WRITES, N_LEAVES = 24, 12   # a writer session (scripts/bench_serve_headline)
+# the serve phase's writer sessions and their writes: cut from 64 x 24
+# to keep the script inside its time with the walshared phase (whose
+# writers run the full 24 on every document)
+SERVE_WRITERS, SERVE_WRITES = 16, 8
 N_READERS = 8
 N_STAGED = 4096                # docs 1-7's staged bootstraps (kernel route)
 BACKSPACE_P = 0.1              # a writer's chance to delete its last char
@@ -1225,27 +1243,87 @@ class Worker(threading.Thread):
             self.error = e
 
 
+def write_session(port, doc, idx, n_writes=N_WRITES):
+    """One writer session on ``doc``: claim a replica id, then push
+    ``n_writes`` deltas of ``N_LEAVES`` leaves (each leaf an add after
+    the session's last character, or, with ``BACKSPACE_P``, a delete of
+    it), retrying a 429; each ack is checked and followed by a read of
+    the write's newest add.  Returns ``(doc, alive values, deleted
+    values, ack ms a write)``."""
+    import random
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch, Delete
+    cl = Client(port)
+    rid = cl.json("POST", f"/docs/{doc}/replicas")["replica"]
+    rng = random.Random(1000 + idx)
+    alive, gone, ms, counter = [], [], [], 0
+    for w in range(n_writes):
+        ops = []
+        for _ in range(N_LEAVES):
+            if alive and rng.random() < BACKSPACE_P:
+                ts, v = alive.pop()
+                ops.append(Delete((ts,)))
+                gone.append(v)
+            else:
+                counter += 1
+                ts = rid * 2**32 + counter
+                ops.append(Add(ts, (alive[-1][0] if alive else 0,),
+                               f"s{idx}.{counter}"))
+                alive.append((ts, f"s{idx}.{counter}"))
+        body = json_codec.dumps(Batch(tuple(ops)))
+        while True:
+            t0 = time.perf_counter()
+            st, raw, _ = cl.call("POST", f"/docs/{doc}/ops", body=body)
+            if st != 429:
+                break
+            time.sleep(0.05)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        a = json.loads(raw)
+        if st != 200 or not a["accepted"] \
+                or a["applied_count"] != N_LEAVES:
+            raise RuntimeError(f"{doc} write {w} -> {st} {a}")
+        # read-your-writes: the served log holds the write's newest add
+        # (its window from there is found)
+        last = max((o.ts for o in ops if isinstance(o, Add)), default=None)
+        if last is not None:
+            st, _, r = cl.call("GET",
+                               f"/docs/{doc}/ops?since={last}&limit=1")
+            if st != 200 or r.getheader("X-Since-Found") != "1":
+                raise RuntimeError(f"{doc}: write {w} not read back ({st})")
+    cl.close()
+    return doc, [v for _, v in alive], gone, ms
+
+
+def acked_read_back(values, result):
+    """Whether a document's served ``values`` hold a writer session's
+    acked adds in order and none of its deleted values."""
+    _, alive, gone, _ = result
+    pos = {v: i for i, v in enumerate(values) if isinstance(v, str)}
+    got = [pos.get(v) for v in alive]
+    return None not in got and got == sorted(got) and \
+        not any(v in pos for v in gone)
+
+
 def serve_phase(dev, record, twins, card):
     """The wire service on the card: ``make_server`` (the port's
     ``ServingEngine`` on the card, durable, ``GRAFT_WAL_SYNC=commit``)
     hosting 8 documents on 127.0.0.1.  Document 0 bootstraps by one
     ``POST`` of config 5 as wire JSON (native ingest, chunked merges on the
     card); documents 1-7 bootstrap in one staged round whose same-bucket
-    kernel merges group into one batched merge; then 64 writer sessions
-    push 24 12-leaf chain deltas each while 8 readers read and one
+    kernel merges group into one batched merge; then 16 writer sessions
+    push 8 12-leaf chain deltas each while 8 readers read and one
     watcher follows document 1 by long-poll ``/watch``.  Every acked
     write reads back, before and after a restart on the same directory;
     each document's ``/ops?since=0`` replays into a fresh CPU replica to
     the served values; ``/metrics/prom`` parses; shutdown leaves no
     thread.  Returns the kernel launches of the served drive."""
     import os
-    import random
     import shutil
     import numpy as np
     from crdt_graph_tpu_torch import engine as engine_mod, kernels
     from crdt_graph_tpu_torch.bench import workloads
     from crdt_graph_tpu_torch.codec import json_codec
-    from crdt_graph_tpu_torch.core.operation import Add, Batch, Delete
+    from crdt_graph_tpu_torch.core.operation import Add, Batch
     from crdt_graph_tpu_torch.obs import prom
     from crdt_graph_tpu_torch.service import make_server
 
@@ -1254,7 +1332,7 @@ def serve_phase(dev, record, twins, card):
     env = {"GRAFT_DURABLE_DIR": str(root), "GRAFT_WAL_SYNC": "commit"}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    out = {"docs": N_DOCS, "writers": N_WRITERS, "writes": N_WRITES,
+    out = {"docs": N_DOCS, "writers": SERVE_WRITERS, "writes": SERVE_WRITES,
            "leaves": N_LEAVES, "readers": N_READERS, "card": card}
 
     def start():
@@ -1369,53 +1447,12 @@ def serve_phase(dev, record, twins, card):
             f"{out['batched_twin_calls']} kernel calls == twins")
         del caught
 
-        # ---- 64 writers and 8 readers ---------------------------------
+        # ---- 16 writers and 8 readers ---------------------------------
         stop_reads = threading.Event()
 
         def writer(idx):
-            doc = f"d{idx % N_DOCS}"
-            cl = Client(port)
-            rid = cl.json("POST", f"/docs/{doc}/replicas")["replica"]
-            rng = random.Random(1000 + idx)
-            alive, gone, ms, counter = [], [], [], 0
-            for w in range(N_WRITES):
-                ops = []
-                for _ in range(N_LEAVES):
-                    if alive and rng.random() < BACKSPACE_P:
-                        ts, v = alive.pop()
-                        ops.append(Delete((ts,)))
-                        gone.append(v)
-                    else:
-                        counter += 1
-                        ts = rid * 2**32 + counter
-                        ops.append(Add(ts, (alive[-1][0] if alive else 0,),
-                                       f"s{idx}.{counter}"))
-                        alive.append((ts, f"s{idx}.{counter}"))
-                body = json_codec.dumps(Batch(tuple(ops)))
-                while True:
-                    t0 = time.perf_counter()
-                    st, raw, _ = cl.call("POST", f"/docs/{doc}/ops",
-                                         body=body)
-                    if st != 429:
-                        break
-                    time.sleep(0.05)
-                ms.append((time.perf_counter() - t0) * 1e3)
-                a = json.loads(raw)
-                if st != 200 or not a["accepted"] \
-                        or a["applied_count"] != N_LEAVES:
-                    raise RuntimeError(f"{doc} write {w} -> {st} {a}")
-                # read-your-writes: the served log holds the write's
-                # newest add (its window from there is found)
-                last = max(o.ts for o in ops if isinstance(o, Add)) \
-                    if any(isinstance(o, Add) for o in ops) else None
-                if last is not None:
-                    st, _, r = cl.call(
-                        "GET", f"/docs/{doc}/ops?since={last}&limit=1")
-                    if st != 200 or r.getheader("X-Since-Found") != "1":
-                        raise RuntimeError(f"{doc}: write {w} not read "
-                                           f"back ({st})")
-            cl.close()
-            return doc, [v for _, v in alive], gone, ms
+            return write_session(port, f"d{idx % N_DOCS}", idx,
+                                 SERVE_WRITES)
 
         def reader(idx):
             cl = Client(port)
@@ -1463,7 +1500,7 @@ def serve_phase(dev, record, twins, card):
             return replica.visible_values(), events
 
         writers = [Worker(f"writer-{i}", lambda i=i: writer(i))
-                   for i in range(N_WRITERS)]
+                   for i in range(SERVE_WRITERS)]
         readers = [Worker(f"reader-{i}", lambda i=i: reader(i))
                    for i in range(N_READERS)]
         readers.append(Worker("watcher-d1", watcher))
@@ -1484,13 +1521,14 @@ def serve_phase(dev, record, twins, card):
         if not eng.flush(CALL_S):
             raise RuntimeError("the served engine never flushed")
         launches = dict(kernels.launches)
-        leaves = N_WRITERS * N_WRITES * N_LEAVES
+        leaves = SERVE_WRITERS * SERVE_WRITES * N_LEAVES
         # where a writer commit's time goes: p50 of each flight-record
         # stage, document 0 (1M values) apart from the small documents
         stages = {"d0": {}, "d1-7": {}}
         n_commits = {"d0": 0, "d1-7": 0}
         for r in eng.flight.records():
-            if r.num_ops > N_LEAVES * N_WRITERS or r.outcome != "committed":
+            if r.num_ops > N_LEAVES * SERVE_WRITERS \
+                    or r.outcome != "committed":
                 continue
             key = "d0" if r.doc_id == "d0" else "d1-7"
             n_commits[key] += 1
@@ -1504,7 +1542,8 @@ def serve_phase(dev, record, twins, card):
         commit_ms = [m for t in writers for m in t.result[3]]
         read_ms = [m for t in readers for m in t.result]
         out.update({
-            "acked_writes": N_WRITERS * N_WRITES, "acked_leaves": leaves,
+            "acked_writes": SERVE_WRITERS * SERVE_WRITES,
+            "acked_leaves": leaves,
             "writer_wall_s": wall, "sustained_ops_per_s": leaves / wall,
             "commit_p50_ms": float(np.percentile(commit_ms, 50)),
             "commit_p99_ms": float(np.percentile(commit_ms, 99)),
@@ -1531,13 +1570,8 @@ def serve_phase(dev, record, twins, card):
             if not np.array_equal(ints, exp_rows):
                 raise RuntimeError(f"{tag}: d0's bootstrap order wrong")
             for t in writers:
-                doc, alive, gone, _ = t.result
-                vals = served[int(doc[1:])]
-                pos = {v: i for i, v in enumerate(vals)
-                       if isinstance(v, str)}
-                got = [pos.get(v) for v in alive]
-                if None in got or got != sorted(got) or \
-                        any(v in pos for v in gone):
+                doc = t.result[0]
+                if not acked_read_back(served[int(doc[1:])], t.result):
                     raise RuntimeError(f"{tag}: {t.name}'s acked writes "
                                        f"do not read back on {doc}")
             for k in range(1, N_DOCS):
@@ -1670,7 +1704,9 @@ def mesh_phase(dev, record, twins, card):
 
 N_FLEET_DOCS = 16              # the clean leg's documents (as the mesh phase)
 FLEET_NODES = ("n0", "n1", "n2")
-FLEET_WRITERS, FLEET_WRITES = 48, 12   # writer sessions, writes each
+FLEET_WRITERS, FLEET_WRITES = 24, 6    # writer sessions, writes each
+                                       # (cut from 48 x 12 with the
+                                       # serve phase's writers)
 FLEET_LINGER_MS = 250.0        # the merge worker's linger window
 FLEET_DELTA_CAP = 1 << 20      # anti-entropy window: the 1M doc in one
 DEATH_DOCS = 2                 # worker-death round: documents a node
@@ -1692,7 +1728,7 @@ def fleet_phase(dev, record, twins, card):
       or more front-ends; the worker merged every routed document; no
       rung of the fallback ladder fired; every kernel call of the
       epochs equals its twin.
-    - Fleet leg: 48 writer sessions × 12 writes × 12 leaves, each sent
+    - Fleet leg: 24 writer sessions × 6 writes × 12 leaves, each sent
       to a node that is not the document's primary (forwarded); then
       anti-entropy rounds until every document's ``state_fingerprint``
       agrees on the three replicas.
@@ -2357,6 +2393,505 @@ def bench_phase(dev, record, twins, card):
     return launches
 
 
+W_DOCS = 64                    # documents the walshared phase hosts
+W_CRASH_SITE = "post-fsync-pre-publish"
+
+
+def prom_total(fams, name):
+    """The sum of a counter family's samples (0 when it is absent)."""
+    fam = fams.get(name)
+    return sum(s[2] for s in fam["samples"]) if fam else 0.0
+
+
+def wal_counts(c):
+    """The WAL counters of a served engine, read from ``/metrics/prom``:
+    fsyncs (the shared stream's, or the sum of the documents' own),
+    group-commit rounds of the sync lane, commits it resolved, and the
+    shared stream's rounds and covered documents."""
+    from crdt_graph_tpu_torch.obs import prom
+    fams = prom.parse_text(c.call("GET", "/metrics/prom")[1].decode())
+    shared = "crdt_wal_shared_fsyncs_total" in fams
+    return {
+        "shared": shared,
+        "fsyncs": prom_total(fams, "crdt_wal_shared_fsyncs_total"
+                             if shared else "crdt_wal_fsyncs_total"),
+        "rounds": prom_total(fams, "crdt_sched_pipeline_rounds_total"),
+        "commits": prom_total(fams,
+                              "crdt_sched_pipeline_commits_synced_total"),
+        "shared_rounds": prom_total(
+            fams, "crdt_scheduler_wal_shared_rounds_total"),
+        "shared_covered": prom_total(
+            fams, "crdt_scheduler_wal_shared_covered_docs_total")}
+
+
+def wal_delta(before, after):
+    """Counters over a window, with fsyncs a round and commits (shared:
+    covered documents) a fsync."""
+    d = {k: after[k] - before[k] for k in after if k != "shared"}
+    d["fsyncs_per_round"] = d["fsyncs"] / max(d["rounds"], 1)
+    d["commits_per_fsync"] = (d["shared_covered"] if after["shared"]
+                              else d["commits"]) / max(d["fsyncs"], 1)
+    return d
+
+
+def wal_load(root, shared, wire, twins, record):
+    """The walshared phase's load on one durable ``ServingEngine`` on the
+    card (WAL sync ``batch``, the shared stream or a WAL a document)
+    behind the HTTP server: document 0 by one ``POST`` of config 5
+    (``wire``), 63 documents by one staged round of 4,096-op chains (its
+    kernel calls held to their twins when ``twins`` is given), then one
+    writer session a document while 8 readers read.  Returns ``(srv, th, out,
+    writers)`` with the server still up."""
+    import numpy as np
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    from crdt_graph_tpu_torch.service import make_server
+
+    eng = ServingEngine(durable_dir=str(root), wal_sync="batch",
+                        wal_shared=shared, submit_timeout_s=CALL_S)
+    if (eng.shared_wal is not None) != shared:
+        raise RuntimeError(f"wal_shared={shared} built {eng.shared_wal}")
+    srv = make_server(port=0, store=eng)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_port
+    c = Client(port, timeout=600.0)
+    out = {"mode": "shared" if shared else "per-doc", "docs": W_DOCS}
+    for _ in range(N_REPLICAS):            # config 5's replica ids
+        c.json("POST", "/docs/d0/replicas")
+    t0 = time.perf_counter()
+    ack = c.json("POST", "/docs/d0/ops", body=wire)
+    out["giant_commit_ms"] = (time.perf_counter() - t0) * 1e3
+    if ack["applied_count"] != N_OPS:
+        raise RuntimeError(f"d0 bootstrap ack {ack}")
+
+    def bootstrap(k):
+        cl = Client(port)
+        rid = cl.json("POST", f"/docs/d{k}/replicas")["replica"]
+        ops = [Add(rid * 2**32 + i, ((rid * 2**32 + i - 1) if i > 1
+                                     else 0,), f"b{k}.{i}")
+               for i in range(1, N_STAGED + 1)]
+        a = cl.json("POST", f"/docs/d{k}/ops",
+                    body=json_codec.dumps(Batch(tuple(ops))))
+        cl.close()
+        if a["applied_count"] != N_STAGED:
+            raise RuntimeError(f"d{k} bootstrap ack {a}")
+
+    for k in range(1, W_DOCS):
+        eng.get(f"d{k}")
+    eng.scheduler.pause()
+    boots = [Worker(f"boot-d{k}", lambda k=k: bootstrap(k))
+             for k in range(1, W_DOCS)]
+
+    def staged_round():
+        for t in boots:
+            t.start()
+        deadline = time.monotonic() + CALL_S
+        while sum(len(eng.get(f"d{k}").queue)
+                  for k in range(1, W_DOCS)) < W_DOCS - 1:
+            if time.monotonic() > deadline or any(t.error for t in boots):
+                raise RuntimeError("staged pushes never queued")
+            time.sleep(0.005)
+        eng.scheduler.resume()
+        for t in boots:
+            t.join(CALL_S)
+        if not eng.flush(CALL_S):
+            raise RuntimeError("staged round never flushed")
+
+    before = wal_counts(c)
+    if twins is None:
+        staged_round()
+    else:
+        caught = capture_inputs(staged_round, wrapper_modules())
+        errs = twin_errors(caught, twins)
+        if any(e != 0 for e in errs.values()):
+            raise RuntimeError(f"staged-round kernel calls differ: {errs}")
+        fold_errors(record, errs)
+        out["staged_twin_calls"] = {k: len(v) for k, v in caught.items()}
+        del caught
+    for t in boots:
+        if t.is_alive() or t.error:
+            raise RuntimeError(f"{t.name}: {t.error!r}")
+    out["staged_round"] = wal_delta(before, wal_counts(c))
+
+    stop_reads = threading.Event()
+
+    def reader(idx):
+        cl = Client(port)
+        ms, i = [], 0
+        since = N_REPLICAS * 2**32 + 15_000
+        while not stop_reads.is_set():
+            k = (idx * 8 + i) % W_DOCS
+            i += 1
+            path = (f"/docs/d0/ops?since={since}&limit=256"
+                    if k == 0 else f"/docs/d{k}")
+            t0 = time.perf_counter()
+            st, _, _ = cl.call("GET", path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if st != 200:
+                raise RuntimeError(f"read {path} -> {st}")
+        cl.close()
+        return ms
+
+    writers = [Worker(f"writer-{i}",
+                      lambda i=i: write_session(port, f"d{i}", i))
+               for i in range(W_DOCS)]
+    readers = [Worker(f"reader-{i}", lambda i=i: reader(i))
+               for i in range(N_READERS)]
+    before = wal_counts(c)
+    for t in readers:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        run_threads(writers, 600.0)
+    finally:
+        out["writer_wall_s"] = time.perf_counter() - t0
+        stop_reads.set()
+        for t in readers:
+            t.join(CALL_S)
+    for t in readers:
+        if t.is_alive() or t.error:
+            raise RuntimeError(f"{t.name}: {t.error!r}")
+    if not eng.flush(CALL_S):
+        raise RuntimeError("the served engine never flushed")
+    out["load"] = wal_delta(before, wal_counts(c))
+    ack_ms = [m for t in writers for m in t.result[3]]
+    read_ms = [m for t in readers for m in t.result]
+    out.update({
+        "acked_writes": len(ack_ms),
+        "ack_p50_ms": float(np.percentile(ack_ms, 50)),
+        "ack_p99_ms": float(np.percentile(ack_ms, 99)),
+        "reads": len(read_ms),
+        "read_p50_ms": float(np.percentile(read_ms, 50))})
+    c.close()
+    return srv, th, out, writers
+
+
+def check_wal_docs(eng, writers, fps=None):
+    """Every document of a walshared engine serves its writer's acked
+    writes, document 0 config 5's 1M values in closed-form order ahead
+    of them, documents 1-63 their bootstraps; with ``fps``, each
+    document's ``state_fingerprint`` equals the one given.  Returns
+    {doc: state_fingerprint}."""
+    import numpy as np
+    from crdt_graph_tpu_torch.bench import workloads
+    exp_ts = workloads.chain_expected_ts(N_REPLICAS, N_OPS)
+    per = N_OPS // N_REPLICAS
+    exp_rows = ((exp_ts >> 32) - 1) * per + (exp_ts & 0xFFFFFFFF) - 1
+    out = {}
+    for t in writers:
+        doc = t.result[0]
+        served = eng.get(doc, create=False)
+        if served is None:
+            raise RuntimeError(f"{doc} is not served")
+        snap = served.read_view()
+        vals = list(snap.values)
+        if not acked_read_back(vals, t.result):
+            raise RuntimeError(f"{t.name}'s acked writes do not read "
+                               f"back on {doc}")
+        if doc == "d0":
+            ints = np.array([v for v in vals if isinstance(v, int)])
+            if not np.array_equal(ints, exp_rows):
+                raise RuntimeError("d0 does not hold config 5's 1M "
+                                   "values in closed-form order")
+        elif sum(1 for v in vals if str(v).startswith(
+                f"b{doc[1:]}.")) != N_STAGED:
+            raise RuntimeError(f"{doc} lost its bootstrap")
+        out[doc] = snap.state_fingerprint()
+        if fps is not None and out[doc] != fps[doc]:
+            raise RuntimeError(f"{doc}: state_fingerprint changed over "
+                               f"the crash")
+    return out
+
+
+def walshared_phase(dev, record, twins, card):
+    """The shared group-commit WAL on the card.  A durable
+    ``ServingEngine`` with ``wal_sync="batch"`` and ``wal_shared=True``,
+    behind the HTTP server, hosts 64 documents: document 0 bootstraps
+    by one ``POST`` of config 5 (1M ops, 64 replicas) as wire JSON,
+    documents 1-63 by one staged round of 4,096-op chains (every kernel
+    call held to its twin), then 64 writer sessions of 24 12-leaf deltas,
+    one a document, while 8 readers read.  Fsyncs a round, covered
+    documents a fsync and ack p50/p99 come from ``/metrics/prom`` and
+    the writers.  The server is then killed in process at
+    ``post-fsync-pre-publish`` on one more write and a fresh engine
+    recovers the directory on the card: every acked write reads back,
+    every document keeps its ``state_fingerprint``, document 0 its 1M
+    values, and the killed write (fsynced, never acked) is recovered.
+    The same load runs once more with a WAL a document, for the same
+    numbers beside them.  Returns the kernel launches of the phase."""
+    import os
+    import shutil
+    from crdt_graph_tpu_torch import engine as engine_mod, kernels
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch
+    from crdt_graph_tpu_torch.serve import ServingEngine
+
+    root = ROOT / "build" / "walshared"
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    try:
+        wire = engine_mod.packed_since_bytes(packed_chain(
+            workloads.chain_workload(N_REPLICAS, N_OPS), N_OPS), 0)
+        kernels.reset_launches()
+        # ---- the shared stream ------------------------------------------
+        srv, th, shared, writers = wal_load(root / "shared", True, wire,
+                                            twins, record)
+        eng = srv.store
+        load = shared["load"]
+        if shared["staged_round"]["fsyncs"] != 1 or \
+                shared["staged_round"]["shared_covered"] != W_DOCS - 1:
+            raise RuntimeError(f"the staged round's 63 commits took "
+                               f"{shared['staged_round']} on the stream")
+        if load["fsyncs"] != load["rounds"] or \
+                load["shared_covered"] != load["commits"]:
+            raise RuntimeError(f"shared stream: not one fsync a round "
+                               f"covering its documents: {load}")
+        fps = check_wal_docs(eng, writers)
+        # ---- kill at post-fsync-pre-publish, recover --------------------
+        doomed_ops = [Add(9 * 2**32 + i, ((9 * 2**32 + i - 1) if i > 1
+                                          else 0,), f"x.{i}")
+                      for i in range(1, 13)]
+        os.environ["GRAFT_CRASH_POINT"] = W_CRASH_SITE
+        box = {}
+
+        def doomed():
+            try:
+                box["ack"] = eng.submit(
+                    "dx", json_codec.dumps(Batch(tuple(doomed_ops))))
+            except BaseException as e:   # noqa: BLE001 — the kill
+                box["err"] = e
+
+        try:
+            threading.Thread(target=doomed, daemon=True).start()
+            eng.scheduler.join(CALL_S)
+            if eng.scheduler.is_alive():
+                raise RuntimeError(f"{W_CRASH_SITE} never fired")
+        finally:
+            os.environ.pop("GRAFT_CRASH_POINT", None)
+        if "ack" in box:
+            raise RuntimeError("the killed write was acked")
+        srv.shutdown()
+        srv.server_close()               # the engine is not the server's
+        th.join(60)
+        if eng.maintenance is not None:  # a kill takes every thread
+            eng.maintenance.stop(timeout=60)
+        t0 = time.perf_counter()
+        eng2 = ServingEngine(durable_dir=str(root / "shared"),
+                             wal_sync="batch", wal_shared=True)
+        shared["recovery_ready_s"] = time.perf_counter() - t0
+        if eng2.device != dev:
+            raise RuntimeError(f"recovered on {eng2.device}")
+        try:
+            recovered = [d.doc_id for d in eng2.docs() if d.recovered]
+            if len(recovered) != W_DOCS + 1:
+                raise RuntimeError(f"recovered {len(recovered)} documents")
+            check_wal_docs(eng2, writers, fps)
+            dx = list(eng2.get("dx", create=False).read_view().values)
+            if dx != [o.value for o in doomed_ops]:
+                raise RuntimeError("the fsynced killed write did not "
+                                   "recover")
+            shared["recovered_epoch"] = eng2.get("d0").epoch
+        finally:
+            eng2.close()
+        shared["phase_s"] = time.perf_counter() - t_phase
+        del eng, eng2, srv
+        # ---- the same load with a WAL a document -----------------------
+        t0 = time.perf_counter()
+        srv, th, perdoc, writers = wal_load(root / "perdoc", False, wire,
+                                            None, record)
+        check_wal_docs(srv.store, writers)
+        srv.shutdown()
+        srv.server_close()
+        th.join(60)
+        srv.store.close()
+        perdoc["phase_s"] = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        for k in MERGE_KERNELS:
+            if launches.get(k, 0) < 1:
+                raise RuntimeError(f"the walshared phase never launched {k}")
+        out.update(shared=shared, perdoc=perdoc, launches=launches,
+                   phase_s=time.perf_counter() - t_phase)
+        record["walshared"] = out
+
+        def row(m):
+            return {"fsyncs_per_round": round(m["load"]["fsyncs_per_round"],
+                                              3),
+                    "commits_per_fsync": round(
+                        m["load"]["commits_per_fsync"], 3),
+                    "fsyncs": m["load"]["fsyncs"],
+                    "rounds": m["load"]["rounds"],
+                    "ack_p50_ms": round(m["ack_p50_ms"], 1),
+                    "ack_p99_ms": round(m["ack_p99_ms"], 1),
+                    "writer_wall_s": round(m["writer_wall_s"], 2),
+                    "giant_commit_ms": round(m["giant_commit_ms"], 1)}
+        log("walshared: " + json.dumps({
+            "card": card, "shared": row(shared), "per_doc": row(perdoc),
+            "staged_round": {k: shared["staged_round"][k]
+                             for k in ("fsyncs", "shared_covered")},
+            "recovery_ready_s": round(shared["recovery_ready_s"], 2),
+            "phase_s": round(out["phase_s"], 1), "launches": launches}))
+        log(f"walshared: killed at {W_CRASH_SITE}, {W_DOCS + 1} documents "
+            f"recovered on the card in {shared['recovery_ready_s']:.2f} s; "
+            f"every acked write reads back, every state_fingerprint kept, "
+            f"d0 holds config 5's 1M values, the fsynced killed write "
+            f"recovered")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def shmcache_phase(dev, record, card):
+    """The host-shared body cache on the card: this process and a child
+    ``python -m crdt_graph_tpu_torch.service`` serve with
+    ``GRAFT_SHMCACHE=1`` in one ``GRAFT_SHMCACHE_NS``, and both take
+    config 5 (1M ops) by one ``POST``, each merging on the card.  ``GET
+    /docs/d0`` and ``/clock`` answer byte-identical bodies from both; the
+    two count one miss and at least one hit for the generation (one
+    encode on the host); after both close no ``graftshm-<ns>`` segment
+    is left.  Returns this process's kernel launches."""
+    import os
+    import signal
+    import uuid
+    from crdt_graph_tpu_torch import engine as engine_mod, kernels
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.obs import prom
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    from crdt_graph_tpu_torch.service import make_server
+
+    ns = f"smoke{uuid.uuid4().hex[:8]}"
+    t_phase = time.perf_counter()
+    saved = os.environ.get("GRAFT_SHMCACHE_NS")
+    os.environ["GRAFT_SHMCACHE_NS"] = ns
+    env = dict(os.environ, GRAFT_SHMCACHE="1", PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "crdt_graph_tpu_torch.service", "0"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE, text=True)
+    srv = th = None
+    out = {"card": card, "namespace": ns}
+
+    def segments():
+        try:
+            return sorted(f for f in os.listdir("/dev/shm")
+                          if f.startswith(f"graftshm-{ns}")
+                          and not f.endswith(".manifest"))
+        except OSError:
+            return []
+
+    try:
+        eng = ServingEngine(shmcache=True)
+        if eng.shmcache is None or eng.shmcache.namespace != ns:
+            raise RuntimeError("the shared tier did not arm")
+        srv = make_server(port=0, store=eng)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        line = child.stdout.readline()
+        if "service on 127.0.0.1:" not in line:
+            raise RuntimeError(f"the child server did not start: {line!r}")
+        ports = {"this": srv.server_port,
+                 "child": int(line.rsplit(":", 1)[1])}
+        wire = engine_mod.packed_since_bytes(packed_chain(
+            workloads.chain_workload(N_REPLICAS, N_OPS), N_OPS), 0)
+        kernels.reset_launches()
+
+        def post(who):
+            c = Client(ports[who], timeout=600.0)
+            for _ in range(N_REPLICAS):
+                c.json("POST", "/docs/d0/replicas")
+            t0 = time.perf_counter()
+            a = c.json("POST", "/docs/d0/ops", body=wire)
+            c.close()
+            if a["applied_count"] != N_OPS:
+                raise RuntimeError(f"{who}: bootstrap ack {a}")
+            return (time.perf_counter() - t0) * 1e3
+
+        posts = [Worker(f"post-{w}", lambda w=w: post(w)) for w in ports]
+        run_threads(posts, 600.0)
+        launches = dict(kernels.launches)
+        out["commit_ms"] = {w: t.result for w, t in zip(ports, posts)}
+        del wire
+        bodies, etags, stats = {}, {}, {}
+        for who in ("this", "child"):     # this one encodes, then the child
+            c = Client(ports[who], timeout=600.0)
+            t0 = time.perf_counter()
+            st, vals, r = c.call("GET", "/docs/d0")
+            out[f"first_read_ms_{who}"] = (time.perf_counter() - t0) * 1e3
+            st2, clock, _ = c.call("GET", "/docs/d0/clock")
+            if st != 200 or st2 != 200:
+                raise RuntimeError(f"{who}: reads -> {st}, {st2}")
+            bodies[who] = (vals, clock)
+            etags[who] = r.getheader("ETag")
+            fams = prom.parse_text(c.call("GET", "/metrics/prom")[1]
+                                   .decode())
+            stats[who] = {k: prom_total(fams, f"crdt_shmcache_{k}_total")
+                          for k in ("hits", "misses", "attach_failed",
+                                    "shared_bytes")}
+            c.close()
+        if bodies["this"] != bodies["child"] or \
+                etags["this"] != etags["child"]:
+            raise RuntimeError("the two servers answer different bodies")
+        if len(json.loads(bodies["this"][0])["values"]) != N_OPS:
+            raise RuntimeError("d0 does not serve 1M values")
+        misses = stats["this"]["misses"] + stats["child"]["misses"]
+        hits = stats["this"]["hits"] + stats["child"]["hits"]
+        if misses != 1 or hits < 1 or stats["this"]["attach_failed"] \
+                or stats["child"]["attach_failed"]:
+            raise RuntimeError(f"not one encode on the host: {stats}")
+        out["segments_live"] = segments()
+        if len(out["segments_live"]) != 1:
+            raise RuntimeError(f"segments {out['segments_live']}")
+        out.update(stats=stats, values_bytes=len(bodies["this"][0]),
+                   launches=launches)
+        for k in ("plane_rows2", "prefix_sums", "monotone_gather"):
+            if launches.get(k, 0) < 1:
+                raise RuntimeError(f"the shmcache phase never launched {k}")
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGTERM)
+        try:
+            child_rc = child.wait(120)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child_rc = child.wait(60)
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+            th.join(60)
+            srv.store.close()
+        if saved is None:
+            os.environ.pop("GRAFT_SHMCACHE_NS", None)
+        else:
+            os.environ["GRAFT_SHMCACHE_NS"] = saved
+    left = segments()
+    try:
+        os.unlink(f"/dev/shm/graftshm-{ns}.manifest")
+    except OSError:
+        pass
+    if child_rc != 0:
+        raise RuntimeError(f"the child server exited {child_rc}")
+    if left:
+        raise RuntimeError(f"segments left after both closed: {left}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["shmcache"] = out
+    log("shmcache: " + json.dumps({
+        "card": card, "stats": out["stats"],
+        "values_bytes": out["values_bytes"],
+        "commit_ms": {k: round(v, 1) for k, v in out["commit_ms"].items()},
+        "first_read_ms": {w: round(out[f"first_read_ms_{w}"], 1)
+                          for w in ("this", "child")},
+        "phase_s": round(out["phase_s"], 1),
+        "launches": out["launches"]}))
+    log("shmcache: /docs/d0 and /clock byte-identical from both servers, "
+        "one encode on the host, no segment left after both closed")
+    return out["launches"]
+
+
 def flip_zip_data(path) -> None:
     """One bit-rot event inside the data of an npz's largest member (a
     flip in a zip local header is benign and legitimately not flagged)."""
@@ -2394,6 +2929,7 @@ def main(argv=None) -> int:
 
     from crdt_graph_tpu_torch import convert, kernels, native
     from crdt_graph_tpu_torch.bench import honest, kerneltime, workloads
+    from crdt_graph_tpu_torch.bench.kerneltime import device_ms
     from crdt_graph_tpu_torch.codec import packed
     from crdt_graph_tpu_torch.kernels import build
     from crdt_graph_tpu_torch.ops import fused_resolve as fr
@@ -2632,29 +3168,55 @@ def main(argv=None) -> int:
                                f"{bad}")
 
     # ---- 5. the replica engine (its own counted drive) ----------------
+    t0 = time.perf_counter()
     engine_launches = engine_phase(dev, record, twins)
+    record["phases"]["engine_s"] = time.perf_counter() - t0
     fold_errors(record, record["engine"]["twin_err"])
 
     # ---- 6. durable replicas (their own counted drive) ----------------
+    t0 = time.perf_counter()
     dur_launches = durability_phase(dev, record, twins)
+    record["phases"]["durability_s"] = time.perf_counter() - t0
     fold_errors(record, record["durability"]["twin_err"])
 
     # ---- 7. the ops-axis sharded merge (its own counted drive) --------
+    t0 = time.perf_counter()
     ops_launches, ring_args = opsaxis_phase(dev, record, adds, dels, twins)
+    record["phases"]["opsaxis_s"] = time.perf_counter() - t0
 
     # ---- 8. the wire service (its own counted drive) ------------------
+    t0 = time.perf_counter()
     serve_launches = serve_phase(dev, record, twins, card)
+    record["phases"]["serve_s"] = time.perf_counter() - t0
 
     # ---- 9. the docs-axis batched merge, B = 1, 4, 16 ------------------
+    t0 = time.perf_counter()
     mesh_phase(dev, record, twins, card)
+    record["phases"]["mesh_s"] = time.perf_counter() - t0
 
     # ---- 10. the merge tier and the fleet (their own counted drive) ----
+    t0 = time.perf_counter()
     fleet_launches = fleet_phase(dev, record, twins, card)
+    record["phases"]["fleet_s"] = time.perf_counter() - t0
 
     # ---- 11. the benches (their own counted drive) ---------------------
+    t0 = time.perf_counter()
     bench_launches = bench_phase(dev, record, twins, card)
+    record["phases"]["bench_s"] = time.perf_counter() - t0
 
-    # ---- 12. timing -----------------------------------------------------
+    # ---- 12-13. the shared WAL stream and the host-shared body cache ----
+    # (one counted drive each; their launches share one column)
+    t0 = time.perf_counter()
+    wal_shm_launches = dict(walshared_phase(dev, record, twins, card))
+    record["phases"]["walshared_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k, n in shmcache_phase(dev, record, card).items():
+        wal_shm_launches[k] = wal_shm_launches.get(k, 0) + n
+    record["phases"]["shmcache_s"] = time.perf_counter() - t0
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in record["phases"].items()}))
+
+    # ---- 14. timing -----------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -2703,6 +3265,13 @@ def main(argv=None) -> int:
                     "timed_shapes": [list(a.shape) for a in args
                                      if hasattr(a, "shape")] or
                     [[len(args[0]), int(args[0][0].shape[0])]]})
+        variants = {v: device_ms(f) for v, f in
+                    kerneltime.library_variants(kname, args).items()}
+        if variants:
+            rec["library_variants_ms"] = variants
+            log(f"library calls for {kname} (profiler device time, L2 "
+                f"warm): " + json.dumps(
+                    {v: round(t, 5) for v, t in variants.items()}))
         ratio = tk["library_ratio"]
         log(f"time {kname} {rec['timed_shapes']} (profiler device time, L2 "
             f"warm): kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, library "
@@ -2720,7 +3289,9 @@ def main(argv=None) -> int:
                      + dur_launches[kname] + ops_launches[kname]
                      + serve_launches.get(kname, 0)
                      + fleet_launches.get(kname, 0)
-                     + bench_launches.get(kname, 0),
+                     + bench_launches.get(kname, 0)
+                     + wal_shm_launches.get(kname, 0),
+                     "launches_wal_shm": wal_shm_launches.get(kname, 0),
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms,

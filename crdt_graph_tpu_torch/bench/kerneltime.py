@@ -214,7 +214,13 @@ def library(kname: str, args):
     port never calls it), or None."""
     dev = args[0][0].device if kname == "ring_exclusive" else args[0].device
     if kname == "plane_rows":
+        # the fastest of :func:`library_variants`: a row gather launches
+        # one block a row, so two-column planes gather as 16-byte
+        # elements
         plane, idx = args
+        if plane.shape[1] == 2:
+            flat = plane.view(torch.complex128).view(-1)
+            return lambda: torch.index_select(flat, 0, idx)
         return lambda: torch.index_select(plane, 0, idx)
     if kname == "prefix_sums":
         b, w = args
@@ -235,6 +241,27 @@ def library(kname: str, args):
         stacked[1:] = torch.stack(vals)
         return lambda: torch.cumsum(stacked, 0, dtype=torch.int32)
     return None
+
+
+def library_variants(kname: str, args) -> dict:
+    """Kernel 1's candidate library calls on ``args``, by name (empty for
+    the other kernels): ``index_select`` of rows with the int32 index,
+    and with the index widened to int64 beforehand (whether the index's
+    type matters); and, for a two-column plane, ``index_select`` on the
+    plane viewed as one 16-byte element a row (two int64 columns as one
+    complex128), a one-dimensional gather, which PyTorch launches
+    another way than a gather of rows (:func:`library`'s call)."""
+    if kname != "plane_rows":
+        return {}
+    plane, idx = args
+    out = {"index_select_i32": lambda: torch.index_select(plane, 0, idx)}
+    wide = idx.long()
+    out["index_select_i64"] = lambda: torch.index_select(plane, 0, wide)
+    if plane.shape[1] == 2:
+        flat = plane.view(torch.complex128).view(-1)
+        out["index_select_rows_as_c128"] = \
+            lambda: torch.index_select(flat, 0, idx)
+    return out
 
 
 def time_kernel(kname: str, call, twin, args) -> dict:

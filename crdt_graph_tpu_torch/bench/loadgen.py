@@ -883,16 +883,20 @@ def _run(cfg: LoadgenConfig, engine: ServingEngine,
         if na else None,
         "wal_sync": engine.wal_sync
         if engine.durable_dir is not None else "off",
-        "wal": ({"fsyncs": sum(d.wal.telemetry()["fsyncs"]
-                               for d in engine.docs()
-                               if d.wal is not None),
+        "wal": ({"fsyncs": (engine.shared_wal.telemetry()["fsyncs"]
+                            if engine.shared_wal is not None else
+                            sum(d.wal.telemetry()["fsyncs"]
+                                for d in engine.docs()
+                                if d.wal is not None)),
                  "appends": sum(d.wal.telemetry()["appends"]
                                 for d in engine.docs()
                                 if d.wal is not None)}
                 if engine.durable_dir is not None else None),
-        # the shared WAL stream's counters: this package has no shared
-        # stream (GRAFT_WAL_SHARED=1 raises), so every WAL is per doc
-        "wal_shared": None,
+        # shared-stream amortization (GRAFT_WAL_SHARED): the raw
+        # counters the fsyncs-per-round headline derives from
+        "wal_shared": (engine.shared_wal.telemetry()
+                       if getattr(engine, "shared_wal", None)
+                       is not None else None),
         # pipelined commit path + maintenance lane:
         # where ack latency went, and what left the scheduler thread
         "ack_breakdown_ms": ack_breakdown,

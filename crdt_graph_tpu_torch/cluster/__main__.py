@@ -42,8 +42,11 @@ def main(argv=None) -> int:
                     choices=("commit", "batch", "off"),
                     help="WAL fsync policy (only with --durable-dir)")
     ap.add_argument("--wal-shared", action="store_true",
-                    help="one WAL stream for every document "
-                         "(GRAFT_WAL_SHARED): not ported, raises")
+                    help="multiplex every document's WAL records into "
+                         "ONE per-node stream: one fsync per scheduler "
+                         "round covers all documents (GRAFT_WAL_SHARED; "
+                         "docs/DURABILITY.md §Shared WAL) — the "
+                         "many-small-docs fleet shape")
     ap.add_argument("--netchaos", default=None,
                     help="deterministic network fault plan "
                          "('<seed>:<spec>', cluster/netchaos.py "
@@ -63,10 +66,6 @@ def main(argv=None) -> int:
                     help="merge on the host CPU (the kernels' plain "
                          "twins) instead of the card")
     args = ap.parse_args(argv)
-    if args.wal_shared:
-        raise NotImplementedError(
-            "--wal-shared (one WAL stream for every document) is not "
-            "ported; the port keeps a WAL a document")
     device = "cpu" if args.cpu else None
 
     import os
@@ -86,6 +85,7 @@ def main(argv=None) -> int:
         from ..serve import ServingEngine
         engine = ServingEngine(durable_dir=args.durable_dir,
                                wal_sync=args.wal_sync,
+                               wal_shared=args.wal_shared,
                                flight=flight_mod.FlightRecorder(),
                                device=device)
     node_kw = {}

@@ -444,6 +444,7 @@ def render_engine(engine) -> str:
     # default ephemeral engine's scrape is unchanged
     wdocs = [(d, d.wal.telemetry()) for d in docs if d.wal is not None]
     if wdocs:
+        shared_mode = getattr(engine, "shared_wal", None) is not None
         wal_counters = [
             ("crdt_wal_appends_total",
              "Commit records appended to the WAL", "appends"),
@@ -458,36 +459,47 @@ def render_engine(engine) -> str:
             ("crdt_wal_torn_tail_dropped_total",
              "Torn final records dropped at recovery",
              "torn_dropped"),
-            ("crdt_wal_fsyncs_total",
-             "WAL fsyncs (one may cover a whole group commit)",
-             "fsyncs"),
-            ("crdt_wal_errors_total",
-             "WAL append/fsync failures (shed as 503)", "errors"),
         ]
+        if not shared_mode:
+            # stream-scoped series render per-doc only when every doc
+            # HAS its own stream; in shared mode they live ONCE under
+            # crdt_wal_shared_* (a per-doc rendering would repeat the
+            # whole stream's totals once per document)
+            wal_counters += [
+                ("crdt_wal_fsyncs_total",
+                 "WAL fsyncs (one may cover a whole group commit)",
+                 "fsyncs"),
+                ("crdt_wal_errors_total",
+                 "WAL append/fsync failures (shed as 503)", "errors"),
+            ]
         for name, help_text, key in wal_counters:
             w.family(name, "counter", help_text)
             for d, t in wdocs:
                 w.sample(name, name, t[key], {"doc": d.doc_id})
-        w.family("crdt_wal_size_bytes", "gauge",
-                 "Current WAL file size (O(hot tail) steady-state)")
-        for d, t in wdocs:
-            w.sample("crdt_wal_size_bytes", "crdt_wal_size_bytes",
-                     t["size_bytes"], {"doc": d.doc_id})
+        if not shared_mode:
+            w.family("crdt_wal_size_bytes", "gauge",
+                     "Current WAL file size (O(hot tail) "
+                     "steady-state)")
+            for d, t in wdocs:
+                w.sample("crdt_wal_size_bytes", "crdt_wal_size_bytes",
+                         t["size_bytes"], {"doc": d.doc_id})
         w.family("crdt_wal_epoch", "gauge",
                  "Fencing epoch (bumped at every recovery-to-serving)")
         for d, t in wdocs:
             w.sample("crdt_wal_epoch", "crdt_wal_epoch", d.epoch,
                      {"doc": d.doc_id})
-        w.family("crdt_wal_fsync_ms", "histogram",
-                 "WAL fsync latency (the durability tax per sync)")
-        for d, t in wdocs:
-            h = t["fsync_ms"]
-            if h is not None:
-                w.histogram("crdt_wal_fsync_ms",
-                            "WAL fsync latency (the durability tax "
-                            "per sync)",
-                            h["bounds"], h["counts"], h["count"],
-                            h["sum"], {"doc": d.doc_id})
+        if not shared_mode:
+            w.family("crdt_wal_fsync_ms", "histogram",
+                     "WAL fsync latency (the durability tax per "
+                     "sync)")
+            for d, t in wdocs:
+                h = t["fsync_ms"]
+                if h is not None:
+                    w.histogram("crdt_wal_fsync_ms",
+                                "WAL fsync latency (the durability "
+                                "tax per sync)",
+                                h["bounds"], h["counts"], h["count"],
+                                h["sum"], {"doc": d.doc_id})
 
     # -- persisted materialization (docs/DURABILITY.md §Cold paths) -------
     # rendered only for durable engines, like the WAL families
@@ -515,6 +527,47 @@ def render_engine(engine) -> str:
         for d, t in tele:
             w.sample("crdt_matz_covered_ops", "crdt_matz_covered_ops",
                      t["matz_len"], {"doc": d.doc_id})
+
+    # -- shared group-commit WAL stream (GRAFT_WAL_SHARED) ----------------
+    shared = getattr(engine, "shared_wal", None)
+    if shared is not None:
+        st = shared.telemetry()
+        for name, help_text, key in (
+                ("crdt_wal_shared_appends_total",
+                 "Commit records appended to the shared stream",
+                 "appends"),
+                ("crdt_wal_shared_appended_bytes_total",
+                 "Bytes appended to the shared stream",
+                 "appended_bytes"),
+                ("crdt_wal_shared_fsyncs_total",
+                 "Shared-stream fsyncs (ONE covers every document "
+                 "in the round)", "fsyncs"),
+                ("crdt_wal_shared_compactions_total",
+                 "Stream compactions at per-doc durable marks",
+                 "compactions"),
+                ("crdt_wal_shared_errors_total",
+                 "Shared-stream append/fsync failures", "errors"),
+                ("crdt_wal_shared_torn_tail_dropped_total",
+                 "Torn final records dropped at recovery",
+                 "torn_dropped")):
+            w.counter(name, help_text, st[key])
+        w.gauge("crdt_wal_shared_size_bytes",
+                "Shared stream size (O(sum of hot tails))",
+                st["size_bytes"])
+        w.gauge("crdt_wal_shared_docs_marked",
+                "Documents with a durable truncation mark",
+                st["docs_marked"])
+        for hname, hkey, htext in (
+                ("crdt_wal_shared_fsync_ms", "fsync_ms",
+                 "Shared fsync latency (the whole round's tax, once)"),
+                ("crdt_wal_shared_covered_docs", "covered_docs",
+                 "Documents covered per shared fsync (the "
+                 "amortization)")):
+            h = st[hkey]
+            if h is not None:
+                w.family(hname, "histogram", htext)
+                w.histogram(hname, htext, h["bounds"], h["counts"],
+                            h["count"], h["sum"])
 
     # -- pipelined commit path (serve/workers.py) ---------------
     sync_worker = getattr(engine, "sync_worker", None)
@@ -550,6 +603,32 @@ def render_engine(engine) -> str:
                 "(popped from the queue, durability not yet resolved)",
                 ps["sync_inflight"])
 
+    # -- host-shared encoded-body tier (serve/shmcache.py) ----------------
+    # rendered only when GRAFT_SHMCACHE armed a cache on a readcache-on
+    # engine — the default scrape is unchanged, like crdt_wal_*
+    shmcache = getattr(engine, "shmcache", None)
+    if shmcache is not None:
+        st = shmcache.stats.snapshot()
+        for name, help_text, key in (
+                ("crdt_shmcache_hits_total",
+                 "Generations served by attaching a segment another "
+                 "process encoded", "hits"),
+                ("crdt_shmcache_misses_total",
+                 "Generations this process encoded and published to "
+                 "the shared tier", "misses"),
+                ("crdt_shmcache_attach_failed_total",
+                 "Shared-tier degradations to the process-local path",
+                 "attach_failed"),
+                ("crdt_shmcache_shared_bytes_total",
+                 "Payload bytes served out of shared segments",
+                 "shared_bytes"),
+                ("crdt_shmcache_released_total",
+                 "Generation claims released at publish swaps and "
+                 "shutdown", "released"),
+                ("crdt_shmcache_scavenged_total",
+                 "Dead-process segments unlinked by the scavenger",
+                 "scavenged")):
+            w.counter(name, help_text, st[key])
     # -- zero-copy cold egress (oplog.py wire sidecars) ---------
     # rendered only on a tiering engine — same presence gating as
     # crdt_wal_*

@@ -96,10 +96,9 @@ def _env_on(name: str, default: str) -> bool:
 # switches whose non-default path the port leaves out, with the
 # default each keeps: the reference's A/B baselines (the per-request
 # re-encode, the buffered cold egress, the thread-per-watcher park, the
-# serialized scheduler) and its one shared WAL stream
+# serialized scheduler)
 _UNPORTED_SWITCHES = (("GRAFT_READCACHE", True), ("GRAFT_SENDFILE", True),
-                      ("GRAFT_REACTOR", True), ("GRAFT_PIPELINE", True),
-                      ("GRAFT_WAL_SHARED", False))
+                      ("GRAFT_REACTOR", True), ("GRAFT_PIPELINE", True))
 
 
 class ServedDoc:
@@ -211,7 +210,8 @@ class ServedDoc:
         self.chunks_launched = 0
         self._seq = 0
         self._snap = snapshot_mod.derive(doc_id, 0, self.tree,
-                                         stats=self.readcache)
+                                         stats=self.readcache,
+                                         shm=engine.shmcache)
         self._prev_snap: Optional[snapshot_mod.DocSnapshot] = None
         # everything restored/replayed so far is durable (or, for
         # non-durable docs, committed) — background spills may cover it
@@ -266,7 +266,27 @@ class ServedDoc:
             self.tree._log.set_durable_hooks(
                 self.tree.manifest_meta, self._on_tier_advance)
         if engine.wal_sync != "off":
-            self.wal = wal_mod.Wal(os.path.join(ddir, "wal.log"))
+            perdoc_path = os.path.join(ddir, "wal.log")
+            if engine.shared_wal is not None:
+                if os.path.exists(perdoc_path) \
+                        and os.path.getsize(perdoc_path) > len(
+                            wal_mod.MAGIC):
+                    # a per-doc WAL tail from an incarnation without
+                    # GRAFT_WAL_SHARED: only the per-doc format can
+                    # replay it — ignoring it would drop fsync-acked
+                    # writes
+                    raise wal_mod.WalError(
+                        f"document {self.doc_id!r} holds a non-empty "
+                        f"per-doc WAL but the engine runs the shared "
+                        f"stream; restart without GRAFT_WAL_SHARED "
+                        f"(its acked tail lives only there)")
+                # shared stream: this doc's records were pre-scanned
+                # out of the engine-wide file at engine construction
+                self.wal = wal_mod.DocWalView(
+                    engine.shared_wal, self.doc_id,
+                    engine._shared_replay.pop(self.doc_id, None))
+            else:
+                self.wal = wal_mod.Wal(perdoc_path)
             # raises typed WalError on mid-log corruption — a server
             # must never silently serve a partially replayed log
             self.replay_stats = self.wal.replay_into(
@@ -354,18 +374,26 @@ class ServedDoc:
         # by prom + a flight dump NOW instead of first discovered when
         # the process restarts.  A torn TAIL at scrub time is benign:
         # either a crash leftover recovery would drop anyway, or an
-        # append racing the sweep — counted, never dumped on.
+        # append racing the sweep — counted, never dumped on.  Shared-
+        # stream engines verify the ONE stream once per sweep cadence
+        # (engine-level latch), not once per document — the counters
+        # land on whichever doc's scrub drew the sweep.
         if self.wal is not None:
-            v = self.wal.verify()
-            st["wal_records"] += v["records"]
-            st["wal_torn_tail"] += v["torn_tail"]
-            if v["mid_log"]:
-                st["wal_mid_log"] += v["mid_log"]
-                self._engine.counters.add("wal_scrub_mid_log")
-                try:
-                    self._engine.flight.dump(reason="wal-corruption")
-                except Exception:  # noqa: BLE001 — recorder boundary
-                    pass
+            if isinstance(self.wal, wal_mod.DocWalView):
+                v = self._engine.verify_shared_wal_once()
+            else:
+                v = self.wal.verify()
+            if v is not None:
+                st["wal_records"] += v["records"]
+                st["wal_torn_tail"] += v["torn_tail"]
+                if v["mid_log"]:
+                    st["wal_mid_log"] += v["mid_log"]
+                    self._engine.counters.add("wal_scrub_mid_log")
+                    try:
+                        self._engine.flight.dump(
+                            reason="wal-corruption")
+                    except Exception:  # noqa: BLE001 — recorder boundary
+                        pass
         fetcher = self._engine.repair_fetcher
         for seg in log.quarantined_segments():
             if fetcher is None:
@@ -399,7 +427,7 @@ class ServedDoc:
         self._prepared_seq += 1
         return self.publish_prepared(snapshot_mod.derive(
             self.doc_id, self._prepared_seq, self.tree,
-            stats=self.readcache))
+            stats=self.readcache, shm=self._engine.shmcache))
 
     def prepare_publish(self) -> snapshot_mod.DocSnapshot:
         """Pipelined commit path, compute half (scheduler thread):
@@ -412,7 +440,8 @@ class ServedDoc:
         monotonicity is all readers rely on)."""
         self._prepared_seq += 1
         return snapshot_mod.derive(self.doc_id, self._prepared_seq,
-                                   self.tree, stats=self.readcache)
+                                   self.tree, stats=self.readcache,
+                                   shm=self._engine.shmcache)
 
     def publish_prepared(self, snap: snapshot_mod.DocSnapshot) -> float:
         """Swap in a :meth:`prepare_publish` snapshot — the
@@ -420,6 +449,7 @@ class ServedDoc:
         commit's fsync (WAL-sync worker, or the scheduler itself on
         the serialized path via :meth:`publish`)."""
         staleness = self._snap.age_s()
+        outgoing = self._snap
         if self._engine.fault is not None:
             # only fault injection ever serves the previous generation
             # (read_view); in production retaining it would double the
@@ -434,6 +464,19 @@ class ServedDoc:
         # commit's fsync resolved, a watcher can never be shown a
         # generation whose fsync could still roll back
         self.watch.notify(snap.seq)
+        # host-shared body tier (serve/shmcache.py): the swap IS the
+        # invalidation — release the outgoing generation's segment
+        # claim off-thread (manifest flock I/O must not ride the
+        # publish path); readers still holding its memoryviews stay
+        # valid by the unlink-under-mmap contract
+        seg_name = outgoing.shm_seg_name
+        if seg_name is not None:
+            shm, maint = self._engine.shmcache, self._engine.maintenance
+            if shm is not None and not (
+                    maint is not None
+                    and maint.enqueue("shmrel", self,
+                                      payload=seg_name)):
+                shm.release(seg_name)
         return staleness
 
     def safe_extent(self) -> int:
@@ -637,6 +680,8 @@ class ServingEngine:
                  durable_dir: Optional[str] = None,
                  wal_sync: Optional[str] = None,
                  wal_sync_backend: Optional[str] = None,
+                 wal_shared: Optional[bool] = None,
+                 pipeline: bool = True,
                  flight: Optional[flight_mod.FlightRecorder] = None,
                  fault: Optional[oracle_mod.FaultInjector] = None,
                  mergetier=None,
@@ -647,16 +692,8 @@ class ServingEngine:
         # every served document merges on this device: the card unless
         # the caller names another; no card and no device= raises
         self.device = merge_mod.resolve_device(device)
-        # the host-shared body cache is not ported yet; asking for it
-        # raises instead of being ignored
-        if shmcache is None:
-            shmcache = _env_on("GRAFT_SHMCACHE", "0")
-        if shmcache:
-            raise NotImplementedError(
-                "the host-shared body cache (GRAFT_SHMCACHE=1) is not "
-                "ported yet: ROADMAP Queue 1 item 4")
-        # the reference's A/B baselines and its shared WAL stream are
-        # not ported: the port keeps each switch's default path only
+        # the reference's A/B baselines are not ported: the port keeps
+        # each switch's default path only
         for name, default in _UNPORTED_SWITCHES:
             raw = os.environ.get(name)
             if raw is not None and _env_on(name, "") != default:
@@ -678,6 +715,21 @@ class ServingEngine:
             if readcache_windows is not None \
             else _env_int("GRAFT_READCACHE_WINDOWS",
                           snapshot_mod.DEFAULT_WINDOW_LRU)
+        # host-shared encoded-body tier (serve/shmcache.py): off by
+        # default — GRAFT_SHMCACHE=1 arms it on a many-process host so
+        # N processes serve ONE copy of each generation's whole-doc
+        # bodies.  Construction failure (no POSIX shm) degrades to the
+        # process-local read cache.
+        if shmcache is None:
+            shmcache = _env_on("GRAFT_SHMCACHE", "0")
+        self.shmcache = None
+        if shmcache:
+            from . import shmcache as shmcache_mod
+            try:
+                self.shmcache = shmcache_mod.ShmBodyCache()
+                self.shmcache.scavenge()
+            except (OSError, AttributeError):
+                self.shmcache = None
         # zero-copy cold egress (oplog.py wire sidecars) wherever the
         # cascade tiers logs: a catch-up /ops window that lands
         # entirely on cold segments ships as os.sendfile ranges over
@@ -716,20 +768,38 @@ class ServingEngine:
         if self.wal_sync not in wal_mod.SYNC_MODES:
             raise ValueError(f"wal_sync {self.wal_sync!r} not in "
                              f"{wal_mod.SYNC_MODES}")
+        # shared group-commit WAL (GRAFT_WAL_SHARED; docs/DURABILITY.md
+        # §Shared WAL): every durable document's records multiplex into
+        # ONE per-engine stream and one fsync per scheduler round
+        # covers all of them — a many-doc node stops paying one fsync
+        # stream per document.  Recovery pre-scans the stream once and
+        # hands each document its own record list.  The stream's bytes
+        # are the reference's: either package recovers the other's.
+        if wal_shared is None:
+            wal_shared = _env_on("GRAFT_WAL_SHARED", "0")
+        self.shared_wal: Optional[wal_mod.SharedWal] = None
+        self._shared_replay: Dict[str, list] = {}
         if self.durable_dir is not None and self.wal_sync != "off":
+            os.makedirs(self.durable_dir, exist_ok=True)
             shared_path = os.path.join(self.durable_dir,
                                        "wal-shared.log")
-            if os.path.exists(shared_path) \
+            if wal_shared:
+                self.shared_wal = wal_mod.SharedWal(shared_path)
+                # raises typed WalError on mid-log corruption — never
+                # a silent partial recovery
+                self._shared_replay = self.shared_wal.recover_records()
+            elif os.path.exists(shared_path) \
                     and os.path.getsize(shared_path) > len(
                         wal_mod.SHARED_MAGIC):
-                # a reference engine ran GRAFT_WAL_SHARED here: its
-                # acked tail lives only in that stream, which the
-                # port cannot replay — refuse rather than drop it
-                raise NotImplementedError(
+                # the previous incarnation ran GRAFT_WAL_SHARED and
+                # left records only this format can replay — silently
+                # ignoring them would drop fsync-acked writes
+                raise wal_mod.WalError(
                     f"durable dir {self.durable_dir!r} holds a "
-                    f"non-empty shared WAL stream (GRAFT_WAL_SHARED), "
-                    f"which the port does not replay: ROADMAP Queue 1 "
-                    f"item 4")
+                    f"non-empty shared WAL stream but this engine "
+                    f"was started without GRAFT_WAL_SHARED; restart "
+                    f"with the previous mode (its acked tail lives "
+                    f"only there)")
         # persisted-materialization cadence (docs/DURABILITY.md §Cold
         # paths): once a durable doc's log grows this far past its
         # artifact, the next round-end refresh rewrites it (0 = off)
@@ -785,6 +855,10 @@ class ServingEngine:
         self.scrub_interval_s = _env_float("GRAFT_SCRUB_INTERVAL_S",
                                            0.0)
         self.repair_fetcher = None
+        # shared-WAL scrub latch: many docs share ONE stream, so the
+        # framing+crc sweep runs at most once per cadence engine-wide
+        self._shared_scrub_mu = threading.Lock()
+        self._shared_scrub_at = 0.0
         # size/age spill-policy knobs (maintenance worker policy tick)
         self.oplog_hot_age_s = _env_float("GRAFT_OPLOG_HOT_AGE_S", 0.0)
         self.oplog_resident_bytes = _env_int(
@@ -794,17 +868,28 @@ class ServingEngine:
         # stays bounded no matter how far the worker lags
         self.oplog_hot_hard_ops = max(1, self.oplog_hot_ops) * max(
             2, _env_int("GRAFT_OPLOG_HOT_HARD_MULT", 8))
-        # the commit pipeline's background lanes (serve/workers.py)
+        # the commit pipeline's background lanes (serve/workers.py).
+        # ``pipeline=False`` runs every round serialized on the
+        # scheduler thread (compute → fsync → publish → maintenance):
+        # the reference's baseline, kept as an argument so its crash
+        # matrix replays here; the GRAFT_PIPELINE=0 switch stays
+        # unported.
         self.maintenance = None
         self.sync_worker = None
-        if self.oplog_hot_ops > 0 or self.durable_dir is not None:
+        if pipeline and (self.oplog_hot_ops > 0
+                         or self.durable_dir is not None):
             self.maintenance = MaintenanceWorker(self)
-        if self.durable_dir is not None and self.wal_sync == "batch":
+        if pipeline and self.durable_dir is not None \
+                and self.wal_sync == "batch":
             # fan-out backend for the group-commit fsync stage
             # (GRAFT_WAL_SYNC_BACKEND=auto|uring|workers|single;
             # docs/DURABILITY.md §Sync backends)
             self.sync_worker = WalSyncWorker(
                 self, backend=wal_sync_backend)
+        if self.shared_wal is not None and self.maintenance is not None:
+            maint = self.maintenance
+            self.shared_wal.set_compact_cb(
+                lambda: maint.enqueue("compact"))
         # disaggregated merge tier (mergetier/; docs/MERGETIER.md):
         # off unless a client (or worker list) is handed in or
         # GRAFT_MERGETIER arms one from GRAFT_MERGETIER_WORKERS.
@@ -848,6 +933,23 @@ class ServingEngine:
                     self.get(name[len("doc-"):])
         if start:
             self.scheduler.start()
+
+    def verify_shared_wal_once(self) -> Optional[Dict]:
+        """One framing+crc walk of the shared WAL stream, deduped to
+        at most once per scrub cadence across ALL documents (each
+        doc's scrub task would otherwise re-scan the whole engine-wide
+        file N times per sweep — and report one corruption N times).
+        Returns the verify dict, or None when this cadence's sweep
+        already ran (the caller adds nothing)."""
+        if self.shared_wal is None:
+            return None
+        window = max(self.scrub_interval_s, 0.0)
+        now = time.monotonic()
+        with self._shared_scrub_mu:
+            if window > 0.0 and now - self._shared_scrub_at < window:
+                return None
+            self._shared_scrub_at = now
+        return self.shared_wal.verify()
 
     # -- store surface ----------------------------------------------------
 
@@ -1130,6 +1232,12 @@ class ServingEngine:
                 pass
             if d.wal is not None:
                 d.wal.close()
+        if self.shared_wal is not None:
+            self.shared_wal.close()
+        if self.shmcache is not None:
+            # drop every shared-segment claim this process holds; the
+            # last claimant's release unlinks (serve/shmcache.py)
+            self.shmcache.close()
         if self._own_oplog_dir:
             import shutil
             shutil.rmtree(self.oplog_dir, ignore_errors=True)

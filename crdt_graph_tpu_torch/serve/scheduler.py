@@ -765,9 +765,20 @@ class MergeScheduler(threading.Thread):
         ack (fsyncs are per-doc files; a cross-doc barrier would add
         latency without saving a single call).  fsync latency is
         billed into each commit's ``wal_fsync`` stage (the flight
-        recorder's view of the durability tax)."""
+        recorder's view of the durability tax).
+
+        SHARED-stream mode (engine.shared_wal): every document's
+        records landed in ONE file, so here the barrier really is one
+        ``fsync`` covering all of them — fsyncs/round collapses from
+        O(docs touched) to 1 at the same fsync-before-ack durability
+        point, and per-doc resolution follows the single call (no
+        added coupling: the call they all wait on IS the one call
+        made)."""
         pending, self._wal_round = self._wal_round, []
         if not pending:
+            return
+        if self.engine.shared_wal is not None:
+            self._finish_wal_round_shared(pending)
             return
         for entry in pending:
             doc, tickets, ct = entry.doc, entry.tickets, entry.ct
@@ -798,6 +809,48 @@ class MergeScheduler(threading.Thread):
             self.engine.record_commit(doc, ct)
             doc.note_durable(entry.log_len)
 
+    def _finish_wal_round_shared(
+            self, pending: List[PendingCommit]) -> None:
+        """Shared-stream barrier: one fsync, then per-doc durable
+        marks, publishes, and ticket resolution.  A failed fsync
+        sheds and rolls back EVERY commit it covered — their records
+        share the dropped unsynced tail, exactly the per-doc rule
+        applied once."""
+        wal_mod.maybe_crash("ack-pre-fsync")
+        shared = self.engine.shared_wal
+        t0 = time.perf_counter()
+        try:
+            shared.sync(covered_docs=len(pending))
+        except OSError as e:
+            for entry in pending:
+                self._wal_shed(entry.doc, entry.tickets, entry.ct, e,
+                               saved=entry.saved)
+                self.engine.record_commit(entry.doc, entry.ct)
+            return
+        ms = (time.perf_counter() - t0) * 1e3
+        wal_mod.maybe_crash("post-fsync-pre-publish")
+        self.engine.counters.add("wal_shared_rounds")
+        self.engine.counters.add("wal_shared_covered_docs",
+                                 len(pending))
+        for entry in pending:
+            doc, tickets, ct = entry.doc, entry.tickets, entry.ct
+            doc.wal_mark_durable()
+            ct.stages_ms["wal_fsync"] = round(
+                ct.stages_ms.get("wal_fsync", 0.0) + ms, 3)
+            t1 = time.perf_counter()
+            if entry.publish_needed:
+                with ct.stage("publish"):
+                    ct.staleness_s = doc.publish()
+            for t in tickets:
+                t.done.set()
+            ct.wal_deferred = False
+            ct.total_ms = round(
+                ct.total_ms + ms
+                + (time.perf_counter() - t1) * 1e3, 3)
+            doc.commit_ms.observe(ct.total_ms)
+            self.engine.record_commit(doc, ct)
+            doc.note_durable(entry.log_len)
+
     # -- the two-stage pipeline (serve/workers.py) ---------------
 
     def _barrier_and_submit(self, pending: List[PendingCommit]) -> None:
@@ -813,12 +866,20 @@ class MergeScheduler(threading.Thread):
         The barrier's scope matches the WAL layout: per-doc files are
         independent streams, so only documents with their OWN earlier
         entry still in flight wait (rare — a closed-loop client can't
-        have two outstanding writes)."""
+        have two outstanding writes); the shared stream is one file
+        with one ordering, so it joins the whole lane."""
         sync = self.engine.sync_worker
-        conflicted = [e.doc for e in pending if e.doc._sync_inflight]
-        while conflicted and not sync.wait_docs_clear(conflicted, 0.25):
-            if sync.crashed or self._sync_crashed:
-                raise wal_mod.CrashPoint("wal-sync worker died")
+        if self.engine.shared_wal is not None:
+            while not sync.wait_idle(0.25):
+                if sync.crashed or self._sync_crashed:
+                    raise wal_mod.CrashPoint("wal-sync worker died")
+        else:
+            conflicted = [e.doc for e in pending
+                          if e.doc._sync_inflight]
+            while conflicted and not sync.wait_docs_clear(
+                    conflicted, 0.25):
+                if sync.crashed or self._sync_crashed:
+                    raise wal_mod.CrashPoint("wal-sync worker died")
         pending = self._service_failures(pending)
         # matz refreshes due on documents NOT in this round can
         # snapshot now: the sync lane is idle, so everything their

@@ -116,13 +116,15 @@ class DocSnapshot:
                  "timestamp", "cursor", "max_depth", "log_length",
                  "log_segments", "committed_at", "_fp", "_sfp",
                  "_stats", "_values_body", "_clock_body", "_etag",
-                 "_win_mu", "_win", "_win_inflight")
+                 "_win_mu", "_win", "_win_inflight", "_shm",
+                 "shm_seg_name")
 
     def __init__(self, doc_id: str, seq: int, view: LogView,
                  values: Tuple[Any, ...], clock: Dict[int, int],
                  replica: int, timestamp: int, cursor: Tuple[int, ...],
                  max_depth: int,
-                 stats: Optional[ReadCacheStats] = None):
+                 stats: Optional[ReadCacheStats] = None,
+                 shm=None):
         self.doc_id = doc_id
         self.seq = seq
         self.view = view
@@ -156,6 +158,13 @@ class DocSnapshot:
         # population would stampede-encode the body it is supposed to
         # share)
         self._win_inflight: Dict[Tuple, threading.Event] = {}
+        # host-shared encoded-body tier (serve/shmcache.py): when
+        # armed, the two whole-doc bodies below resolve against ONE
+        # shared segment per generation across every process on the
+        # host; ``shm_seg_name`` is this generation's claim, released
+        # by the publish swap that retires it
+        self._shm = shm
+        self.shm_seg_name: Optional[str] = None
 
     # -- read endpoints ---------------------------------------------------
 
@@ -186,13 +195,42 @@ class DocSnapshot:
     def cache_stats(self) -> ReadCacheStats:
         return self._stats
 
+    def _encode_bodies(self) -> Tuple[bytes, bytes]:
+        """Both whole-doc wire bodies, straight off the encoders —
+        the single source of truth every cache tier stores verbatim
+        (byte-identity across the private and shared tiers is by
+        construction)."""
+        return (json.dumps({"values": self.values}).encode(),
+                json.dumps({"replicas": self.clock_wire()}).encode())
+
+    def _shm_fill(self) -> bool:
+        """Resolve both whole-doc bodies against the host-shared tier
+        (one segment per generation, serve/shmcache.py).  False means
+        tier off or degraded — the caller stays on the process-local
+        path."""
+        shm = self._shm
+        if shm is None:
+            return False
+        got = shm.get_or_publish(self.doc_id, self.state_fingerprint(),
+                                 self._encode_bodies)
+        if got is None:
+            return False
+        self._values_body, self._clock_body, self.shm_seg_name = got
+        return True
+
     def values_body(self) -> bytes:
         """The exact ``GET /docs/{id}`` wire body, encoded at most once
         per published generation (lock-free: a racing first pair of
-        readers may both encode — same bytes, last store wins)."""
+        readers may both encode — same bytes, last store wins).  With
+        the shared tier armed, encoded at most once per HOST — the
+        body is then a memoryview over the shared segment."""
         body = self._values_body
         if body is not None:
             self._stats.hit()
+            return body
+        if self._shm_fill():
+            body = self._values_body
+            self._stats.miss(len(body))
             return body
         body = json.dumps({"values": self.values}).encode()
         self._stats.miss(len(body))
@@ -205,6 +243,10 @@ class DocSnapshot:
         body = self._clock_body
         if body is not None:
             self._stats.hit()
+            return body
+        if self._shm_fill():
+            body = self._clock_body
+            self._stats.miss(len(body))
             return body
         body = json.dumps({"replicas": self.clock_wire()}).encode()
         self._stats.miss(len(body))
@@ -341,8 +383,11 @@ class DocSnapshot:
         """:meth:`ops_since_window` plus an explicit buffer-lifetime
         pin: ``(body, meta, pin)`` where holding ``pin`` (this
         snapshot) for the life of an in-flight write guarantees the
-        body bytes cannot be torn by a publish swap — the window LRU
-        and the encode live on the snapshot.  The reactor (serve/reactor.py) pins
+        body bytes cannot be torn by a publish swap — the window LRU,
+        the encode, and (for shm-backed whole-doc bodies) the segment
+        claim all live on the snapshot, and the shmcache zombie-park
+        contract (serve/shmcache.py) keeps exported views mapped even
+        across a swap + unlink.  The reactor (serve/reactor.py) pins
         every queued delivery until its last byte drains; partial
         writes that straddle a generation swap complete from the
         pinned buffer."""
@@ -395,7 +440,8 @@ class DocSnapshot:
 
 
 def derive(doc_id: str, seq: int, tree: "engine_mod.TpuTree",
-           stats: Optional[ReadCacheStats] = None) -> DocSnapshot:
+           stats: Optional[ReadCacheStats] = None,
+           shm=None) -> DocSnapshot:
     """Build the next snapshot from a just-committed tree.  Called by
     the scheduler thread (the tree's only writer) BEFORE resolving the
     merged requests, so a client's follow-up read always sees its own
@@ -415,4 +461,5 @@ def derive(doc_id: str, seq: int, tree: "engine_mod.TpuTree",
         cursor=tuple(tree.cursor),
         max_depth=tree._max_depth,
         stats=stats,
+        shm=shm,
     )

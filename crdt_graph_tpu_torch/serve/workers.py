@@ -30,7 +30,7 @@ maintenance lane (docs/DURABILITY.md §Pipelined commits):
 - :class:`MaintenanceWorker` — a bounded work queue owning everything
   O(doc-state) that used to run between rounds on the scheduler
   thread: hot-tail spills past the budget, cold-segment folds +
-  segment GC, and matz artifact exports
+  segment GC, shared-WAL stream compaction, and matz artifact exports
   (the scheduler snapshots the mirror arrays copy-on-export —
   ``TpuTree.matz_snapshot`` — so the worker can serialize while the
   scheduler keeps applying).  Background spills are EXTENT-CAPPED at
@@ -119,7 +119,9 @@ class WalSyncWorker(threading.Thread):
     ``_failed_sync`` BEFORE the doc's inflight count drops); the
     per-doc ``wait_docs_clear`` barrier means one document never has
     an append and an fsync in flight at once, which is exactly what
-    makes the out-of-band ``Wal.sync_begin``/``sync_end`` split safe."""
+    makes the out-of-band ``Wal.sync_begin``/``sync_end`` split safe.
+    Shared-stream engines (``GRAFT_WAL_SHARED``) pin ``single``: one
+    stream has one fsync per round — there is nothing to fan out."""
 
     def __init__(self, engine, backend: Optional[str] = None):
         super().__init__(name="crdt-wal-sync", daemon=True)
@@ -148,6 +150,9 @@ class WalSyncWorker(threading.Thread):
         self.commits_shed = 0
 
     def _resolve_backend(self, requested: str) -> str:
+        if self.engine.shared_wal is not None:
+            # one stream = one fsync per round; nothing to fan out
+            return "single"
         if requested in ("auto", "uring"):
             from ..utils import uring as uring_mod
             if uring_mod.available():
@@ -166,7 +171,10 @@ class WalSyncWorker(threading.Thread):
         """Queue one round's deferred commits.  Per-doc WAL files are
         independent streams, so the scheduler only serializes per
         DOCUMENT (:meth:`wait_docs_clear`) — entries from successive
-        rounds flow through here continuously."""
+        rounds flow through here continuously.  Shared-stream engines
+        serialize globally instead (one fsync covers every queued
+        record, and append order vs a failed fsync matters across the
+        whole file)."""
         now = time.perf_counter()
         with self._cv:
             for e in entries:
@@ -313,7 +321,7 @@ class WalSyncWorker(threading.Thread):
         with self._cv:
             self._cv.notify_all()
 
-    # -- queue-driven lanes (single / workers) ----------------------------
+    # -- queue-driven lanes (single / workers / shared-stream) ------------
 
     def _run_queue(self) -> None:
         while True:
@@ -329,7 +337,8 @@ class WalSyncWorker(threading.Thread):
                 # take everything queued: the single lane fsyncs and
                 # resolves entry by entry (arrivals during the sweep
                 # wait one turn); the workers lane dispatches each to
-                # the pool
+                # the pool; shared mode covers the whole batch with
+                # its ONE stream fsync
                 entries = list(self._q)
                 self._q.clear()
                 self._lane += len(entries)
@@ -359,7 +368,9 @@ class WalSyncWorker(threading.Thread):
             self._pool.stop()
 
     def _run_job(self, entries: List[PendingCommit]) -> None:
-        if self._pool is not None:
+        if self.engine.shared_wal is not None:
+            self._sync_shared(entries)
+        elif self._pool is not None:
             for entry in entries:
                 self._pool.submit(entry)
         else:
@@ -457,6 +468,23 @@ class WalSyncWorker(threading.Thread):
             return
         wal_mod.maybe_crash("post-fsync-pre-publish")
         self._finish(entry, ms, t0)
+
+    def _sync_shared(self, entries: List[PendingCommit]) -> None:
+        wal_mod.maybe_crash("ack-pre-fsync")
+        shared = self.engine.shared_wal
+        t0 = time.perf_counter()
+        try:
+            shared.sync(covered_docs=len(entries))
+        except OSError as e:
+            self._fail(entries, e)
+            return
+        ms = (time.perf_counter() - t0) * 1e3
+        wal_mod.maybe_crash("post-fsync-pre-publish")
+        self.engine.counters.add("wal_shared_rounds")
+        self.engine.counters.add("wal_shared_covered_docs",
+                                 len(entries))
+        for entry in entries:
+            self._finish(entry, ms, t0)
 
     def _finish(self, entry: PendingCommit, fsync_ms: float,
                 t_sync_start: float) -> None:
@@ -771,6 +799,9 @@ class MaintenanceWorker(threading.Thread):
             finally:
                 self.matz_export_ms.observe(
                     (time.perf_counter() - t0) * 1e3)
+        elif kind == "compact":
+            if self.engine.shared_wal is not None:
+                self.engine.shared_wal.compact()
         elif kind == "scrub":
             # checksum sweep + quarantine + peer repair — numpy/file/
             # HTTP I/O only, same no-CUDA lane contract as the rest
@@ -786,6 +817,13 @@ class MaintenanceWorker(threading.Thread):
             if sf is not None:
                 sf.add("sidecar_builds" if ok
                        else "sidecar_build_failures")
+        elif kind == "shmrel":
+            # publish-swap retirement of an outgoing generation's
+            # shared-segment claim (serve/shmcache.py): manifest flock
+            # I/O, deliberately off the publish/scheduler threads
+            shm = self.engine.shmcache
+            if shm is not None:
+                shm.release(payload)
 
     # -- spill policies -------------------------------
 

@@ -1087,7 +1087,21 @@ def make_server(port: int = 0, store=None,
 
 
 def serve(port: int = 8900) -> None:
+    """Serve on ``port`` (0 picks a free one, printed) until SIGTERM or
+    SIGINT, then close the engine: queued commits resolve, and its
+    host-shared segment claims (``GRAFT_SHMCACHE``) are released."""
+    import signal
+
+    def _term(signum, frame):
+        raise KeyboardInterrupt
+
     server = make_server(port)
+    signal.signal(signal.SIGTERM, _term)
     print(f"crdt_graph_tpu_torch service on "
-          f"127.0.0.1:{server.server_port}")
-    server.serve_forever()
+          f"127.0.0.1:{server.server_port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()

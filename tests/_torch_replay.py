@@ -18,34 +18,62 @@ import types
 import pytest
 
 FIXTURES = {"tmp_path", "monkeypatch"}
+_PARAM = type(pytest.param(None))
+
+
+def _slow(marks):
+    return any(m.name == "slow" for m in marks)
 
 
 def cases(ref, needs_more):
     """One ``pytest.param(name, index)`` for every test of ``ref`` not
     named in ``needs_more`` that asks for no fixture but ``tmp_path``
     and ``monkeypatch`` (and the names of its own ``parametrize`` mark,
-    whose cases it expands)."""
+    whose cases it expands).  A test or a case the reference marks
+    ``slow`` is left out, as the reference's tier-1 run leaves it out."""
     out = []
     for name, fn in sorted(vars(ref).items()):
         if not name.startswith("test_") or name in needs_more:
             continue
-        params = [m for m in getattr(fn, "pytestmark", [])
-                  if m.name == "parametrize"]
+        marks = getattr(fn, "pytestmark", [])
+        if _slow(marks):
+            continue
+        params = [m for m in marks if m.name == "parametrize"]
         args = set(inspect.signature(fn).parameters)
         if not params:
             if args <= FIXTURES:
                 out.append(pytest.param(name, None, id=name))
             continue
         (mark,) = params
-        argnames = [a.strip() for a in mark.args[0].split(",")] \
-            if isinstance(mark.args[0], str) else list(mark.args[0])
-        if not args <= FIXTURES | set(argnames):
+        if not args <= FIXTURES | set(_argnames(mark)):
             continue
         ids = mark.kwargs.get("ids")
-        for i in range(len(mark.args[1])):
-            tag = ids[i] if ids is not None else str(i)
+        for i, case in enumerate(mark.args[1]):
+            if isinstance(case, _PARAM) and _slow(case.marks):
+                continue
+            tag = ids[i] if ids is not None else \
+                (case.id if isinstance(case, _PARAM) else None) or str(i)
             out.append(pytest.param(name, i, id=f"{name}[{tag}]"))
     return out
+
+
+def _argnames(mark):
+    return [a.strip() for a in mark.args[0].split(",")] \
+        if isinstance(mark.args[0], str) else list(mark.args[0])
+
+
+def case_values(ref, name, index):
+    """``{argument: value}`` of case ``index`` of ``ref.<name>``'s
+    parametrize mark."""
+    mark = next(m for m in getattr(ref, name).pytestmark
+                if m.name == "parametrize")
+    case = mark.args[1][index]
+    argnames = _argnames(mark)
+    if isinstance(case, _PARAM):
+        values = case.values
+    else:
+        values = (case,) if len(argnames) == 1 else case
+    return dict(zip(argnames, values))
 
 
 def run(ref, name, index, tmp_path, monkeypatch, names=(), modules=(),
@@ -67,13 +95,7 @@ def run(ref, name, index, tmp_path, monkeypatch, names=(), modules=(),
     given = {"tmp_path": tmp_path, "monkeypatch": monkeypatch,
              **(fixtures or {})}
     if index is not None:
-        mark = next(m for m in fn.pytestmark if m.name == "parametrize")
-        argnames = [a.strip() for a in mark.args[0].split(",")] \
-            if isinstance(mark.args[0], str) else list(mark.args[0])
-        values = mark.args[1][index]
-        if len(argnames) == 1:
-            values = (values,)
-        given.update(zip(argnames, values))
+        given.update(case_values(ref, name, index))
     fn(**{a: given[a] for a in inspect.signature(fn).parameters})
 
 

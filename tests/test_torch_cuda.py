@@ -733,3 +733,91 @@ def test_cuda_text_buffer_bulk_apply_launches_kernels(cuda):
     incremental.editor_replay(buf, 300)
     oracle.sync_from(buf)
     assert buf.text() == oracle.text() and len(buf) > 5000
+
+
+@pytest.mark.cuda
+def test_cuda_shared_wal_commit_crash_recover(cuda, tmp_path, monkeypatch):
+    """A durable engine on the card with one shared WAL stream
+    (``wal_shared=True``, WAL sync ``batch``): four documents' kernel
+    commits, one killed at ``post-fsync-pre-publish``; a fresh engine on
+    the card recovers every document with the fingerprint it had, and
+    the fsynced killed write."""
+    import threading
+    from crdt_graph_tpu_torch.obs import flight
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    monkeypatch.delenv("GRAFT_CRASH_POINT", raising=False)
+    ddir = str(tmp_path / "dur")
+
+    def engine():
+        return ServingEngine(durable_dir=ddir, wal_sync="batch",
+                             wal_shared=True, submit_timeout_s=120,
+                             flight=flight.FlightRecorder())
+
+    eng = engine()
+    assert eng.device.type == "cuda" and eng.shared_wal is not None
+    kernels.reset_launches()
+    for i in range(4):
+        assert eng.submit(f"w{i}", _chain_body(i + 2, 2048))[0]
+    assert eng.flush(60)
+    assert kernels.launches["prefix_sums"] >= 4
+    fps = {f"w{i}": eng.get(f"w{i}").read_view().state_fingerprint()
+           for i in range(4)}
+    assert eng.shared_wal.telemetry()["fsyncs"] >= 1
+    monkeypatch.setenv("GRAFT_CRASH_POINT", "post-fsync-pre-publish")
+    box = {}
+
+    def doomed():
+        try:
+            box["ack"] = eng.submit("wx", _chain_body(9, 2048))
+        except BaseException as e:   # noqa: BLE001 — the kill
+            box["err"] = e
+
+    threading.Thread(target=doomed, daemon=True).start()
+    eng.scheduler.join(60)
+    assert not eng.scheduler.is_alive()
+    assert "ack" not in box
+    eng.maintenance.stop(timeout=60)
+    monkeypatch.delenv("GRAFT_CRASH_POINT")
+    eng2 = engine()
+    try:
+        for d, fp in fps.items():
+            doc = eng2.get(d, create=False)
+            assert doc is not None and doc.recovered and doc.epoch == 2
+            assert doc.read_view().state_fingerprint() == fp
+        assert len(eng2.get("wx", create=False).read_view().values) == 2048
+    finally:
+        eng2.close()
+
+
+@pytest.mark.cuda
+def test_cuda_shmcache_attach_between_engines(cuda, monkeypatch):
+    """Two engines on the card with the host-shared body cache in one
+    namespace, fed the same kernel commit: the first read encodes (a
+    miss), the second attaches its segment (a hit) with identical bytes;
+    no segment is left after both close."""
+    import os
+    import uuid
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    ns = f"t{uuid.uuid4().hex[:10]}"
+    monkeypatch.setenv("GRAFT_SHMCACHE_NS", ns)
+    engs = [ServingEngine(shmcache=True, submit_timeout_s=120)
+            for _ in range(2)]
+    try:
+        body = _chain_body(3, 4096)
+        snaps = []
+        for e in engs:
+            assert e.device.type == "cuda" and e.shmcache is not None
+            assert e.submit("d", body)[0]
+            snaps.append(e.get("d").read_view())
+        got = [(bytes(s.values_body()), bytes(s.clock_body()),
+                s.shm_seg_name) for s in snaps]
+        assert got[0] == got[1] and got[0][2] is not None
+        st = [e.shmcache.stats.snapshot() for e in engs]
+        assert (st[0]["misses"], st[0]["hits"]) == (1, 0)
+        assert (st[1]["misses"], st[1]["hits"]) == (0, 1)
+    finally:
+        for e in engs:
+            e.close()
+    left = [f for f in os.listdir("/dev/shm")
+            if ns in f and not f.endswith(".manifest")]
+    assert left == []

@@ -321,7 +321,9 @@ def test_fleet_entry_points_refuse_cpu_fallback(tmp_path):
     """The merge worker, its server and the fleet node build their
     engines on the card; without one they raise unless the caller asks
     for the CPU.  ``python -m crdt_graph_tpu_torch.cluster`` likewise
-    raises without ``--cpu`` and serves with it."""
+    raises without ``--cpu`` and serves with it, here durable on one
+    shared WAL stream (``--wal-shared``): a write acks, reads back, and
+    its record lands in ``wal-shared.log``."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the card")
     from crdt_graph_tpu_torch import cluster
@@ -338,11 +340,9 @@ def test_fleet_entry_points_refuse_cpu_fallback(tmp_path):
     out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
-    out = subprocess.run(cmd + ["--cpu", "--wal-shared"], cwd=str(ROOT),
-                         env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
-    proc = subprocess.Popen(cmd + ["--cpu"], cwd=str(ROOT), env=env,
+    ddir = tmp_path / "dur"
+    proc = subprocess.Popen(cmd + ["--cpu", "--wal-shared", "--durable-dir",
+                                   str(ddir)], cwd=str(ROOT), env=env,
                             stdout=subprocess.PIPE, text=True)
     try:
         line = proc.stdout.readline()
@@ -350,6 +350,20 @@ def test_fleet_entry_points_refuse_cpu_fallback(tmp_path):
         ready = json.loads(line[len("READY "):])
         assert ready["name"] == "n0" and ready["id"] == 0
         assert ready["epoch"] == 1
+        import urllib.request
+        base = f"http://{ready['addr']}"
+        body = json.dumps({"op": "add", "ts": 2**32 + 1, "path": [0],
+                           "val": "w"}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{base}/docs/d/ops", data=body, method="POST"),
+                timeout=60) as r:
+            assert json.loads(r.read())["accepted"]
+        with urllib.request.urlopen(f"{base}/docs/d", timeout=60) as r:
+            assert json.loads(r.read())["values"] == ["w"]
+        from crdt_graph_tpu_torch import wal
+        assert os.path.getsize(ddir / "wal-shared.log") > len(
+            wal.SHARED_MAGIC)
+        assert not (ddir / "doc-d" / "wal.log").exists()
     finally:
         proc.terminate()
         assert proc.wait(60) == 0

@@ -383,3 +383,23 @@ def test_kerneltime_library_call_and_work_of_kernels_3_and_4(kname):
     ms, by = kerneltime.bound_ms(nbytes, nops)
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / kerneltime.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("cols", [2, 3])
+def test_kerneltime_library_calls_of_kernel_1(cols):
+    """Every library call that bench/kerneltime.py times beside kernel 1
+    computes the twin's rows on the same inputs (the two-column plane
+    also as one 16-byte complex128 element a row)."""
+    from crdt_graph_tpu_torch.bench import kerneltime
+    rng = np.random.default_rng(cols)
+    plane = torch.from_numpy(rng.integers(-2**62, 2**62, (41, cols)))
+    idx = torch.from_numpy(rng.integers(0, 41, 97).astype(np.int32))
+    want = tfr.plain_rows(plane, idx)
+    calls = kerneltime.library_variants("plane_rows", (plane, idx))
+    assert ("index_select_rows_as_c128" in calls) == (cols == 2)
+    calls["library"] = kerneltime.library("plane_rows", (plane, idx))
+    for name, fn in calls.items():
+        got = fn()
+        if got.dtype == torch.complex128:
+            got = got.view(torch.int64).view(-1, cols)
+        assert torch.equal(got, want), name

@@ -501,8 +501,7 @@ def test_sync_backends_recover_every_acked_write(tmp_path, backend):
 
 @pytest.mark.parametrize("name,value", [
     ("GRAFT_READCACHE", "0"), ("GRAFT_SENDFILE", "0"),
-    ("GRAFT_REACTOR", "0"), ("GRAFT_PIPELINE", "0"),
-    ("GRAFT_WAL_SHARED", "1")])
+    ("GRAFT_REACTOR", "0"), ("GRAFT_PIPELINE", "0")])
 def test_non_default_switch_raises(monkeypatch, name, value):
     """The port keeps each of these switches at the reference's default:
     asking for the other path raises instead of being ignored, and the
@@ -514,10 +513,38 @@ def test_non_default_switch_raises(monkeypatch, name, value):
     TEngine(device="cpu", start=False).close()
 
 
+def test_wal_shared_switch_arms_the_stream(tmp_path, monkeypatch):
+    """``GRAFT_WAL_SHARED=1`` arms one shared stream on a durable
+    engine (its writes land in ``wal-shared.log``, no per-doc
+    ``wal.log``); ``0`` spelled out keeps a WAL a document."""
+    monkeypatch.setenv("GRAFT_WAL_SHARED", "1")
+    eng = _engine("port", tmp_path / "s", wal_sync="batch")
+    try:
+        assert isinstance(eng.shared_wal, twal.SharedWal)
+        assert eng.sync_worker.stats()["backend"] == "single"
+        assert eng.submit("doc", body(chain(1, 5)))[0]
+        assert eng.flush(JOIN_S)
+        assert isinstance(eng.get("doc").wal, twal.DocWalView)
+        assert eng.shared_wal.telemetry()["appends"] == 1
+    finally:
+        eng.close()
+    assert os.path.getsize(tmp_path / "s" / "wal-shared.log") > len(
+        twal.SHARED_MAGIC)
+    assert not (tmp_path / "s" / "doc-doc" / "wal.log").exists()
+    monkeypatch.setenv("GRAFT_WAL_SHARED", "0")
+    eng = _engine("port", tmp_path / "p", wal_sync="batch")
+    try:
+        assert eng.shared_wal is None
+    finally:
+        eng.close()
+
+
 def test_shared_wal_dir_is_refused_not_dropped(tmp_path, monkeypatch):
     """A durable dir whose acked tail lives in the reference's shared
-    WAL stream: the port refuses to open it rather than serving without
-    those writes."""
+    WAL stream: the port replays it under ``GRAFT_WAL_SHARED=1`` (the
+    same values, fingerprints and log as the reference's own recovery),
+    and without the flag refuses it with a typed ``WalError`` rather
+    than serving without those writes."""
     monkeypatch.setenv("GRAFT_WAL_SHARED", "1")
     eng = _engine("ref", tmp_path, wal_sync="commit")
     try:
@@ -528,8 +555,16 @@ def test_shared_wal_dir_is_refused_not_dropped(tmp_path, monkeypatch):
     assert os.path.getsize(tmp_path / "wal-shared.log") > len(
         twal.SHARED_MAGIC)
     monkeypatch.delenv("GRAFT_WAL_SHARED")
-    with pytest.raises(NotImplementedError, match="shared WAL stream"):
+    with pytest.raises(twal.WalError, match="shared WAL stream"):
         _engine("port", tmp_path, wal_sync="commit")
+    monkeypatch.setenv("GRAFT_WAL_SHARED", "1")
+    import shutil
+    shutil.copytree(tmp_path, tmp_path.parent / (tmp_path.name + "-ref"))
+    got = {"port": _recovered("port", tmp_path),
+           "ref": _recovered("ref", tmp_path.parent / (tmp_path.name
+                                                       + "-ref"))}
+    assert got["port"] == got["ref"]
+    assert [v for v in got["port"][0]] == [o.value for o in chain(1, 5)]
 
 
 def test_prom_parses_and_unported_switches_raise(tmp_path, monkeypatch):
@@ -560,9 +595,16 @@ def test_prom_parses_and_unported_switches_raise(tmp_path, monkeypatch):
     finally:
         eng.close()
     monkeypatch.delenv("GRAFT_MERGETIER")
+    # the host-shared body cache is ported: the switch arms one, in a
+    # namespace of this test's own
     monkeypatch.setenv("GRAFT_SHMCACHE", "1")
-    with pytest.raises(NotImplementedError, match="GRAFT_SHMCACHE"):
-        TEngine(device="cpu", start=False)
+    monkeypatch.setenv("GRAFT_SHMCACHE_NS", f"t{os.getpid()}x{id(eng)}")
+    eng = TEngine(device="cpu", start=False)
+    try:
+        assert eng.shmcache is not None
+        assert eng.shmcache.namespace == os.environ["GRAFT_SHMCACHE_NS"]
+    finally:
+        eng.close()
     monkeypatch.delenv("GRAFT_SHMCACHE")
     monkeypatch.setenv("GRAFT_OBS_AUDIT_EVERY", "64")
     with pytest.raises(NotImplementedError, match="item 7"):
