@@ -7,7 +7,9 @@
 Builds the port's CUDA kernels from ``crdt_graph_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and, beside them, its native wire codec with ``g++``
 (``crdt_graph_tpu_torch/native``), holds each kernel against its plain
-PyTorch twin at the merge's real shapes (exact equality: integer data),
+PyTorch twin at the merge's real shapes (exact equality: integer data;
+kernel 1 also at every width C = 1..21 on 16-byte-aligned planes and on
+views off that boundary, at T = 0, 1 and ragged, with extreme indices),
 and drives seven paths (five here, the fleet and the benches below),
 each with the launch counts set to 0 just before it and read just
 after:
@@ -94,7 +96,8 @@ three hint legs, and each kernel, its twin and its library call by three
 clocks (``crdt_graph_tpu_torch/bench/kerneltime.py``): device time from
 the profiler, CUDA events, and host time a wrapper call; the kernel
 also with the L2 flushed before each call, the time its bound share is
-taken on.  Exits
+taken on.  Kernel 1 is also timed at two more widths (its ``widths``):
+C = 3 and C = 17, captured from unvouched 1M-op merges.  Exits
 non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -3027,6 +3030,8 @@ def main(argv=None) -> int:
             # ragged: one row fewer than a 256-thread block multiple
             t = (idx.shape[0] // 256) * 256 - 1
             out.append((args[0], args[1][:t].contiguous()) + tuple(args[2:]))
+            if kname == "plane_rows":
+                out += kernel1_edges(plane, idx.to(dev))
             return out
         if kname == "prefix_sums":
             b, w = args
@@ -3065,6 +3070,41 @@ def main(argv=None) -> int:
         step = rid.clone()
         step[5000:] += 1
         out.append((vals, step.clamp(max=vals.shape[1] - 1)))
+        return out
+
+    def kernel1_edges(plane, idx):
+        """Kernel 1's widths and alignments: the main-path plane viewed
+        one element in (8-byte aligned, so the one-column access); odd C
+        = 3 and C = 17 at 200,003 rows; and every C = 1..21 on a 4,099-row
+        plane that is 16-byte aligned, viewed one row in (8-byte aligned
+        when C is odd) and one element in, at T = 0, 1 and 3,001 (ragged)
+        with the extreme indices, and with the index a view one element
+        in."""
+        r = plane.shape[0]
+        flat = torch.empty(r * plane.shape[1] + 1, dtype=torch.int64,
+                           device=dev)
+        flat[1:] = plane.reshape(-1)
+        out = [(flat[1:].view(plane.shape), idx)]
+        for c in (3, 17):
+            big = torch.from_numpy(rng.integers(
+                -2**63, 2**63 - 1, (200_003, c), dtype=np.int64)).to(dev)
+            bidx = torch.from_numpy(rng.integers(
+                -300_000, 300_000, 250_001).astype(np.int32)).to(dev)
+            out += [(big, bidx), (big[1:], bidx[1:])]
+        r = 4099
+        ext = torch.tensor([-2**31, -r - 5, r + 99, 2**31 - 1, -1, -r],
+                           dtype=torch.int32)
+        for c in range(1, 22):
+            base = torch.from_numpy(rng.integers(
+                -2**63, 2**63 - 1, (r + 2) * c, dtype=np.int64)).to(dev)
+            sidx = torch.from_numpy(rng.integers(
+                0, r, 3002).astype(np.int32))
+            sidx[1:7] = ext
+            sidx = sidx.to(dev)
+            for lo in (0, c, 1):
+                p = base[lo:lo + r * c].view(r, c)
+                out += [(p, sidx[1:1]), (p, sidx[1:2]), (p, sidx[:3001]),
+                        (p, sidx[1:])]
         return out
 
     for kname in MERGE_KERNELS:
@@ -3247,6 +3287,9 @@ def main(argv=None) -> int:
         f"host->device copy of the columns {h2d_ms:.3f} ms; with deletes "
         f"{t_del['p50_ms']:.3f} ms; peak device memory {peak} B")
 
+    # kernel 1 at two more widths, captured from 1M-op unvouched merges
+    k1_widths = {key: a for key, a in kerneltime.kernel1_inputs(dev).items()
+                 if key != "plane_rows"}
     rows = []
     for kname, (src, replaces) in KERNELS.items():
         args = ring_args if kname == "ring_exclusive" else caught[kname][0][0]
@@ -3283,6 +3326,38 @@ def main(argv=None) -> int:
             f"{tk['plain']['events_ms']:.4f} ms; host per wrapper call "
             f"{tk['kernel']['host_us']:.2f} us (twin "
             f"{tk['plain']['host_us']:.2f} us)")
+        widths = []
+        for key, wargs in (k1_widths.items() if kname == "plane_rows"
+                           else ()):
+            err = max_abs_err(_outputs(calls[kname](*wargs)),
+                              _outputs(twins[kname](*_cpu(wargs))))
+            fold_errors(record, {kname: err})
+            wt = kerneltime.time_kernel(kname, calls[kname], twins[kname],
+                                        wargs)
+            w = {"case": key, "shape": [list(a.shape) for a in wargs],
+                 "max_abs_err": err, "bound_ms": wt["bound_ms"],
+                 "bound_share": wt["bound_share"],
+                 "library_ratio": wt["library_ratio"],
+                 "cold_ms": wt["kernel"]["cold_ms"],
+                 "events_ms": wt["kernel"]["events_ms"],
+                 "host_us": wt["kernel"]["host_us"]}
+            w.update({f"{f}_ms" if f != "kernel" else "ms":
+                      wt[f]["device_ms"]
+                      for f in ("kernel", "plain", "library")})
+            widths.append(w)
+            log(f"time {kname} {w['shape']} ({key}; profiler device time, "
+                f"L2 warm): kernel {w['ms']:.4f} ms, twin "
+                f"{w['plain_ms']:.4f} ms, library (index_select of rows) "
+                f"{w['library_ms']:.4f} ms, kernel/library "
+                f"{w['library_ratio']:.3f}; L2 cold: kernel "
+                f"{w['cold_ms']:.4f} ms, bound {w['bound_ms']:.3e} ms, "
+                f"bound share {w['bound_share']:.3f}; host per wrapper "
+                f"call {w['host_us']:.2f} us; max_abs_err {err}")
+            if err != 0:
+                raise RuntimeError(f"{kname} disagrees with its twin at "
+                                   f"{key}")
+        if widths:
+            rec["widths"] = widths
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[kname] + engine_launches[kname]
@@ -3297,7 +3372,8 @@ def main(argv=None) -> int:
                      "library_ms": l_ms,
                      "device_ms": k_ms, "cold_ms": c_ms,
                      "events_ms": tk["kernel"]["events_ms"],
-                     "host_us": tk["kernel"]["host_us"]})
+                     "host_us": tk["kernel"]["host_us"],
+                     **({"widths": widths} if widths else {})})
     log(f"profiler sessions that recorded no device time and were taken "
         f"again: {kerneltime.empty_sessions}")
 

@@ -24,7 +24,9 @@ compares checkouts of the port on one card in one command:
 
 For each root in turn (one process each, that root's package and
 kernels), it captures the arguments of kernels 3 and 4 from the merge's
-main path (config 5 at 1M ops, ``hints="exhaustive"``), and times each
+main path (config 5 at 1M ops, ``hints="exhaustive"``) and kernel 1's
+at three widths (:func:`kernel1_inputs`: C = 2 on the main path, 3 and
+17), makes kernel 5's from a seed (:func:`ring_inputs`), and times each
 kernel, its twin and its library call, and kernel 4 again with seven
 value rows (the merge's V when two weight lanes exist).  One JSON line a
 root, also appended to ``build/kerneltime.jsonl``.  Needs a CUDA device.
@@ -39,6 +41,22 @@ copy of the package that builds it in place of ``csrc/mono_gather.cu``:
         build/staged/crdt_graph_tpu_torch/csrc/mono_gather.cu
     python -m crdt_graph_tpu_torch.bench.kerneltime \
         --roots . build/staged build/staged .
+
+Kernel 1's two alternatives to ``csrc/plane_rows.cu`` are timed the same
+way: plain stores in place of its evict-first ones
+(``PLANE_ROWS_STREAMING_STORES`` set to 0) and
+``csrc/variants/plane_rows_shfl.cu`` (each row's index broadcast by warp
+shuffle), each built in a copy in place of the checkout's file:
+
+    mkdir -p build/plain build/shfl
+    cp -r crdt_graph_tpu_torch tests build/plain/
+    cp -r crdt_graph_tpu_torch tests build/shfl/
+    sed -i 's/STREAMING_STORES 1/STREAMING_STORES 0/' \
+        build/plain/crdt_graph_tpu_torch/csrc/plane_rows.cu
+    cp crdt_graph_tpu_torch/csrc/variants/plane_rows_shfl.cu \
+        build/shfl/crdt_graph_tpu_torch/csrc/plane_rows.cu
+    python -m crdt_graph_tpu_torch.bench.kerneltime \
+        --roots build/parent . build/plain build/shfl . build/parent
 
 This module imports only torch at its top: a run loads it by file path
 beside an older checkout's package.
@@ -282,48 +300,101 @@ def time_kernel(kname: str, call, twin, args) -> dict:
 
 # ---- comparing checkouts ---------------------------------------------------
 
-def child(root: str) -> dict:
-    """Kernels 3 and 4 of the package under ``root``, timed at the merge's
-    main-path inputs, and kernel 4 with seven value rows."""
-    from crdt_graph_tpu_torch.bench import workloads
-    from crdt_graph_tpu_torch.kernels import build
-    from crdt_graph_tpu_torch.ops import merge, mono_gather, tour_scan
-    mods = {"prefix_sums": (tour_scan, tour_scan.plain_prefix),
-            "monotone_gather": (mono_gather, mono_gather.plain_gather)}
-    t0 = time.perf_counter()
-    build.load()
-    build_s = time.perf_counter() - t0
-    arrs = workloads.chain_workload(64, N_OPS)
+def capture_calls(fn, targets) -> dict:
+    """Run ``fn`` with each wrapper ``(module, name)`` of ``targets``
+    recording a copy of the arguments of every call; return {name:
+    [args, ...]}."""
     seen = {}
     saved = []
-    for name, (mod, _) in mods.items():
+    for mod, name in targets:
         orig = getattr(mod, name)
 
         def rec(*a, _orig=orig, _name=name):
-            seen.setdefault(_name, [tuple(x.clone() for x in a)])
+            seen.setdefault(_name, []).append(
+                tuple(x.clone() if hasattr(x, "clone") else x for x in a))
             return _orig(*a)
         saved.append((mod, name, orig))
         setattr(mod, name, rec)
     try:
-        merge.materialize(arrs, hints="exhaustive", device="cuda")
+        fn()
     finally:
         for mod, name, orig in saved:
             setattr(mod, name, orig)
+    return seen
+
+
+def kernel1_inputs(dev) -> dict:
+    """Kernel 1's arguments at three widths, captured from 1M-op merges:
+    ``plane_rows``, the delete leg's target gather of config 5 with every
+    16th node deleted (the main path's vouched merge: C = 2);
+    ``plane_rows_c3``, the node frame of the same batch's unvouched merge
+    (C = 3, odd); ``plane_rows_c17``, the parent frame of config 8's
+    unvouched merge (C = 17).  {key: (plane, idx)}."""
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.ops import fused_resolve, merge
+    dels = workloads.chain_with_deletes(N_OPS, 16, 64)
+    deep = workloads.deep_paths(64, N_OPS)
+    out = {}
+    for key, arrs, hints, cols in (
+            ("plane_rows", dels, "exhaustive", 2),
+            ("plane_rows_c3", dels, None, 3),
+            ("plane_rows_c17", deep, None, 17)):
+        seen = capture_calls(
+            lambda: merge.materialize(arrs, hints=hints, device=dev),
+            [(fused_resolve, "plane_rows")])
+        out[key] = next(a for a in seen["plane_rows"]
+                        if a[0].shape[1] == cols)
+    torch.cuda.synchronize()
+    return out
+
+
+def ring_inputs(dev, k: int = 8, lanes: int = 3, seed: int = 0):
+    """Kernel 5's arguments at the ops-axis merge's shape: k carry
+    vectors of ``lanes`` int32 lanes on one card, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    return ([torch.randint(-2**31, 2**31 - 1, (lanes,), generator=g,
+                           dtype=torch.int32).to(dev) for _ in range(k)],)
+
+
+def child(root: str) -> dict:
+    """Kernels 3 and 4 of the package under ``root``, timed at the merge's
+    main-path inputs, and kernel 4 with seven value rows; kernel 1 at the
+    widths of :func:`kernel1_inputs`; kernel 5 at :func:`ring_inputs`."""
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.kernels import build
+    from crdt_graph_tpu_torch.ops import (fused_resolve, merge, mono_gather,
+                                          tour_scan)
+    mods = {"prefix_sums": (tour_scan, tour_scan.plain_prefix),
+            "monotone_gather": (mono_gather, mono_gather.plain_gather),
+            "plane_rows": (fused_resolve, fused_resolve.plain_rows),
+            "ring_exclusive": (tour_scan, tour_scan.plain_ring_exclusive)}
+    t0 = time.perf_counter()
+    build.load()
+    build_s = time.perf_counter() - t0
+    arrs = workloads.chain_workload(64, N_OPS)
+    seen = capture_calls(
+        lambda: merge.materialize(arrs, hints="exhaustive", device="cuda"),
+        [(tour_scan, "prefix_sums"), (mono_gather, "monotone_gather")])
     torch.cuda.synchronize()
     out = {"root": root, "build_s": build_s, "kernels": {}}
     vals, rid = seen["monotone_gather"][0]
-    cases = [(name, name, seen[name][0]) for name in mods]
+    cases = [(name, name, seen[name][0])
+             for name in ("prefix_sums", "monotone_gather")]
     cases.append(("monotone_gather_v7", "monotone_gather",
                   (torch.cat([vals, vals[:3]]), rid)))
+    cases += [(key, "plane_rows", args)
+              for key, args in kernel1_inputs("cuda").items()]
+    cases.append(("ring_exclusive", "ring_exclusive", ring_inputs("cuda")))
     for key, name, args in cases:
         mod, twin = mods[name]
         call = getattr(mod, name)
         got, want = call(*args), twin(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+        got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+        want = tuple(want) if isinstance(want, (tuple, list)) else (want,)
         rec = time_kernel(name, call, twin, args)
-        rec["equal_twin"] = all(torch.equal(g, w) for g, w in zip(got, want))
-        rec["shapes"] = [list(a.shape) for a in args]
+        rec["equal_twin"] = len(got) == len(want) and \
+            all(torch.equal(g, w) for g, w in zip(got, want))
+        rec["shapes"] = [list(a.shape) for a in args if hasattr(a, "shape")]
         out["kernels"][key] = rec
     return out
 

@@ -39,6 +39,8 @@ _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     # plane, R, C, idx, T, out, out2 (NULL = one hop), hop_col, stream
     "crdt_plane_rows": [_VP, _I64, _I64, _VP, _I64, _VP, _VP, _INT, _VP],
+    # C, aligned16, plan (int[4]: kernel 1's launch geometry)
+    "crdt_plane_rows_plan": [_I64, _INT, _VP],
     # boundary, out_b, T, weights, out_w, Kw, M, scratch, scratch_len
     # (8-byte words), stream
     "crdt_prefix_sums": [_VP, _VP, _I64, _VP, _VP, _I64, _I64, _VP, _I64,

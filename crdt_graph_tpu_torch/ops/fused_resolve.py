@@ -10,7 +10,8 @@ Each wrapper runs its CUDA kernel (``csrc/plane_rows.cu``, the port of
 the reference's Pallas ``fused_resolve._kernel`` / ``_kernel2``) on CUDA
 tensors and its plain PyTorch twin on CPU tensors — the twins are the
 statement of what the kernels compute (the reference's ``_lax_rows`` /
-``_lax_rows2``, JAX's index clamp included).
+``_lax_rows2``, JAX's index clamp included).  :func:`row_plan` states
+kernel 1's launch geometry as its C entry point chooses it.
 
 The span constants and :func:`halo_window_ok` serve the ops-axis
 sharded merge (``parallel.opsaxis``): its windowed plane gather reads,
@@ -23,12 +24,18 @@ from typing import Tuple
 import torch
 
 from .. import kernels
+from ..kernels import build
 from .indexing import take
 
 TILE = 1024           # the reference kernel's output rows per tile
 SPAN = TILE + 128     # plane rows its one-hop tile window holds
 HOP_J = 1152          # its second-hop locality bound
 SPAN2 = SPAN + 2 * HOP_J   # its two-hop window rows per tile
+
+# kernel 1's launch constants (csrc/plane_rows.cu, PLANE_ROWS_*)
+ROWS_THREADS = 256       # threads a block (PLANE_ROWS_THREADS)
+ROWS_PER_THREAD = 4      # rows in flight a thread (PLANE_ROWS_PER_THREAD)
+ROWS_VEC_BYTES = 16      # the wide access: two columns (PLANE_ROWS_VEC_BYTES)
 
 
 def halo_window_ok(idx: torch.Tensor, w: int, halo: int,
@@ -63,6 +70,20 @@ def plain_rows2(plane: torch.Tensor, idx: torch.Tensor,
     return g, torch.where((hop >= 0)[:, None], g2, 0)
 
 
+def row_plan(c: int, aligned16: bool) -> Tuple[int, int, int, int]:
+    """Kernel 1's launch geometry for a ``C``-column plane, as
+    ``crdt_plane_rows`` chooses it: (bytes an access, threads a row,
+    rows a block, rows a thread).  An access moves two columns when
+    ``C`` is even and ``aligned16`` (plane and output both start on
+    16-byte boundaries), else one; a row's thread ``x`` moves its chunks
+    ``x, x + threads, ...``."""
+    if c < 1:
+        raise ValueError(f"a plane has at least one column, not {c}")
+    vec = ROWS_VEC_BYTES if c % 2 == 0 and aligned16 else 8
+    threads = min(c // (vec // 8), ROWS_THREADS)
+    return vec, threads, ROWS_THREADS // threads, ROWS_PER_THREAD
+
+
 def _check(plane: torch.Tensor, idx: torch.Tensor) -> None:
     if plane.dtype != torch.int64 or plane.dim() != 2 or \
             not plane.is_contiguous() or plane.shape[0] < 1:
@@ -75,7 +96,6 @@ def _check(plane: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def _launch(plane, idx, hop_col):
-    from ..kernels import build
     _check(plane, idx)
     lib = build.load()
     r, c = plane.shape

@@ -19,6 +19,7 @@ sharded scans equal the whole ones bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import List, Sequence, Tuple
 
@@ -134,7 +135,7 @@ def ring_exclusive(vals: Sequence[torch.Tensor],
     vectors lie on CUDA devices (one launch, on shard 0's card, at most
     64 shards; shards on other cards are reached by peer access), the
     twin when they lie on the CPU.  Returns one [L] tensor per shard, on
-    that shard's device."""
+    that shard's device (on one card, the rows of one [k, L] tensor)."""
     if op not in RING_OPS:
         raise ValueError(f"unknown ring op {op!r}")
     if not vals:
@@ -158,22 +159,35 @@ def ring_exclusive(vals: Sequence[torch.Tensor],
     n = shape[0]
     launch = vals[0].device
     others = {x.device for x in vals} - {launch}
-    out = [torch.empty_like(x) for x in vals]
+    if others:
+        out = [torch.empty_like(x) for x in vals]
+    else:
+        # one card: the k results are the rows of one allocation
+        out = list(torch.empty((k, n), dtype=torch.int32, device=launch))
     if n == 0:
         return out
+    # host arrays of the k pointers (ctypes passes an array as its address)
+    args = ((ctypes.c_void_p * k)(*[x.data_ptr() for x in vals]),
+            (ctypes.c_void_p * k)(*[y.data_ptr() for y in out]),
+            k, n, RING_OPS.index(op))
+    if not others:
+        # the current stream's raw handle; the device context only when
+        # another card is current
+        here = launch.index is None or \
+            launch.index == torch.cuda.current_device()
+        with contextlib.nullcontext() if here else torch.cuda.device(launch):
+            build.check(lib.crdt_ring_exclusive(
+                *args, build.stream_ptr(launch)), "crdt_ring_exclusive")
+        kernels.launches["ring_exclusive"] += 1
+        return out
     stream = torch.cuda.current_stream(launch)
-    if others:
-        _enable_peers(lib, launch, others)
-        for d in others:
-            # the carries were written on their own cards' streams
-            stream.wait_stream(torch.cuda.current_stream(d))
-    src = (ctypes.c_void_p * k)(*[x.data_ptr() for x in vals])
-    dst = (ctypes.c_void_p * k)(*[y.data_ptr() for y in out])
+    _enable_peers(lib, launch, others)
+    for d in others:
+        # the carries were written on their own cards' streams
+        stream.wait_stream(torch.cuda.current_stream(d))
     with torch.cuda.device(launch):
-        build.check(lib.crdt_ring_exclusive(
-            ctypes.cast(src, ctypes.c_void_p),
-            ctypes.cast(dst, ctypes.c_void_p), k, n,
-            RING_OPS.index(op), stream.cuda_stream), "crdt_ring_exclusive")
+        build.check(lib.crdt_ring_exclusive(*args, stream.cuda_stream),
+                    "crdt_ring_exclusive")
     kernels.launches["ring_exclusive"] += 1
     for d in others:
         torch.cuda.current_stream(d).wait_stream(stream)

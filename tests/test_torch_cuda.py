@@ -135,6 +135,75 @@ def test_cuda_opsaxis_merge_equals_single_device(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", range(1, 22))
+def test_cuda_plane_rows_widths_views_and_edges(cuda, c):
+    """Kernel 1 equals its twin at width C on a 16-byte-aligned plane, on
+    a view one row in (8-byte aligned when C is odd) and on a view one
+    element in (8-byte aligned at every C), at T = 0, 1 and ragged, with
+    indices at -2^31, -R-5, R+99 and 2^31-1, and with the index a view at
+    an odd 4-byte offset; one launch a call with T > 0, none at T = 0."""
+    rng = np.random.default_rng(c)
+    r = 5003
+    base = _t(rng.integers(-2**63, 2**63 - 1, (r + 2) * c,
+                           dtype=np.int64)).to(cuda)
+    idx = rng.integers(0, r, 2 * 1024 + 7).astype(np.int32)
+    idx[1:7] = [-2**31, -r - 5, r + 99, 2**31 - 1, -1, -r]
+    ic = _t(idx).to(cuda)
+    kernels.reset_launches()
+    n = 0
+    for lo in (0, c, 1):
+        plane = base[lo:lo + r * c].view(r, c)
+        assert plane.is_contiguous()
+        for i in (ic[1:1], ic[1:2], ic[3:4], ic[:-2], ic[1:]):
+            got = tfr.plane_rows(plane, i)
+            want = tfr.plain_rows(plane.cpu(), i.cpu())
+            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                          err_msg=f"lo={lo} T={len(i)}")
+            n += len(i) > 0
+    torch.cuda.synchronize()
+    assert kernels.launches["plane_rows"] == n
+    assert sum(kernels.launches.values()) == n
+
+
+@pytest.mark.cuda
+def test_cuda_plane_rows_plan_equals_the_c_entry_point(cuda):
+    """``fused_resolve.row_plan`` is the launch geometry crdt_plane_rows
+    chooses, at every width up to past one block a row, both alignments."""
+    import ctypes
+    from crdt_graph_tpu_torch.kernels import build
+    lib = build.load()
+    plan = (ctypes.c_int * 4)()
+    for c in range(1, 1100):
+        for aligned in (True, False):
+            build.check(lib.crdt_plane_rows_plan(
+                c, int(aligned), ctypes.cast(plan, ctypes.c_void_p)),
+                "crdt_plane_rows_plan")
+            assert tuple(plan) == tfr.row_plan(c, aligned), (c, aligned)
+
+
+@pytest.mark.cuda
+def test_cuda_plane_rows_past_2_to_the_31_rows(cuda):
+    """A plane of 2^31 + 5 rows takes kernel 1's 64-bit index clamp: each
+    index reads the row JAX's rule names."""
+    r = 2**31 + 5
+    if torch.cuda.mem_get_info()[0] < 8 * r + (4 << 30):
+        pytest.skip("needs ~20 GB of free device memory")
+    plane = torch.empty((r, 1), dtype=torch.int64, device=cuda)
+    idx = [0, 7, 2**31 - 1, -1, -2, -2**31, -5]
+    rows = [i + r if i < 0 else i for i in idx]
+    plane[torch.tensor(rows, device=cuda), 0] = torch.tensor(
+        [1000 + j for j in range(len(rows))], device=cuda)
+    kernels.reset_launches()
+    got = tfr.plane_rows(plane, torch.tensor(idx, dtype=torch.int32,
+                                             device=cuda))
+    want = plane[torch.tensor(rows, device=cuda)]
+    assert torch.equal(got, want)
+    assert kernels.launches["plane_rows"] == 1
+    del plane
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_inputs(cuda):
     plane = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
     idx = torch.zeros(2, dtype=torch.int32, device=cuda)

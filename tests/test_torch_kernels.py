@@ -58,15 +58,26 @@ def _hop_plane(rng, r, c, hop_col, spread, neg_frac=0.2):
 
 # ---- kernel 1: plane_rows ------------------------------------------------
 
-@pytest.mark.parametrize("t,r,c,spread", [
-    (7, 5, 1, 2), (700, 700, 3, 40), (2050, 2050, 6, 40),
-    (2048, 8192, 4, None)], ids=["tiny", "local", "ragged", "shuffled"])
-def test_plane_rows_twin_matches_reference(t, r, c, spread):
-    rng = np.random.default_rng(t * 31 + r)
-    plane = rng.integers(-2**63, 2**63 - 1, (r, c), dtype=np.int64)
+@pytest.mark.parametrize("t,r,c,spread,view", [
+    (7, 5, 1, 2, False), (700, 700, 3, 40, False),
+    (2050, 2050, 6, 40, False), (2048, 8192, 4, None, False),
+    (2050, 2050, 17, 40, False), (1500, 4096, 21, None, False),
+    (9, 6, 1, 2, True), (700, 700, 3, 40, True), (2050, 2050, 6, 40, True),
+    (2050, 2050, 17, 40, True), (1500, 4096, 21, None, True)],
+    ids=["tiny", "local", "ragged", "shuffled", "c17", "c21",
+         "view-c1", "view-c3", "view-c6", "view-c17", "view-c21"])
+def test_plane_rows_twin_matches_reference(t, r, c, spread, view):
+    """C = 1, 3, 4, 6, 17 and 21; ``view``: the plane is a view one row
+    into a larger one (as the ops-axis windows are), which starts off a
+    16-byte boundary when C is odd."""
+    rng = np.random.default_rng(t * 31 + r + c)
+    full = rng.integers(-2**63, 2**63 - 1, (r + 1, c), dtype=np.int64)
+    plane = full[1:] if view else full[:r]
     idx = rng.permutation(r)[:t].astype(np.int32) if spread is None \
         else _local_idx(rng, t, r, spread)
-    got = tfr.plane_rows(_t(plane), _t(idx)).numpy()
+    arg = _t(full)[1:] if view else _t(plane)
+    assert arg.is_contiguous() and arg.storage_offset() == (c if view else 0)
+    got = tfr.plane_rows(arg, _t(idx)).numpy()
     want = np.asarray(jfr._lax_rows(jnp.asarray(plane), jnp.asarray(idx)))
     np.testing.assert_array_equal(got, want)
     # the Pallas kernel takes 0 <= idx < R (and its own fallback when the
@@ -87,6 +98,43 @@ def test_plane_rows_out_of_range_indices_clamp_like_jax():
     got = tfr.plane_rows(_t(plane), _t(idx)).numpy()
     want = np.asarray(jfr._lax_rows(jnp.asarray(plane), jnp.asarray(idx)))
     np.testing.assert_array_equal(got, want)
+
+
+def test_plane_rows_row_plan_matches_the_kernel_source():
+    """The plan's constants are csrc/plane_rows.cu's ``#define``s, and a
+    plane without columns raises."""
+    cu = _cu_defines("plane_rows.cu")
+    assert cu["PLANE_ROWS_THREADS"] == tfr.ROWS_THREADS
+    assert cu["PLANE_ROWS_PER_THREAD"] == tfr.ROWS_PER_THREAD
+    assert cu["PLANE_ROWS_VEC_BYTES"] == tfr.ROWS_VEC_BYTES
+    assert tfr.row_plan(2, True) == (cu["PLANE_ROWS_VEC_BYTES"], 1,
+                                     cu["PLANE_ROWS_THREADS"],
+                                     cu["PLANE_ROWS_PER_THREAD"])
+    with pytest.raises(ValueError):
+        tfr.row_plan(0, True)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned16",
+                                                        "aligned8"])
+@pytest.mark.parametrize("c", list(range(1, 22)) + [256, 511, 512, 1000])
+def test_plane_rows_row_plan_covers_each_column_once(c, aligned):
+    """Kernel 1's plan: the chunks of a row's threads cover every column
+    exactly once; the 16-byte access only when C is even and the row is
+    aligned; a block holds whole rows and at most its thread count."""
+    vec, threads, rows, per = tfr.row_plan(c, aligned)
+    assert (vec == 16) == (c % 2 == 0 and aligned)
+    assert vec in (8, 16)
+    cols_a_chunk = vec // 8
+    chunks = c // cols_a_chunk
+    assert chunks * cols_a_chunk == c
+    # thread x of the row moves chunks x, x + threads, ...
+    cover = [col for x in range(threads)
+             for j in range(x, chunks, threads)
+             for col in range(j * cols_a_chunk, (j + 1) * cols_a_chunk)]
+    assert sorted(cover) == list(range(c))
+    assert 1 <= threads <= tfr.ROWS_THREADS
+    assert threads * rows <= tfr.ROWS_THREADS < threads * (rows + 1)
+    assert per == tfr.ROWS_PER_THREAD
 
 
 # ---- kernel 2: plane_rows2 -----------------------------------------------
