@@ -50,6 +50,18 @@ after:
   write reads back before and after a restart, each document's
   ``/ops?since=0`` replays on a CPU replica to the served values.
 
+Right after the merge, the trace audit runs (its own counted path, the
+``audit`` phase): ``utils.chainaudit`` counts config 5's and the
+deletes batch's memory passes, kernel calls and host syncs by stage at
+full size on the card; at 65,536 ops the card's rows equal the CPU's;
+a ``torch.profiler`` trace of the same merges holds one CUDA kernel of
+each hand kernel's name per counted kernel call; the audited merge is
+timed against the plain one; ``opsaxis.audit_opsaxis`` runs config 5 in
+8 logical shards (kernel 5 the carry exchange); and a served document
+with ``GRAFT_OBS_AUDIT_EVERY=1`` takes one 65,536-op commit whose flight
+record must carry an ``ok`` audit of its own merge.  Its ``audit:``
+line carries the counts by stage and the audit's cost.
+
 Then the docs-axis batched merge (``parallel.mesh``) is timed at B = 1,
 4 and 16 documents beside the same documents merged one by one, and the
 fleet runs (a sixth counted path): one merge worker on the card
@@ -96,14 +108,17 @@ three hint legs, and each kernel, its twin and its library call by three
 clocks (``crdt_graph_tpu_torch/bench/kerneltime.py``): device time from
 the profiler, CUDA events, and host time a wrapper call; the kernel
 also with the L2 flushed before each call, the time its bound share is
-taken on.  Kernel 1 is also timed at two more widths (its ``widths``):
+taken on; beside each bound, the launch floor (a one-element add's
+time on that same cold clock, in the same call) and the bound that
+includes it, with its share of the kernel's cold time.  Kernel
+1 is also timed at two more widths (its ``widths``):
 C = 3 and C = 17, captured from unvouched 1M-op merges.  Exits
 non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times;
-the ``serve:``, ``mesh:``, ``fleet:``, ``bench:``, ``walshared:`` and
-``shmcache:`` lines carry the serving, batching, fleet, benchmark, WAL
+the ``audit:``, ``serve:``, ``mesh:``, ``fleet:``, ``bench:``,
+``walshared:`` and ``shmcache:`` lines carry the serving, batching, fleet, benchmark, WAL
 and shared-cache numbers with the card's name and
 power limit.
 The full record also goes to ``build/chip_smoke.json``
@@ -233,6 +248,278 @@ def fold_errors(record, errs):
     for kname, e in errs.items():
         rec = record["kernels"].setdefault(kname, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
+
+N_AUDIT = 65_536               # the audit's card == CPU size (the sampler's floor)
+AUDIT_SHARDS = 8               # the ops-axis audit's logical shards
+# the name each hand kernel's CUDA function carries in a profiler trace
+KERNEL_EVENTS = {"plane_rows": "plane_rows_kernel",
+                 "plane_rows2": "plane_rows2_kernel",
+                 "prefix_sums": "scan_lookback",
+                 "monotone_gather": "mono_gather_kernel",
+                 "ring_exclusive": "ring_exclusive_kernel"}
+
+
+def profiled_counts(fn):
+    """Run ``fn`` once under ``torch.profiler``: the CUDA kernel events
+    named after each hand kernel, and the device-to-host copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # the card's activity only, as kerneltime.device_ms's sessions:
+    # kernels and copies are device events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [ev.name for ev in prof.events()
+             if getattr(ev, "device_type", None) == cuda]
+    kern = {k: sum(1 for n in names if ev in n)
+            for k, ev in KERNEL_EVENTS.items()}
+    return ({k: n for k, n in kern.items() if n},
+            sum(1 for n in names if "Memcpy DtoH" in n), len(names))
+
+
+def profiled_audit():
+    """The main path's two 1M merges (config 5 and its deletes batch,
+    columns already on the card) run once each under ``torch.profiler``
+    in a child process (``chip_smoke.py --profiled-audit``): its CUDA
+    kernel events by hand kernel, device-to-host copies and device
+    events, by batch.  A child, because in one process the profiler
+    records no device events in sessions that start more than about a
+    minute after its first session, and the kernels' timing at the end
+    of this run needs its own."""
+    import subprocess
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--profiled-audit"], capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode:
+        raise RuntimeError(f"profiled audit child exited {r.returncode}: "
+                           f"{r.stderr[-2000:]}")
+    return {k: tuple(v) for k, v in
+            json.loads(r.stdout.strip().splitlines()[-1]).items()}
+
+
+def profiled_audit_child() -> int:
+    """``--profiled-audit``: the child side of :func:`profiled_audit`;
+    prints one JSON object."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from crdt_graph_tpu_torch import convert
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.kernels import build
+    from crdt_graph_tpu_torch.ops import merge
+    dev = torch.device(DEVICE)
+    build.load()
+    out = {}
+    for key, arrs, nd in (
+            ("config5", workloads.chain_workload(N_REPLICAS, N_OPS), True),
+            ("config5_deletes", workloads.chain_with_deletes(
+                N_OPS, DEL_EVERY, N_REPLICAS), False)):
+        cols = convert.ops_from_numpy(arrs, dev)
+        merge._materialize(cols, "exhaustive", dev, nd)
+        out[key] = profiled_counts(
+            lambda: merge._materialize(cols, "exhaustive", dev, nd))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def flight_audits(recorders, tag):
+    """The sampled chain audits of a phase's flight recorders (sampling
+    is on by default, every 64th commit at or above 65,536 ops): how
+    many records carry one, the recorders' audit failures, and each
+    sample's ``audit_sample`` stage (ms) and fast path.  Raises on an
+    audit failure or a failed sample."""
+    recs = [r for f in recorders for r in f.records() if r.audit is not None]
+    failures = sum(f.stats()["audit_failures"] for f in recorders)
+    bad = [r.audit for r in recs
+           if "sample_error" in r.audit or not r.audit.get("ok")]
+    if failures or bad:
+        raise RuntimeError(f"{tag}: {failures} sampled chain audits over "
+                           f"budget; {bad[:2]}")
+    return {"sampled": len(recs), "audit_failures": failures,
+            "audit_sample_ms": [r.stages_ms.get("audit_sample")
+                                for r in recs],
+            "fast_path": [r.audit["fast_path"] for r in recs],
+            "outer_syncs": [r.audit["outer_syncs"] for r in recs],
+            "deletes": [r.audit["deletes"] for r in recs]}
+
+
+def audit_phase(dev, record, adds, dels, card):
+    """The trace audit (``utils.chainaudit``) on the card: config 5 and
+    its deletes batch audited at full size; the same columns at
+    ``N_AUDIT`` ops audited on the card and on the CPU, every count
+    equal; the full-size merges run once more under ``torch.profiler``
+    (in a child process, :func:`profiled_audit`), whose kernel events
+    named after each hand kernel must equal the audit's
+    ``kernel_calls`` (device-to-host copies beside ``host_syncs``
+    are recorded); a merge's wall time with the audit against without;
+    ``opsaxis.audit_opsaxis`` at ``AUDIT_SHARDS`` logical shards (kernel
+    5's calls, its per-shard width within budget); and, with
+    ``GRAFT_OBS_AUDIT_EVERY=1``, one served document whose ``N_AUDIT``-op
+    commit's flight record must carry an ``ok`` audit and one with
+    deletes whose two sampled commits (the deletes batch, then adds
+    merged with its log) must too.  Every audit must be within its
+    budgets.  Returns the phase's kernel launches."""
+    import os
+
+    import torch
+
+    from crdt_graph_tpu_torch import convert, engine as engine_mod, kernels
+    from crdt_graph_tpu_torch.bench import honest, workloads
+    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.core.operation import Add, Batch
+    from crdt_graph_tpu_torch.obs import flight as flight_mod
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.parallel import opsaxis
+    from crdt_graph_tpu_torch.serve import ServingEngine
+    from crdt_graph_tpu_torch.utils import chainaudit
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    kernels.reset_launches()
+    small = {"config5": (workloads.chain_workload(N_REPLICAS, N_AUDIT), True),
+             "config5_deletes": (workloads.chain_with_deletes(
+                 N_AUDIT, DEL_EVERY, N_REPLICAS), False)}
+    prof = profiled_audit()
+    for key, (arrs, nd) in (("config5", (adds, True)),
+                            ("config5_deletes", (dels, False))):
+        a = chainaudit.audit_materialize(arrs, "exhaustive", nd, dev)
+        rec = {**a.summary(), "by_stage": a.by_stage()}
+        if not rec["ok"]:
+            raise RuntimeError(f"audit {key}: over its budgets: "
+                               f"{json.dumps(a.summary())}")
+        # the same merge under the profiler (in a child process: see
+        # profiled_audit), its kernel events against kernel_calls
+        kern, d2h, events = prof[key]
+        rec["profiler"] = {"kernel_events": kern, "d2h_copies": d2h,
+                           "device_events": events}
+        if kern != a.kernel_calls:
+            raise RuntimeError(f"audit {key}: profiler kernel events "
+                               f"{kern} != kernel_calls {a.kernel_calls}")
+        cols = convert.ops_from_numpy(arrs, dev)
+        # the audit's own cost: the merge with the mode against without
+        plain = honest.time_with_readback(
+            lambda: merge._materialize(cols, "exhaustive", dev, nd),
+            repeats=5)["p50_ms"]
+        def audited_merge():
+            with chainaudit.Audit():
+                return merge._materialize(cols, "exhaustive", dev, nd)
+        audited = honest.time_with_readback(audited_merge,
+                                            repeats=5)["p50_ms"]
+        rec["merge_ms"], rec["audited_merge_ms"] = plain, audited
+        del cols
+        # card == CPU at N_AUDIT ops
+        sm, snd = small[key]
+        on = chainaudit.audit_materialize(sm, "exhaustive", snd, dev)
+        off = chainaudit.audit_materialize(sm, "exhaustive", snd, "cpu")
+        if on.rows != off.rows:
+            i = next((i for i, (x, y) in enumerate(zip(on.rows, off.rows))
+                      if x != y), min(len(on.rows), len(off.rows)))
+            raise RuntimeError(
+                f"audit {key} at {N_AUDIT}: card rows differ from CPU rows "
+                f"at row {i}: {on.rows[i:i + 3]} vs {off.rows[i:i + 3]} "
+                f"({len(on.rows)} vs {len(off.rows)} rows)")
+        if not on.summary()["ok"]:
+            raise RuntimeError(f"audit {key} at {N_AUDIT}: over its "
+                               f"budgets: {json.dumps(on.summary())}")
+        rec[f"at_{N_AUDIT}"] = {**on.summary(), "by_stage": on.by_stage(),
+                                "card_equals_cpu": True}
+        out[key] = rec
+        log(f"audit {key} ({arrs['kind'].shape[0]} ops): "
+            f"{json.dumps(a.summary())}; by stage {json.dumps(a.by_stage())};"
+            f" profiler kernel events {kern}, device-to-host copies {d2h} "
+            f"(audit host_syncs {a.host_syncs}); at {N_AUDIT} ops card == "
+            f"cpu: {json.dumps(on.summary())}")
+    sh = opsaxis.audit_opsaxis(adds, k=AUDIT_SHARDS, device=dev)
+    out["opsaxis"] = sh
+    if not sh["ok"] or sh["collective_count"] < 1:
+        raise RuntimeError(f"ops-axis audit: {sh}")
+    # the flight sampler on a served document
+    flight_dir = ROOT / "build" / "audit_flight"
+    saved = os.environ.get("GRAFT_OBS_AUDIT_EVERY")
+    os.environ["GRAFT_OBS_AUDIT_EVERY"] = "1"
+    try:
+        rec = flight_mod.FlightRecorder(dump_dir=str(flight_dir))
+    finally:
+        if saved is None:
+            del os.environ["GRAFT_OBS_AUDIT_EVERY"]
+        else:
+            os.environ["GRAFT_OBS_AUDIT_EVERY"] = saved
+    eng = ServingEngine(flight=rec)
+    # a0: one config-5 commit; d0, a document with deletes: the deletes
+    # batch, then a wire batch of adds merged with its whole log (both
+    # run the merge's delete stage)
+    darrs = small["config5_deletes"][0]
+    n_del = darrs["kind"].shape[0]
+    last = int(darrs["ts"][N_AUDIT - 1])
+    adds_on = [Add(200 * 2**32 + c, (last if c == 1 else
+                                     200 * 2**32 + c - 1,), f"r{c}")
+               for c in range(1, N_AUDIT + 1)]
+    commits = [("a0", engine_mod.packed_since_bytes(
+                    packed_chain(small["config5"][0], N_AUDIT), 0)),
+               ("d0", engine_mod.packed_since_bytes(
+                    packed_chain(darrs, n_del), 0)),
+               ("d0", json_codec.dumps(Batch(tuple(adds_on))))]
+    try:
+        for doc, wire in commits:
+            accepted, _ = eng.submit(doc, wire)
+            if not accepted or not eng.flush(120):
+                raise RuntimeError(f"the sampled commit on {doc} did not "
+                                   "land")
+        n_vis = len(eng.get("d0").snapshot_view().visible_values())
+        got = {d: [r for r in rec.records() if r.doc_id == d]
+               for d in ("a0", "d0")}
+        fstats = rec.stats()
+    finally:
+        eng.close()
+    if n_vis != 2 * N_AUDIT - N_AUDIT // DEL_EVERY:
+        raise RuntimeError(f"d0 holds {n_vis} visible values")
+    sampled = got["a0"][-1].audit if got["a0"] else None
+    sampled_del = [r.audit for r in got["d0"]]
+    out["flight"] = {"audit": sampled,
+                     "stages_ms": got["a0"][-1].stages_ms if got["a0"]
+                     else None,
+                     "deletes_doc": sampled_del,
+                     "deletes_doc_stages_ms": [r.stages_ms
+                                               for r in got["d0"]],
+                     "audit_failures": fstats["audit_failures"]}
+    if not sampled or "sample_error" in sampled or not sampled.get("ok"):
+        raise RuntimeError(f"flight sampler: {sampled}")
+    if len(sampled_del) != 2 or fstats["audit_failures"] or any(
+            not a or "sample_error" in a or not a.get("ok")
+            or not a.get("deletes") for a in sampled_del):
+        raise RuntimeError(f"flight sampler, document with deletes: "
+                           f"{sampled_del} ({fstats['audit_failures']} "
+                           f"audit failures)")
+    launches = dict(kernels.launches)
+    for k in KERNELS:
+        if launches[k] < 1:
+            raise RuntimeError(f"the audit phase never launched {k}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    record["audit"] = out
+    c5 = out["config5"]
+    log("audit: " + json.dumps({
+        "card": card,
+        "config5": {k: c5[k] for k in ("device_ops", "fast_path",
+                                       "host_syncs", "hidden_syncs",
+                                       "kernel_calls", "loop_ops")},
+        "config5_by_stage": c5["by_stage"],
+        "config5_deletes": {k: out["config5_deletes"][k] for k in (
+            "device_ops", "fast_path", "host_syncs", "hidden_syncs",
+            "kernel_calls", "loop_ops")},
+        "config5_deletes_by_stage": out["config5_deletes"]["by_stage"],
+        "profiler_d2h": {k: out[k]["profiler"]["d2h_copies"]
+                         for k in ("config5", "config5_deletes")},
+        "merge_ms": {k: [out[k]["merge_ms"], out[k]["audited_merge_ms"]]
+                     for k in ("config5", "config5_deletes")},
+        "opsaxis": sh, "flight_audit": sampled,
+        "flight_audit_deletes_doc": [
+            {k: a[k] for k in ("fast_path", "budget", "ok", "legs",
+                               "deletes")} for a in sampled_del],
+        "phase_s": out["phase_s"]}))
+    return launches
+
 
 DEFAULT_CHUNK_OPS = 1 << 17    # the serving scheduler's chunk (serve/engine.py)
 N_HEAD = 800_000               # rows a replica bootstraps before the delta
@@ -1601,6 +1888,7 @@ def serve_phase(dev, record, twins, card):
         out["prom_families"] = len(fams)
         flight = c.json("GET", "/debug/flight")
         out["flight_records"] = len(flight["records"])
+        out["flight_audit"] = flight_audits([eng.flight], "serve")
         c.close()
         stop(srv, th)
 
@@ -1623,6 +1911,7 @@ def serve_phase(dev, record, twins, card):
             "commit_p50_ms": round(out["commit_p50_ms"], 3),
             "giant_commit_ms": round(out["giant_commit_ms"], 1),
             "cross_doc_batches": grouped, "batch_widths": widths,
+            "flight_audit": out["flight_audit"],
             "launches": launches}))
         log(f"serve: writer commits {n_commits}, p50 stage ms "
             + json.dumps({k: {n: round(v, 3) for n, v in d.items()}
@@ -2128,6 +2417,8 @@ def fleet_phase(dev, record, twins, card):
         out["verify_s"] = time.perf_counter() - t0
 
         records = [r for e in engines.values() for r in e.flight.records()]
+        out["flight_audit"] = flight_audits(
+            [e.flight for e in engines.values()], "fleet")
 
         def p50(key):
             v = [r.stages_ms[key] for r in records if key in r.stages_ms]
@@ -2184,6 +2475,7 @@ def fleet_phase(dev, record, twins, card):
         "remote_launch_p50_ms": out["remote_launch_p50_ms"],
         "acked_write_p50_ms": round(out["acked_write_p50_ms"], 3),
         "acked_write_p99_ms": round(out["acked_write_p99_ms"], 3),
+        "flight_audit": out["flight_audit"],
         "phase_s": round(out["phase_s"], 1), "launches": out["launches"]}))
     return out["launches"]
 
@@ -2297,6 +2589,13 @@ def bench_phase(dev, record, twins, card):
     if bad or not head["audit"]["ok"]:
         raise RuntimeError(f"runner rows not order-exact or audit failed: "
                            f"{bad} {head['audit']}")
+    # the trace audit's keys, with no error (the runner keeps a failed
+    # audit as an ``error`` to keep the row; here it fails the phase)
+    bad = {r["config"]: (r.get("chain_audit"), r.get("opsaxis"))
+           for r in rows if "error" in r.get("chain_audit", {"error": 0})
+           or "error" in r.get("opsaxis", {"error": 0})}
+    if bad:
+        raise RuntimeError(f"runner rows' trace audits: {bad}")
     out["runner"] = rows
     out["headline"] = head
 
@@ -2341,7 +2640,8 @@ def bench_phase(dev, record, twins, card):
         max_coalesce_width=rep["oracle"]["max_coalesce_width"],
         watch={k: rep["watch"][k] for k in (
             "watchers", "deliveries", "notifies", "heartbeats")},
-        ack_breakdown_ms=rep["ack_breakdown_ms"])
+        ack_breakdown_ms=rep["ack_breakdown_ms"],
+        flight_audit=flight_audits([eng.flight], "loadgen"))
     log("bench: " + json.dumps(dict(out["loadgen"], bench="loadgen",
                                     card=card)))
     if rep["errors"] or rep["violations"] or \
@@ -2654,6 +2954,8 @@ def walshared_phase(dev, record, twins, card):
             raise RuntimeError(f"shared stream: not one fsync a round "
                                f"covering its documents: {load}")
         fps = check_wal_docs(eng, writers)
+        shared["flight_audit"] = flight_audits([eng.flight],
+                                               "walshared shared")
         # ---- kill at post-fsync-pre-publish, recover --------------------
         doomed_ops = [Add(9 * 2**32 + i, ((9 * 2**32 + i - 1) if i > 1
                                           else 0,), f"x.{i}")
@@ -2707,6 +3009,8 @@ def walshared_phase(dev, record, twins, card):
         srv, th, perdoc, writers = wal_load(root / "perdoc", False, wire,
                                             None, record)
         check_wal_docs(srv.store, writers)
+        perdoc["flight_audit"] = flight_audits([srv.store.flight],
+                                               "walshared per-doc")
         srv.shutdown()
         srv.server_close()
         th.join(60)
@@ -2730,7 +3034,8 @@ def walshared_phase(dev, record, twins, card):
                     "ack_p50_ms": round(m["ack_p50_ms"], 1),
                     "ack_p99_ms": round(m["ack_p99_ms"], 1),
                     "writer_wall_s": round(m["writer_wall_s"], 2),
-                    "giant_commit_ms": round(m["giant_commit_ms"], 1)}
+                    "giant_commit_ms": round(m["giant_commit_ms"], 1),
+                    "flight_audit": m["flight_audit"]}
         log("walshared: " + json.dumps({
             "card": card, "shared": row(shared), "per_doc": row(perdoc),
             "staged_round": {k: shared["staged_round"][k]
@@ -2916,6 +3221,8 @@ def main(argv=None) -> int:
     import argparse
     import os
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profiled-audit", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument(
         "--route-on", action="store_true",
         help="set GRAFT_OPSAXIS=1 for the run: on a host with two or more "
@@ -2927,6 +3234,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    if opts.profiled_audit:
+        return profiled_audit_child()
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -3207,6 +3516,11 @@ def main(argv=None) -> int:
             raise RuntimeError(f"config {cid}: card differs from cpu in "
                                f"{bad}")
 
+    # ---- 4b. the trace audit (its own counted drive) -------------------
+    t0 = time.perf_counter()
+    audit_launches = audit_phase(dev, record, adds, dels, card)
+    record["phases"]["audit_s"] = time.perf_counter() - t0
+
     # ---- 5. the replica engine (its own counted drive) ----------------
     t0 = time.perf_counter()
     engine_launches = engine_phase(dev, record, twins)
@@ -3316,6 +3630,12 @@ def main(argv=None) -> int:
                 f"warm): " + json.dumps(
                     {v: round(t, 5) for v, t in variants.items()}))
         ratio = tk["library_ratio"]
+        rec.update({f: tk[f] for f in ("launch_floor_ms", "floor_bound_ms",
+                                        "floor_share")})
+        log(f"launch floor (one-element add, L2-cold clock) "
+            f"{tk['launch_floor_ms']:.5f} ms: {kname}'s bound with it "
+            f"{tk['floor_bound_ms']:.3e} ms, share of cold time "
+            f"{tk['floor_share']:.3f}")
         log(f"time {kname} {rec['timed_shapes']} (profiler device time, L2 "
             f"warm): kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, library "
             f"{'-' if l_ms is None else f'{l_ms:.4f}'} ms, kernel/library "
@@ -3360,19 +3680,24 @@ def main(argv=None) -> int:
             rec["widths"] = widths
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": launches[kname] + engine_launches[kname]
+                     "launches": launches[kname] + audit_launches[kname]
+                     + engine_launches[kname]
                      + dur_launches[kname] + ops_launches[kname]
                      + serve_launches.get(kname, 0)
                      + fleet_launches.get(kname, 0)
                      + bench_launches.get(kname, 0)
                      + wal_shm_launches.get(kname, 0),
                      "launches_wal_shm": wal_shm_launches.get(kname, 0),
+                     "launches_audit": audit_launches[kname],
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms,
                      "device_ms": k_ms, "cold_ms": c_ms,
                      "events_ms": tk["kernel"]["events_ms"],
                      "host_us": tk["kernel"]["host_us"],
+                     "launch_floor_ms": tk["launch_floor_ms"],
+                     "floor_bound_ms": tk["floor_bound_ms"],
+                     "floor_share": tk["floor_share"],
                      **({"widths": widths} if widths else {})})
     log(f"profiler sessions that recorded no device time and were taken "
         f"again: {kerneltime.empty_sessions}")

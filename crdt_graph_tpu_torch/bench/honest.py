@@ -24,6 +24,7 @@ which the card adds the terms cannot change the answer.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterable
 
@@ -83,14 +84,20 @@ def synchronize() -> None:
 
 def force(tree: Any) -> Any:
     """``tree`` with every tensor leaf copied to the host as a numpy
-    array (the copy waits for the stream that produces it).  Give a
-    timed function one stacked tensor to return, so this is one copy."""
+    array (the copy waits for the stream that produces it); a dataclass
+    (a ``NodeTable``) comes back as a copy with its fields forced.  Give
+    a timed function one stacked tensor to return, so this is one
+    copy."""
     if isinstance(tree, torch.Tensor):
         return tree.cpu().numpy()
     if isinstance(tree, (tuple, list)):
         return type(tree)(force(x) for x in tree)
     if isinstance(tree, dict):
         return {k: force(v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: force(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
     return tree
 
 

@@ -94,7 +94,10 @@ def events_ms(fn, reps: int = 20) -> float:
 
 
 # profiler sessions tried before device_ms gives up: a session now and
-# then hands back no device events at all for work that ran
+# then hands back no device events at all for work that ran.  Sessions
+# that start more than about a minute after the process's first
+# profiler session hand back none at all (NVIDIA H100, torch 2.11), so
+# a process keeps its profiler sessions together
 PROFILE_TRIES = 3
 # sessions that recorded no device time and were taken again, this process
 empty_sessions = 0
@@ -193,6 +196,13 @@ def bound_ms(nbytes: int, nops: int = 0):
                                  else "operations")
 
 
+def launch_floor_ms() -> float:
+    """The launch floor on the bound share's own clock: the cold time
+    (:func:`cold_ms`) of a one-element ``torch.add`` on the card."""
+    x = torch.ones(1, dtype=torch.int32, device="cuda")
+    return cold_ms(lambda: torch.add(x, x))
+
+
 def work_of(kname: str, args):
     """(bytes, operations) the kernel's function must do for these
     inputs: each input element it needs read once, each output written
@@ -284,8 +294,11 @@ def library_variants(kname: str, args) -> dict:
 
 def time_kernel(kname: str, call, twin, args) -> dict:
     """The kernel's, its twin's and its library call's clocks on
-    ``args``, with the bound, the bound share (bound over the kernel's
-    cold time) and the library ratio (by device time)."""
+    ``args``, with the bound (bytes and operations), the bound share
+    (bound over the kernel's cold time) and the library ratio (by device
+    time); and the bound with the launch floor measured in the same call
+    on the same cold clock (``launch_floor_ms``, ``floor_bound_ms``) and
+    its share of the kernel's cold time (``floor_share``)."""
     nb, nops = work_of(kname, args)
     b_ms, b_by = bound_ms(nb, nops)
     rec = {"kernel": clocks(lambda: call(*args), cold=True),
@@ -294,6 +307,11 @@ def time_kernel(kname: str, call, twin, args) -> dict:
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
     k_dev, l_dev = rec["kernel"]["device_ms"], rec["library"]["device_ms"]
     rec["bound_share"] = b_ms / rec["kernel"]["cold_ms"]
+    floor = launch_floor_ms()
+    # no launch takes less than the floor: the bound's third term
+    f_ms = max(b_ms, floor)
+    rec.update({"launch_floor_ms": floor, "floor_bound_ms": f_ms,
+                "floor_share": f_ms / rec["kernel"]["cold_ms"]})
     rec["library_ratio"] = k_dev / l_dev if l_dev else None
     return rec
 

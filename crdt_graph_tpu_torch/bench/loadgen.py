@@ -678,6 +678,9 @@ def run(cfg: Optional[LoadgenConfig] = None,
 def _run(cfg: LoadgenConfig, engine: ServingEngine,
          oracle: oracle_mod.SessionOracle, srv,
          harness: _Harness) -> Dict[str, Any]:
+    from ..parallel import opsaxis
+    # the report's shard audit samples the run's first sharded merge
+    opsaxis.arm_audit()
     sessions = [_Session(harness, i) for i in range(cfg.n_sessions)]
     # watchers start FIRST so the earliest generations are delivered
     # as notifies (parked wakes), not just resumes of history
@@ -939,8 +942,8 @@ def _run(cfg: LoadgenConfig, engine: ServingEngine,
             f for f in fams if f.startswith("crdt_oracle_")),
         "errors": errors[:8],
         "flight": engine.flight.stats(),
-        # ops-axis sharded-merge routing: the runtime counters (the
-        # shard audit of the last routed shape is not ported)
+        # ops-axis sharded-merge routing: the runtime counters plus
+        # the shard audit of the run's first routed merge
         "opsaxis": _opsaxis_report(),
         # disaggregated merge tier: route/fallback
         # counters, worker pool health, achieved widths — None when
@@ -992,7 +995,15 @@ def _aggregate_watch(engine) -> Dict[str, Any]:
 
 def _opsaxis_report():
     from ..parallel import opsaxis
-    return opsaxis.stats()
+    out = opsaxis.stats()
+    opsaxis.arm_audit(False)
+    try:
+        audit = opsaxis.audit_last()
+    except Exception as e:  # pragma: no cover - disclosure over failure
+        audit = {"error": repr(e)[:200]}
+    if audit is not None:
+        out["audit"] = audit
+    return out
 
 
 # -- fleet mode --------------------------------------------------------------

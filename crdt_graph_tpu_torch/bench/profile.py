@@ -14,7 +14,11 @@ line (also written to ``build/profile_merge.json``):
 - ``profile``: one ``torch.profiler`` window over three merges — device
   time summed by kernel name, launches per merge, and the device's busy
   and idle share of the window's wall time;
-- ``host_syncs``: predicate read-backs per merge.
+- ``host_syncs``: predicate read-backs per merge;
+- ``audit``: the trace audit (``utils.chainaudit``) of one more merge of
+  the same columns: device ops, memory passes, kernel calls and host
+  syncs (hidden ones too), by stage — the counts beside the profiler's
+  device times.
 
 Needs a CUDA device; it never falls back to the CPU.
 """
@@ -112,6 +116,9 @@ def run(n_ops: int, n_replicas: int, repeats: int = 7) -> dict:
         "top_kernels_us_per_merge": [(name[:90], us / n_prof)
                                      for name, us in top],
     }
+    from ..utils import chainaudit
+    audit = chainaudit.audit_materialize(arrs, "exhaustive", True, dev)
+    out["audit"] = {**audit.summary(), "by_stage": audit.by_stage()}
     return out
 
 

@@ -117,6 +117,25 @@ def time_merge(ops: Dict[str, np.ndarray], repeats: int = 5,
         "p50_minus_rtt_ms": max(stats["p50_ms"] - floor_ms, 0.0),
         "device": str(dev),
     }
+    # the trace audit (utils/chainaudit) of one more merge, outside the
+    # timed repeats: memory passes, kernel calls and host syncs against
+    # the budgets ride every row.  Never fatal: a row without an audit
+    # beats no row (the smoke run still fails on an ``error``).
+    try:
+        from ..utils import chainaudit
+        out["chain_audit"] = chainaudit.audit_summary(
+            ops, hints, no_deletes, dev)
+    except Exception as e:  # pragma: no cover - disclosure over failure
+        out["chain_audit"] = {"error": repr(e)[:200]}
+    # the ops-axis sharded merge's audit: per-shard width against the
+    # ceil(M/k) + halo budget, the carry exchange's bytes, the crowding
+    # leg — the same never-fatal policy
+    try:
+        from ..parallel import opsaxis
+        out["opsaxis"] = opsaxis.audit_opsaxis(
+            ops, hints=hints or "auto", device=dev)
+    except Exception as e:  # pragma: no cover - disclosure over failure
+        out["opsaxis"] = {"error": repr(e)[:200]}
     if expected_ts is not None:
         out["order_exact"] = bool(order_ok)
     if audit:

@@ -5,19 +5,18 @@ Every commit the scheduler resolves becomes one :class:`CommitRecord`:
 stage span breakdown (parse/fuse/merge/publish), batch composition
 (num_ops, coalesce width, chunk count), queue depth at admission,
 snapshot staleness at publish, result fingerprint, the member
-trace_ids, and an ``audit`` field.  The reference samples a chain
-audit (a jaxpr re-trace held to the TPU cost model) into every 64th
-commit; that audit has no counterpart here yet, so sampling is off:
-``audit_every`` is 0, :meth:`FlightRecorder.audit_due` is always False,
-and every record's ``audit`` is None.
+trace_ids, and — every Nth commit — a sampled
+:mod:`~crdt_graph_tpu_torch.utils.chainaudit` summary of its merge (its
+memory passes, kernel calls and host syncs held to the audit's budgets),
+which turns the budgets into a production tripwire.
 
 The ring is bounded (O(capacity) memory forever) and ``dump()`` writes
 it as JSONL for post-mortem.  Dumps trigger automatically on:
 
 - **SLO breach** — commit latency over ``slo_ms``
   (``GRAFT_SLO_MS``, default 1000 ms);
-- **audit failure** — a record whose ``audit`` says ``ok: false``
-  (never, while audit sampling is off);
+- **audit failure** — a sampled chain audit with ``ok: false`` (the
+  merge grew past its budgets in production);
 - **engine exception** — a commit that resolved with
   ``outcome: "error"`` (the scheduler survived, the evidence is on
   disk).
@@ -117,16 +116,9 @@ class FlightRecorder:
         self.dump_dir = dump_dir or os.environ.get(
             "GRAFT_FLIGHT_DIR") or os.path.join(
                 tempfile.gettempdir(), "crdt_flight")
-        # audit sampling is off: the chain audit it would run re-traces
-        # a jaxpr against the TPU cost model, which has no counterpart
-        # in this package yet (ROADMAP Queue 1 item 7).  Asking for it
-        # raises rather than recording a made-up audit.
+        # 0 disables audit sampling entirely
         self.audit_every = audit_every if audit_every is not None else \
-            _env_int("GRAFT_OBS_AUDIT_EVERY", 0)
-        if self.audit_every > 0:
-            raise NotImplementedError(
-                "chain-audit sampling (GRAFT_OBS_AUDIT_EVERY > 0) is not "
-                "ported yet: ROADMAP Queue 1 item 7")
+            _env_int("GRAFT_OBS_AUDIT_EVERY", 64)
         # batches below this width never sample: the chain budget is a
         # production-scale contract — small/padded traces legitimately
         # exceed it (compact tiers dominate a tiny threshold) and would
@@ -169,9 +161,14 @@ class FlightRecorder:
     # -- sampling ---------------------------------------------------------
 
     def audit_due(self, num_ops: int) -> bool:
-        """Always False: chain-audit sampling is not ported (ROADMAP
-        Queue 1 item 7), so no commit carries an audit."""
-        return False
+        """True when the NEXT recorded commit should carry a sampled
+        chain audit: every ``audit_every``th record, and only for
+        batches at or above ``audit_min_ops`` (see ``__init__`` — the
+        budget verdict is meaningless below production width)."""
+        if self.audit_every <= 0 or num_ops < self.audit_min_ops:
+            return False
+        with self._lock:
+            return self._records_total % self.audit_every == 0
 
     # -- recording --------------------------------------------------------
 

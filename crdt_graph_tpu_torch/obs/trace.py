@@ -177,10 +177,10 @@ class CommitTrace:
         # (serve/scheduler.py WAL batch mode): publish, ticket
         # resolution, and the flight record all happen at the barrier
         self.wal_deferred = False
-        # pipelined commits presample the chain audit on the
-        # SCHEDULER thread; the WAL-sync worker's record then uses the
-        # stored result instead of sampling inline (audit sampling is
-        # off in this package: obs/flight.py)
+        # the chain audit is sampled on the SCHEDULER thread (around a
+        # single commit's own merge, or at prepare time for a pipelined
+        # round); the record then uses the stored result instead of
+        # sampling inline
         self.audit_sampled = False
         self.audit_result: Optional[Dict] = None
         # batched-launch width this commit rode in (local cross-doc

@@ -25,6 +25,7 @@ import torch
 
 from .. import kernels
 from ..kernels import build
+from ..utils import chainaudit
 from .indexing import take
 
 TILE = 1024           # the reference kernel's output rows per tile
@@ -113,6 +114,7 @@ def _launch(plane, idx, hop_col):
     return out, out2
 
 
+@chainaudit.kernel_call
 def plane_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``plane[idx]``: the CUDA kernel on CUDA tensors, the twin on CPU
     tensors (any other device raises)."""
@@ -123,6 +125,7 @@ def plane_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _launch(plane, idx, None)[0]
 
 
+@chainaudit.kernel_call
 def plane_rows2(plane: torch.Tensor, idx: torch.Tensor,
                 hop_col: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two-hop sweep (see :func:`plain_rows2`): the CUDA kernel on

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..codec.packed import KIND_ADD, KIND_DELETE, MAX_TS
-from ..utils import hostenv
+from ..utils import chainaudit, hostenv
 from . import fused_resolve, mono_gather, tour_scan
 from .indexing import add_drop, min_drop, set_drop
 
@@ -100,6 +100,7 @@ def _read(x: torch.Tensor):
     """A 0-d predicate or count on the host (one counted sync)."""
     global host_syncs
     host_syncs += 1
+    chainaudit.note_read()
     return x.item()
 
 
@@ -151,11 +152,12 @@ def _fix_and(ok, ptr, cap: int):
     doubling with early exit and a static trip cap (reference
     ``_fix_and``)."""
     live, i = True, 0
-    while live and i < cap and _read(torch.any(~ok)):
-        ok = ok & ok[ptr]
-        ptr2 = ptr[ptr]
-        live = _read(torch.any(ptr2 != ptr))
-        ptr, i = ptr2, i + 1
+    with chainaudit.loop():
+        while live and i < cap and _read(torch.any(~ok)):
+            ok = ok & ok[ptr]
+            ptr2 = ptr[ptr]
+            live = _read(torch.any(ptr2 != ptr))
+            ptr, i = ptr2, i + 1
     return ok
 
 
@@ -163,11 +165,12 @@ def _fix_min(val, ptr, active: bool, cap: int):
     """MIN of ``val`` over self and every ancestor along ``ptr`` chains;
     skipped when ``active`` is false (reference ``_fix_min``)."""
     live, i = active, 0
-    while live and i < cap:
-        val = torch.minimum(val, val[ptr])
-        ptr2 = ptr[ptr]
-        live = _read(torch.any(ptr2 != ptr))
-        ptr, i = ptr2, i + 1
+    with chainaudit.loop():
+        while live and i < cap:
+            val = torch.minimum(val, val[ptr])
+            ptr2 = ptr[ptr]
+            live = _read(torch.any(ptr2 != ptr))
+            ptr, i = ptr2, i + 1
     return val
 
 
@@ -248,6 +251,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     (op_slot, op_is_dup, node_ts, node_pos, is_node_slot, node_row,
      pp_slot, at_slot, pp_found, at_found) = sel
     fused = node_ts is None
+    chainaudit.stage(2)
     single_w = no_deletes
 
     # ---- 3. Node frame: every per-node field is the canonical source
@@ -347,6 +351,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         acc = _acc(acc, local_ok, parent_ok, fp)
         if probe == 2:
             return acc
+    chainaudit.stage(3)
 
     # ---- 6. Validity cascades along the anchor forest; 6b. anchor
     # cycles (only when some anchor has a larger slot).
@@ -360,8 +365,9 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
                         (aslot != NULL) & (aslot >= slot_ids))
     if _read(up_edge):
         p = op_l
-        for _ in range(_ceil_log2(M) + 1):
-            p = p[p]
+        with chainaudit.loop():
+            for _ in range(_ceil_log2(M) + 1):
+                p = p[p]
         acyclic = (p == ROOT) | (p == NULL)
     else:
         acyclic = torch.ones(M, dtype=torch.bool, device=dev)
@@ -373,6 +379,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         acc = _acc(acc, valid, parent_eff)
         if probe == 3:
             return acc
+    chainaudit.stage(4)
 
     # ---- 7. Deletes (statically absent under the no-deletes promise):
     # the target's materialised path, depth and validity arrive in one
@@ -417,6 +424,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         acc = _acc(acc, deleted, dead, anc_del)
         if probe == 4:
             return acc
+    chainaudit.stage(5)
 
     # ---- 9. The order forest: each node's T* parent is the nearest node
     # on its anchor chain with a smaller slot — pointer-halving chase,
@@ -426,11 +434,13 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     mptr = mptr0
     nsv_cap = _ceil_log2(M) + 2
     i = 0
-    while i < nsv_cap and _read(torch.any((mptr >= 0) & (mptr > slot_ids))):
-        m = torch.where(mptr >= 0, mptr, NULL).long()
-        unresolved = (mptr >= 0) & (mptr > slot_ids)
-        mptr = torch.where(unresolved, mptr[m], mptr)
-        i += 1
+    with chainaudit.loop():
+        while i < nsv_cap and \
+                _read(torch.any((mptr >= 0) & (mptr > slot_ids))):
+            m = torch.where(mptr >= 0, mptr, NULL).long()
+            unresolved = (mptr >= 0) & (mptr > slot_ids)
+            mptr = torch.where(unresolved, mptr[m], mptr)
+            i += 1
     nsa_unresolved = (mptr >= 0) & (mptr > slot_ids)
     if probe == 41:
         return _acc(acc, mptr, nsa_unresolved)
@@ -439,14 +449,15 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         up0[ROOT] = ROOT
         ups, mns = [up0.long()], [up0]
         k_levels = _ceil_log2(M)
-        for _ in range(1, k_levels):
-            pu, pm = ups[-1], mns[-1]
-            ups.append(pu[pu])
-            mns.append(torch.minimum(pm, pm[pu]))
         cur = slot_ids.long()
-        for kk in reversed(range(k_levels)):
-            skip = nsa_unresolved & (mns[kk][cur] >= slot_ids)
-            cur = torch.where(skip, ups[kk][cur], cur)
+        with chainaudit.loop():
+            for _ in range(1, k_levels):
+                pu, pm = ups[-1], mns[-1]
+                ups.append(pu[pu])
+                mns.append(torch.minimum(pm, pm[pu]))
+            for kk in reversed(range(k_levels)):
+                skip = nsa_unresolved & (mns[kk][cur] >= slot_ids)
+                cur = torch.where(skip, ups[kk][cur], cur)
         ans = up0[cur]
         lifted = torch.where(ans == ROOT, -1, ans)
         mptr = torch.where(nsa_unresolved, lifted, mptr)
@@ -466,8 +477,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     skey = torch.where(in_forest, order_parent, NULL).to(torch.int32)
     neg_slot = torch.where(in_forest, -slot_ids, IPOS).to(torch.int32)
     S_CAP = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT)
-    crowd_hinted = fused and no_deletes and "crowd_slot" in ops and \
-        "crowd_cpos" in ops and hostenv.flag_on("GRAFT_CROWD_HINTS")
+    crowd_hinted = fused and _crowd_cols(ops, no_deletes)
     if S_CAP >= M:
         sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
     else:
@@ -577,6 +587,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         acc = _acc(acc, succ, sib_next, first_child)
         if probe == 5:
             return acc
+    chainaudit.stage(6)
 
     # ---- 11. Masks.
     exists = valid & is_node_slot
@@ -634,13 +645,14 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             run_terminal, 0, cse_vis[run_e1_c] - cse_vis[run_s_c])
         p = torch.clamp(run_next, max=w - 1).long()
         live, it, cap = True, 0, _ceil_log2(w) + 1
-        while live and it < cap:
-            a = a + a[p]
-            if b is not None:
-                b = b + b[p]
-            p2 = p[p]
-            live = _read(torch.any(p2 != p))
-            p, it = p2, it + 1
+        with chainaudit.loop():
+            while live and it < cap:
+                a = a + a[p]
+                if b is not None:
+                    b = b + b[p]
+                p2 = p[p]
+                live = _read(torch.any(p2 != p))
+                p, it = p2, it + 1
         out = min(w, M)
         per_run = torch.stack([
             run_fwd[:out].to(torch.int32),
@@ -683,6 +695,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         acc = _acc(acc, ex)
         if probe == 6:
             return acc
+    chainaudit.stage(7)
 
     # E(tok) = weight at-or-after tok along the chain; ranks read at
     # ENTER tokens (0..M-1).
@@ -979,6 +992,25 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
     return sorted_ops()
 
 
+def _crowd_cols(ops: Dict, no_deletes: bool) -> bool:
+    """The slot-hinted leg's crowd columns replace the sibling count:
+    no deletes, both columns present, ``GRAFT_CROWD_HINTS`` on."""
+    return no_deletes and "crowd_slot" in ops and "crowd_cpos" in ops \
+        and hostenv.flag_on("GRAFT_CROWD_HINTS")
+
+
+def crowding_hinted(ops: Dict, hints: Optional[str],
+                    no_deletes: bool) -> bool:
+    """True when the merge of these columns takes the crowding leg that
+    reads the host pre-pass columns (reference ``crowding_hinted``); the
+    count it replaces exists only on the compacted sibling branch
+    (``GRAFT_S_CAP`` below the slot count)."""
+    compacted = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT) < \
+        ops["kind"].shape[0] + 2
+    return select_leg(ops, hints) == "slot" and compacted and \
+        _crowd_cols(ops, no_deletes)
+
+
 def select_leg(ops: Dict, hints: Optional[str]) -> str:
     """The resolution leg the reference's trace takes for these columns
     and this hint mode: ``"slot"``, ``"rank"``, ``"link"`` or ``"join"``
@@ -1053,11 +1085,16 @@ def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
     leg = select_leg(ops, hints)
     t_ops = ops_from_numpy({k: ops[k] for k in LEG_COLS[leg] if k in ops},
                            dev)
-    if t_ops["kind"].shape[0] + 2 > 2**30:
+    n = t_ops["kind"].shape[0]
+    if n + 2 > 2**30:
         raise ValueError("op count exceeds the 2^30 - 2 slot space")
-    sel = _resolve(t_ops, hints, leg, part)
-    acc = _probe_sum(*(x for x in sel if x is not None)) \
-        if probe is not None else None
-    if probe == 1:
-        return acc
-    return _finish(t_ops, sel, no_deletes, probe, acc, part)
+    chainaudit.begin_merge(n, leg, not no_deletes)
+    try:
+        sel = _resolve(t_ops, hints, leg, part)
+        acc = _probe_sum(*(x for x in sel if x is not None)) \
+            if probe is not None else None
+        if probe == 1:
+            return acc
+        return _finish(t_ops, sel, no_deletes, probe, acc, part)
+    finally:
+        chainaudit.stage(0)

@@ -14,6 +14,7 @@ import torch
 
 from .. import kernels
 from ..kernels import build
+from ..utils import chainaudit
 from .indexing import jax_index
 
 
@@ -22,6 +23,7 @@ def plain_gather(values: torch.Tensor, rid: torch.Tensor) -> torch.Tensor:
     return values[:, jax_index(rid, values.shape[1])]
 
 
+@chainaudit.kernel_call
 def monotone_gather(values: torch.Tensor, rid: torch.Tensor) -> torch.Tensor:
     """``values[:, rid]``: the CUDA kernel on CUDA tensors, the twin on
     CPU tensors; any other device, and arguments the kernel does not

@@ -27,6 +27,7 @@ import torch
 
 from .. import kernels
 from ..kernels import build
+from ..utils import chainaudit
 
 SCAN_TILE = 4096   # elements per tile of csrc/prefix_sums.cu (SCAN_TILE)
 RING_MAX_SHARDS = 64   # csrc/ring_carry.cu (RING_MAX_SHARDS)
@@ -52,6 +53,7 @@ def scan_plan(t: int, kw: int, m: int) -> Tuple[int, int, int]:
     return tiles_b, tiles_w, 1 + tiles if tiles else 0
 
 
+@chainaudit.kernel_call
 def prefix_sums(boundary: torch.Tensor, weights: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inclusive prefix sums of i32 ``boundary[T]`` and of each row of
@@ -128,6 +130,7 @@ def _enable_peers(lib, launch: torch.device, devices) -> None:
             _peers_enabled.add(pair)
 
 
+@chainaudit.kernel_call
 def ring_exclusive(vals: Sequence[torch.Tensor],
                    op: str = "add") -> List[torch.Tensor]:
     """The exclusive ring exchange of k per-shard int32 [L] carry

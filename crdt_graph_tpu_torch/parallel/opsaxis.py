@@ -57,7 +57,7 @@ from ..codec import packed as packed_mod
 from ..ops import fused_resolve, merge as merge_mod, mono_gather, tour_scan
 from ..ops.indexing import add_drop, max_drop, min_drop, set_drop, take
 from ..ops.merge import NodeTable
-from ..utils import hostenv
+from ..utils import chainaudit, hostenv
 
 AXIS = "ops"
 
@@ -100,12 +100,11 @@ class OpsAxisPart:
 
     @contextlib.contextmanager
     def _on(self, i: int, like: torch.Tensor):
-        """Shard i's device (made current when it is a card)."""
+        """Shard i's device (made current when it is a card); the
+        trace audit marks what runs inside as the shard's."""
         dev = like.device if self.devices is None else self.devices[i]
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                yield dev
-        else:
+        with chainaudit.shard(), (torch.cuda.device(dev) if dev.type ==
+                                  "cuda" else contextlib.nullcontext()):
             yield dev
 
     def _local(self, arr: torch.Tensor, w: int, i: int,
@@ -329,6 +328,9 @@ class OpsAxisPart:
 
 _STATS = {"merges": 0, "devices": 0, "routed_ops": 0}
 _STATS_LOCK = threading.Lock()
+# the shard audit a reporter asked for (:func:`arm_audit`): whether the
+# next sharded merge runs under it, and the record of the last one
+_AUDIT = {"armed": False, "last": None}
 
 
 def mesh_devices() -> int:
@@ -353,27 +355,52 @@ def materialize(ops: Dict, k: Optional[int] = None, hints="auto",
     ``device``.  An op count that ``k`` does not divide pads to the next
     multiple (the padded rows ride the last shard), which widens the
     table exactly as padding before ``merge.materialize`` would."""
-    if hints not in merge_mod.HINT_MODES:
-        raise ValueError(f"unknown hints mode {hints!r}; expected None, "
-                         "'auto', 'exhaustive', or 'join'")
-    dev = merge_mod.resolve_device(device)
-    if k is None and dev.type == "cuda":
-        k = mesh_devices()
-        devices = [torch.device("cuda", i) for i in range(k)]
-    else:
-        k = mesh_devices() if k is None else k
-        devices = [dev] * k
-    cols = {c: _host(v) for c, v in ops.items()}
-    n = cols["kind"].shape[0]
-    n_pad = _ceil_div(n, k) * k
-    padded = packed_mod.pad_arrays(cols, n_pad) if n_pad != n else cols
-    no_deletes = merge_mod.host_no_deletes(padded["kind"])
+    run = _Sharded(ops, k, hints, device)
     with _STATS_LOCK:
         _STATS["merges"] += 1
-        _STATS["devices"] = k
-        _STATS["routed_ops"] += int(n)
-    return merge_mod._materialize(padded, hints, dev, no_deletes,
-                                  part=OpsAxisPart(k, devices))
+        _STATS["devices"] = run.k
+        _STATS["routed_ops"] += int(run.n)
+        # an armed audit samples this merge, unless an audit already
+        # runs on this thread (a sampled commit's): it waits for the next
+        sample = _AUDIT["armed"] and not chainaudit.running()
+        if sample:
+            _AUDIT["armed"] = False
+    if not sample:
+        return run.merge()
+    table, rec = _audit(run)
+    with _STATS_LOCK:
+        _AUDIT["last"] = rec
+    return table
+
+
+class _Sharded:
+    """One sharded merge's arguments, resolved: the padded host columns,
+    the width and the shards' devices."""
+
+    def __init__(self, ops: Dict, k: Optional[int], hints, device):
+        if hints not in merge_mod.HINT_MODES:
+            raise ValueError(f"unknown hints mode {hints!r}; expected "
+                             "None, 'auto', 'exhaustive', or 'join'")
+        self.hints = hints
+        self.dev = merge_mod.resolve_device(device)
+        if k is None and self.dev.type == "cuda":
+            k = mesh_devices()
+            self.devices = [torch.device("cuda", i) for i in range(k)]
+        else:
+            k = mesh_devices() if k is None else k
+            self.devices = [self.dev] * k
+        self.k = k
+        cols = {c: _host(v) for c, v in ops.items()}
+        self.n = cols["kind"].shape[0]
+        n_pad = _ceil_div(self.n, k) * k
+        self.cols = packed_mod.pad_arrays(cols, n_pad) \
+            if n_pad != self.n else cols
+        self.no_deletes = merge_mod.host_no_deletes(self.cols["kind"])
+
+    def merge(self) -> NodeTable:
+        return merge_mod._materialize(self.cols, self.hints, self.dev,
+                                      self.no_deletes,
+                                      part=OpsAxisPart(self.k, self.devices))
 
 
 # ---- the serving route (engine.py) ----------------------------------------
@@ -419,3 +446,61 @@ def stats() -> dict:
     out["min_ops"] = route_min_ops()
     out["halo_rows"] = HALO
     return out
+
+
+# ---- the trace audit of the sharded merge ---------------------------------
+
+def audit_opsaxis(ops: Dict, k: Optional[int] = None,
+                  hints="exhaustive", device=None) -> dict:
+    """The ops-axis record every bench row carries: one sharded merge of
+    ``ops`` (padded and placed as :func:`materialize` does, not counted
+    in :func:`stats`) run under the trace audit (``utils.chainaudit``) —
+    {devices, shard_width, shard_budget, halo_rows, collective_bytes,
+    collective_count, leg, ok}.  ``shard_width`` is the widest memory
+    pass inside any shard's window; ``ok`` holds it to ``shard_budget``
+    = ceil(M/k) + halo.  With one process driving every shard there are
+    no collectives: the carry exchange is kernel 5 (``ring_exclusive``),
+    and its calls and bytes are what ``collective_count`` and
+    ``collective_bytes`` report."""
+    return _audit(_Sharded(ops, k, hints, device))[1]
+
+
+def _audit(run: _Sharded):
+    """Run ``run``'s merge under the trace audit: its table and the
+    ``opsaxis`` record."""
+    with chainaudit.Audit(widest=run.cols["kind"].shape[0]) as a:
+        table = run.merge()
+    audit = a.result()
+    budget = _ceil_div(run.cols["kind"].shape[0] + 2, run.k) + HALO
+    return table, {
+        "devices": run.k,
+        "shard_width": audit.shard_width,
+        "shard_budget": budget,
+        "halo_rows": HALO,
+        "collective_bytes": audit.collective_bytes,
+        "collective_count": audit.collective_count,
+        "leg": "hinted" if merge_mod.crowding_hinted(
+            run.cols, run.hints, run.no_deletes) else "counted",
+        "ok": bool(audit.shard_width <= budget),
+    }
+
+
+def arm_audit(on: bool = True) -> None:
+    """Ask for the shard audit of the NEXT sharded merge in this process
+    (on any thread), forgetting the last one: that merge runs under the
+    trace audit, and :func:`audit_last` then returns its record.  One
+    merge is audited an arming, so a load run pays the audit's dispatch
+    cost once.  ``on=False`` withdraws the request."""
+    with _STATS_LOCK:
+        _AUDIT["armed"] = on
+        if on:
+            _AUDIT["last"] = None
+
+
+def audit_last() -> Optional[dict]:
+    """The ``opsaxis`` record (:func:`audit_opsaxis`'s keys) of the last
+    sharded merge audited after :func:`arm_audit` — what the load
+    generator's report attaches.  None when none was."""
+    with _STATS_LOCK:
+        last = _AUDIT["last"]
+    return None if last is None else dict(last)

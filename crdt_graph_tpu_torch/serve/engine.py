@@ -33,6 +33,7 @@ so every client reads its own writes.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -1067,16 +1068,31 @@ class ServingEngine:
                       ct: trace_mod.CommitTrace) -> None:
         """Finalize one commit's :class:`~crdt_graph_tpu_torch.obs.trace.
         CommitTrace` into the flight recorder: stamp the published
-        snapshot's seq + fingerprint (the ``audit`` field stays None:
-        audit sampling is off, obs/flight.py), and let the recorder fire
-        its dump triggers.  Never raises — observability must not take
-        down the scheduler."""
+        snapshot's seq + fingerprint, attach the sampled chain audit
+        every Nth commit, and let the recorder fire its dump triggers.
+        Never raises — observability must not take down the scheduler
+        (a failed audit sample is recorded, not propagated)."""
         if ct.outcome == "dropped":
             # injected dropped-ack fault (obs/oracle.py): the tickets
             # were acked but the commit intentionally left NO publish
             # and NO flight record — the oracle must find the hole
             self.counters.add("fault_dropped_commits")
             return
+        audit = None
+        if ct.audit_sampled:
+            # sampled on the scheduler thread: around the commit's own
+            # merge (audit_commit) or at prepare time (presample_audit)
+            # — the WAL-sync worker never runs an audit
+            audit = ct.audit_result
+        elif (ct.packed is not None and ct.outcome in
+                ("committed", "partial")
+                and self.flight.audit_due(ct.num_ops)):
+            audit = self._audit_second_merge(ct)
+        if isinstance(audit, dict):
+            # the summary carries the round's batched-launch width
+            # (local group size or the merge worker's cross-fleet
+            # width): shape and utilization evidence in ONE record
+            audit = {**audit, "batch_width": ct.batch_width}
         try:
             snap = doc.snapshot_view()
             self.flight.record({
@@ -1096,7 +1112,7 @@ class ServingEngine:
                 else round(ct.staleness_s, 4),
                 "snapshot_seq": snap.seq,
                 "fingerprint": snap.fingerprint(),
-                "audit": None,
+                "audit": audit,
                 "error": ct.error,
                 # persisted materialization: did the recovered doc's
                 # first read come off the artifact?  (None for
@@ -1143,13 +1159,59 @@ class ServingEngine:
             self.ledger.record_commit(ct.doc_id, seq, ct.trace_ids,
                                       durable_ms, ct.total_ms)
 
-    def presample_audit(self, ct: trace_mod.CommitTrace) -> None:
-        """Pipelined rounds sample the chain audit on the scheduler
-        thread at prepare time in the reference; audit sampling is off
-        here (obs/flight.py), so this only marks the commit sampled with
-        no result."""
+    @contextlib.contextmanager
+    def audit_commit(self, ct: trace_mod.CommitTrace):
+        """Around a single commit's own merge on the scheduler thread:
+        when the commit is due a sample (``flight.audit_due``), run the
+        block under the chain audit (thread-local: it counts this
+        thread's ops only) and keep the summary for
+        :meth:`record_commit`.  The audited merge is the commit's own —
+        no second merge; the audit's dispatch cost lands in the block's
+        stage (``merge``), the summary's assembly in ``audit_sample``.
+        A commit whose merge raises keeps no sample."""
         ct.audit_sampled = True
         ct.audit_result = None
+        if not self.flight.audit_due(ct.num_ops):
+            yield
+            return
+        from ..utils import chainaudit
+        with chainaudit.Audit() as a:
+            yield
+        try:
+            with ct.stage("audit_sample"):
+                ct.audit_result = a.result().summary()
+        except Exception as e:   # noqa: BLE001 — tripwire sampling
+            ct.audit_result = {"sample_error": repr(e)}
+
+    def _audit_second_merge(self, ct: trace_mod.CommitTrace) -> Dict:
+        """The sample of a commit whose merge was not audited in place
+        (a grouped or remote round): a second merge of its fused batch
+        on this engine's device, under the audit.  It runs on the
+        scheduler thread and stalls every queued commit while it does,
+        so it is billed as the visible ``audit_sample`` stage."""
+        from ..utils import chainaudit
+        try:
+            with ct.stage("audit_sample"):
+                return chainaudit.audit_packed_summary(ct.packed,
+                                                       self.device)
+        except Exception as e:   # noqa: BLE001 — tripwire sampling
+            # a failed SAMPLE is not an audit failure: record the error
+            # without an "ok" verdict (no dump trigger)
+            return {"sample_error": repr(e)}
+
+    def presample_audit(self, ct: trace_mod.CommitTrace) -> None:
+        """Pipelined rounds sample the chain audit on the SCHEDULER
+        thread at prepare time (never on the WAL-sync worker, never
+        concurrently with the scheduler's launches); :meth:`record_commit`
+        then uses the stored result."""
+        if ct.audit_sampled:
+            return
+        ct.audit_sampled = True
+        ct.audit_result = None
+        if (ct.packed is not None and ct.outcome in
+                ("committed", "partial")
+                and self.flight.audit_due(ct.num_ops)):
+            ct.audit_result = self._audit_second_merge(ct)
 
     # -- lifecycle / observability ---------------------------------------
 

@@ -553,7 +553,7 @@ class MergeScheduler(threading.Thread):
         n = fused.num_ops
         doc._commit_saved = doc.tree.begin_commit()
         try:
-            with ct.stage("merge"):
+            with self.engine.audit_commit(ct), ct.stage("merge"):
                 doc.tree.apply_packed_chunked(fused, self.engine.chunk_ops)
         except CRDTError:
             self._sequential(doc, tickets, ct)

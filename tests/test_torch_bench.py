@@ -72,8 +72,16 @@ def test_runner_row_equals_reference(cid, hints, monkeypatch):
     assert got["audit"]["ok"], got["audit"]
     assert got["p50_ms"] > 0 and got["ops_per_sec"] > 0
     assert got["dispatch_overhead_ms"] > 0
-    # the reference's audit keys that wait on the trace audit's port
-    assert "chain_audit" not in got and "opsaxis" not in got
+    # the trace audit's keys: the reference's record shapes, the
+    # reference's crowding leg, and no error
+    ca = got["chain_audit"]
+    assert "error" not in ca, ca
+    assert {"fast_path", "static", "budget", "ok"} <= set(ca)
+    assert ca["crowding_leg"] == want["opsaxis"]["leg"]
+    assert ca["merges"] == 1 and ca["device_ops"] > 0
+    assert set(got["opsaxis"]) == set(want["opsaxis"]), got["opsaxis"]
+    assert got["opsaxis"]["leg"] == want["opsaxis"]["leg"]
+    assert got["opsaxis"]["ok"], got["opsaxis"]
 
 
 CRDT = types.SimpleNamespace(

@@ -780,6 +780,8 @@ def test_cuda_runner_rows_config1_and_config5(cuda):
         assert r["device"].startswith("cuda"), r
         assert r["order_check"] == "exact", r
         assert r["audit"]["ok"], r["audit"]
+        assert "error" not in r["chain_audit"], r["chain_audit"]
+        assert "error" not in r["opsaxis"], r["opsaxis"]
     assert rows[1]["n_ops"] == rows[1]["num_visible"] == 1_000_000
     assert kernels.launches["prefix_sums"] > 0
     assert kernels.launches["monotone_gather"] > 0
@@ -890,3 +892,54 @@ def test_cuda_shmcache_attach_between_engines(cuda, monkeypatch):
     left = [f for f in os.listdir("/dev/shm")
             if ns in f and not f.endswith(".manifest")]
     assert left == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deletes", [False, True])
+def test_cuda_chain_audit_card_equals_cpu(cuda, deletes):
+    """The trace audit counts the same rows on the card as on the CPU at
+    the sampler's floor (65,536 ops), config 5 and its deletes batch: a
+    kernel call is one row on both, the card's syncs are the CPU's, and
+    both are within their budgets."""
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.utils import chainaudit
+    n = 65_536
+    arrs = workloads.chain_with_deletes(n, 16, 64) if deletes else \
+        workloads.chain_workload(64, n)
+    on = chainaudit.audit_materialize(arrs, "exhaustive", not deletes, cuda)
+    off = chainaudit.audit_materialize(arrs, "exhaustive", not deletes,
+                                       "cpu")
+    assert on.rows == off.rows
+    assert on.summary() == off.summary()
+    assert on.summary()["ok"], on.summary()
+    assert on.kernel_calls["prefix_sums"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_chain_audit_kernel_calls_equal_profiler_events(cuda):
+    """Each kernel call the audit counts is one CUDA kernel of that name
+    in a ``torch.profiler`` trace of the same merge."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdt_graph_tpu_torch import convert
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.utils import chainaudit
+    events = {"plane_rows": "plane_rows_kernel",
+              "plane_rows2": "plane_rows2_kernel",
+              "prefix_sums": "scan_lookback",
+              "monotone_gather": "mono_gather_kernel"}
+    arrs = workloads.chain_with_deletes(262_144, 16, 64)
+    audit = chainaudit.audit_materialize(arrs, "exhaustive", False, cuda)
+    cols = convert.ops_from_numpy(arrs, cuda)
+    merge._materialize(cols, "exhaustive", cuda, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        merge._materialize(cols, "exhaustive", cuda, False)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if getattr(ev, "device_type", None) ==
+             torch.autograd.DeviceType.CUDA]
+    got = {k: sum(1 for nm in names if ev in nm) for k, ev in events.items()}
+    assert {k: v for k, v in got.items() if v} == audit.kernel_calls

@@ -63,9 +63,9 @@ JOIN_S = 30.0
 
 @pytest.fixture(autouse=True)
 def _serving_env(monkeypatch):
-    """Audit sampling off in both packages (the port has none), so flight
-    records compare; the npz zip clock frozen, so snapshot bytes do; no
-    crash site armed."""
+    """Audit sampling off in both packages (their audits differ), so
+    flight records compare; the npz zip clock frozen, so snapshot bytes
+    do; no crash site armed."""
     monkeypatch.setenv("GRAFT_OBS_AUDIT_EVERY", "0")
     monkeypatch.setattr(zipfile, "time", types.SimpleNamespace(
         time=lambda: 1_700_000_000.0, localtime=time.localtime))
@@ -606,9 +606,9 @@ def test_prom_parses_and_unported_switches_raise(tmp_path, monkeypatch):
     finally:
         eng.close()
     monkeypatch.delenv("GRAFT_SHMCACHE")
+    # the chain-audit sampler is ported: a positive period arms it
     monkeypatch.setenv("GRAFT_OBS_AUDIT_EVERY", "64")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tflight.FlightRecorder()
+    assert tflight.FlightRecorder().audit_every == 64
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TEngine(start=False)

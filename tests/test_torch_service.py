@@ -261,6 +261,20 @@ def _parked(pair, doc, n=1):
     raise AssertionError(f"no watcher of {doc!r} parked")
 
 
+def _released(pair, doc):
+    """Wait until every watch slot of ``doc`` is released on each
+    server: a handler (or the reactor, for a parked watcher) releases
+    its slot after the response is sent, so a client can read the
+    response first."""
+    deadline = time.monotonic() + PARK_S
+    while time.monotonic() < deadline:
+        if all(s.engine.get(doc).watch.counts()["registered"] == 0
+               for s in pair):
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"a watch slot of {doc!r} was never released")
+
+
 def _watch_both(pair, path, trace):
     """Start one watch request on each server, each in its own thread;
     returns a function that joins them and gives both results."""
@@ -328,8 +342,7 @@ def test_watch_long_poll_is_byte_identical(watch_pair):
                      headers={"If-None-Match": caught_up,
                               "X-Session-Id": SESSION})
     assert h["X-Watch-Event"] == "resume"
-    assert all(s.engine.get("w").watch.counts()["registered"] == 0
-               for s in pair)
+    _released(pair, "w")
 
 
 def test_watch_sse_stream_is_byte_identical(watch_pair):
