@@ -82,10 +82,10 @@ the ``bench`` phase): ``bench.runner`` over configs 1-8 at full size
 and the config-5 headline, the editor's per-op latency and bulk deltas
 (``bench.incremental`` on ``models.TextBuffer``), the in-process
 serving bench, and the oracle-checked load generator against a durable
-server (64 sessions, 8 watchers, a 262,144-op giant) and a three-node
-fleet; every row is order-exact with its timing audit ok, both load
-runs have zero violations, and every kernel call of the benches is
-held to its twin.
+server (64 sessions, 8 watchers, a 262,144-op giant; the three-node
+fleet's load generator runs in the headline phase); every row is
+order-exact with its timing audit ok, the load run has zero violations,
+and every kernel call of the benches is held to its twin.
 
 Then the serving tier's host-side durability and cache run on the card
 (the eighth and ninth counted paths, one launch column): the
@@ -99,6 +99,26 @@ a document for the same numbers; the ``shmcache`` phase serves config 5
 from this process and a child ``python -m crdt_graph_tpu_torch.service``
 in one shared-memory namespace: identical bodies, one encode on the
 host, no segment left.
+
+Then the headline entry points run (the tenth counted path, the
+``headline`` phase): every module of ``crdt_graph_tpu_torch.scripts``
+through its own ``run(...)`` with no ``device=``, at the reference's
+widths (1M-op documents, the 140,000-op serve giant, 12-leaf deltas,
+1,000 watchers, 64-document shapes) and a cut depth, every kernel call
+held to its twin; zero violations, equal fingerprints, no merge-tier
+fallback, readpath's and broadcast's two legs byte-identical and every
+acked write read back fail the phase, and the references' speed gates
+are reported with their verdicts on its ``headline:`` line.
+
+The ``walshared`` and ``headline`` phases run in a child process
+(``chip_smoke.py --side-phases DIR``, started once the kernels are
+built) beside this process's phases, both on the one card: the phases
+are bound by their hosts' Python, not by the card, and run in series
+they outlast the script's time.  Each process counts its own launches
+(each phase from zero) and holds its own kernel calls to their twins;
+the child's lines, record and launch counts join this process's once
+it ends, before the kernels are timed alone on the card.  Phase seconds
+of the two processes overlap and are not comparable with a serial run.
 
 With ``--route-on`` the engine's and the durable replicas' bulk merges
 of 2^18 rows or more take the ops-axis route (off by default) where the
@@ -118,9 +138,9 @@ package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches (all paths), errors and times;
 the ``audit:``, ``serve:``, ``mesh:``, ``fleet:``, ``bench:``,
-``walshared:`` and ``shmcache:`` lines carry the serving, batching, fleet, benchmark, WAL
-and shared-cache numbers with the card's name and
-power limit.
+``walshared:``, ``shmcache:`` and ``headline:`` lines carry the serving,
+batching, fleet, benchmark, WAL, shared-cache and headline numbers with
+the card's name and power limit.
 The full record also goes to ``build/chip_smoke.json``
 (``build/chip_smoke_route_on.json`` with ``--route-on``).
 """
@@ -2487,8 +2507,6 @@ BENCH_BULK_DELTAS = (1_000, 10_000)
 BENCH_SERVE = (4, 5.0, 100_000)     # serving.run: docs, seconds, bootstrap
 LOADGEN_SHAPE = dict(n_sessions=64, writes_per_session=12, delta_size=12,
                      n_docs=4, n_watchers=8, giant_ops=262_144)
-FLEET_SHAPE = dict(n_servers=3, n_sessions=24, writes_per_session=6,
-                   delta_size=12, n_docs=4, giant_ops=65_536)
 
 
 def bench_phase(dev, record, twins, card):
@@ -2506,10 +2524,11 @@ def bench_phase(dev, record, twins, card):
     - ``bench.loadgen.run`` against a durable server: 64 sessions × 12
       writes × 12 leaves over 4 documents, 8 watchers and a 262,144-op
       giant racer; zero oracle violations, no errors, every acked leaf
-      merged, a coalesced commit of width >= 2;
-    - ``bench.loadgen.run_fleet`` on 3 servers: 24 sessions × 6 writes ×
-      12 leaves over 4 documents and a 65,536-op giant; zero
-      violations, no errors, every document converged.
+      merged, a coalesced commit of width >= 2.
+
+    ``bench.loadgen.run_fleet`` is driven by the headline phase's
+    ``bench_fleet_headline`` (three servers, a kill, every document
+    converged), not here.
 
     Every kernel call of the benches is recorded and held to its twin
     afterwards (a device copy of its arguments and result; nothing runs
@@ -2653,30 +2672,6 @@ def bench_phase(dev, record, twins, card):
                            f"{rep['leaves_acked']} leaves acked")
     if rep["oracle"]["max_coalesce_width"] < 2:
         raise RuntimeError("loadgen: no coalesced commit of width >= 2")
-
-    fcfg = loadgen.LoadgenConfig(seed=9, **FLEET_SHAPE)
-    frep = checked("loadgen_fleet", lambda: loadgen.run_fleet(fcfg))
-    fleet_keys = ("servers", "sessions", "docs", "writes_acked",
-                  "leaves_acked", "load_wall_s", "ops_per_sec",
-                  "read_primary_p50_ms", "read_primary_p99_ms",
-                  "read_replica_p50_ms", "read_replica_p99_ms",
-                  "lag_probes", "lag_censored", "lag_p50_s", "lag_p99_s",
-                  "shed_429", "retry_409", "read_refused_503")
-    out["fleet"] = {k: frep[k] for k in fleet_keys}
-    out["fleet"].update(violations=len(frep["violations"]),
-                        errors=frep["errors"],
-                        converged=sorted(frep["converged"]),
-                        giant=frep["giant"])
-    log("bench: " + json.dumps(dict(out["fleet"], bench="loadgen_fleet",
-                                    card=card)))
-    if frep["errors"] or frep["violations"] or \
-            frep["oracle"]["violations_total"]:
-        raise RuntimeError(f"fleet loadgen: errors {frep['errors']}, "
-                           f"violations {frep['violations'][:4]}")
-    want_docs = {f"load{i}" for i in range(fcfg.n_docs)}
-    if set(frep["converged"]) != want_docs:
-        raise RuntimeError(f"fleet loadgen: converged "
-                           f"{sorted(frep['converged'])}")
 
     launches = dict(kernels.launches)
     for k in MERGE_KERNELS:
@@ -3200,6 +3195,434 @@ def shmcache_phase(dev, record, card):
     return out["launches"]
 
 
+# the headline phase's depth: each entry point at the reference's widths
+# (12-leaf deltas, 1M-op documents, the 140,000-op serve giant, 1,000
+# watchers, 64-document shapes) with fewer sessions, writes and rounds
+HL_SERVE = dict(n_sessions=32, writes_per_session=3)      # 200 x 24
+HL_WAL = dict(writes_per_session=3, rounds=1)             # 12, 3 rounds
+HL_PIPELINE = dict(writes_per_session=1, rounds=1)        # 6, 3 rounds
+# coldpath's and storfloor's 64 documents get 2 sessions each writing
+# once (the reference: 1 session a document writing 4 and 8 times), so
+# their staged first rounds coalesce at once instead of waiting out the
+# load generator's 30 s staging deadline for a second write
+HL_COLDPATH = dict(restore_rounds=1, fleet_sessions=128, fleet_writes=1,
+                   fleet_rounds=1)                        # 2, 64 x 4, 2
+HL_STORFLOOR = dict(n_sessions=128, writes_per_session=1,
+                    rounds=1)                             # 64 x 8, 3
+HL_MERGETIER = dict(rounds=1)                             # 2 rounds
+# bench_mergetier_headline's module shape: 2 documents a front-end with
+# 2 sessions each (the reference: 4 with 1, whose staged first round
+# waits out the load generator's 30 s deadline on every leg), 1 write
+HL_MERGETIER_SHAPE = dict(N_DOCS=2, SESSIONS_PER_DOC=2,
+                          WRITES_PER_SESSION=1)
+HL_FLEET = dict(n_sessions=12, writes_per_session=3)      # 60 x 10
+HL_VISIBILITY = dict(n_sessions=12, writes_per_session=3)  # 36 x 8
+HL_FANOUT = dict(rounds=1)                                # 3 rounds
+HL_FANOUT_WALL_S = 2.0                                    # 4 s a leg
+HL_OPSAXIS = dict(repeats=1)                              # 3 repeats
+HL_SLO = dict(reps=12)                                    # 60 a size
+HL_SOAK = 6                                               # 60 sessions
+HL_READPATH = dict(rounds=1)                              # 3 rounds
+HL_READPATH_WRITES = 3                                    # 10 a session
+# bench_broadcast_headline's own knobs (its BB_* environment): one
+# repeat of one round at the reference's populations
+HL_BROADCAST_ENV = {"BB_REPEATS": "1", "BB_ROUNDS": "1",  # 2 and 3
+                    "BB_BIG_WATCHERS": "3000"}            # 10,000
+
+
+def headline_phase(dev, record, twins, card):
+    """The port's headline entry points (``crdt_graph_tpu_torch.scripts``)
+    on the card, each through its own ``run(...)`` with no ``device=``
+    (the card is the default), at the reference's widths and a cut depth
+    (the ``HL_*`` constants; every cut is in the line's ``reduced``).
+
+    Every kernel call of each entry point is recorded and held to its
+    twin afterwards, as in the bench phase.  The correctness gates fail
+    the phase: zero oracle violations and no errors; fingerprints equal
+    (the oplog and cold-path originals against their restores, the
+    ops-axis sharded merge against the single merge); no merge-tier
+    fallback; readpath's and broadcast's two legs byte-identical; every
+    acked write read back (the load generator's oracle, the SLO
+    document's values, the served log of the end-to-end ``POST``).  The
+    speed gates the references keep (ratios set on the CPU) are reported
+    as data with their verdicts: an entry point whose speed gate alone
+    fails raises ``SpeedGateFailed`` after writing its output and after
+    its own correctness checks passed, and the phase reads the output
+    back and holds its correctness fields too.  Every output that
+    carries ``flight_audit`` is held to zero sampled audits over budget.
+    Returns the kernel launches of the drive."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    from crdt_graph_tpu_torch import kernels
+    from crdt_graph_tpu_torch.scripts._headline import SpeedGateFailed
+
+    names = ("serve_smoke", "bench_serve_headline", "bench_wal_headline",
+             "bench_pipeline_headline", "bench_oplog_headline",
+             "bench_coldpath_headline", "bench_storfloor",
+             "bench_mergetier_headline", "bench_fleet_headline",
+             "bench_visibility_headline", "bench_fanout_headline",
+             "bench_opsaxis_headline", "bench_service_e2e",
+             "bench_egress", "bench_slo", "soak", "bench_readpath",
+             "bench_broadcast_headline")
+    saved = {k: os.environ.get(k) for k in HL_BROADCAST_ENV}
+    os.environ.update(HL_BROADCAST_ENV)
+    try:
+        mods = {n: importlib.import_module(f"crdt_graph_tpu_torch.scripts.{n}")
+                for n in names}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    t_phase = time.perf_counter()
+    out = {"card": card, "twin_calls": {}, "seconds": {}, "entry": {}}
+    errs_all = {}
+
+    def checked(name, fn, out_file=None):
+        """Run ``fn`` with every kernel call recorded and held to its
+        twin.  An entry point that wrote ``out_file`` and then raised
+        ``SpeedGateFailed`` (its speed gate alone missed; every other
+        check of the run passed) returns that output with
+        ``gate_raised`` set; any other raise fails the phase.  An output
+        that carries ``flight_audit`` must show no sampled audit over
+        budget."""
+        got = {}
+
+        def body():
+            try:
+                got["r"] = fn()
+            except SpeedGateFailed as e:
+                if out_file is None:
+                    raise
+                got["gate"] = e
+
+        t0 = time.perf_counter()
+        if out_file is not None:
+            Path(out_file).unlink(missing_ok=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            caught = capture_inputs(body, wrapper_modules())
+        out["seconds"][name] = time.perf_counter() - t0
+        if "gate" in got:
+            if not Path(out_file).exists():
+                raise got["gate"]
+            got["r"] = dict(json.loads(Path(out_file).read_text()),
+                            gate_raised=repr(got["gate"])[:300])
+            need(not got["r"]["gate"]["pass"],
+                 f"{name}: SpeedGateFailed with its gate passing")
+        errs = twin_errors(caught, twins)
+        for k, e in errs.items():
+            errs_all[k] = max(errs_all.get(k, 0.0), e)
+        for k, v in caught.items():
+            out["twin_calls"][k] = out["twin_calls"].get(k, 0) + len(v)
+        del caught
+        if any(e != 0 for e in errs.values()):
+            raise RuntimeError(f"{name}: kernel calls differ from their "
+                               f"twins: {errs}")
+        fa = got["r"].get("flight_audit") if isinstance(got["r"], dict) \
+            else None
+        need(not (fa or {}).get("failures"),
+             f"{name}: sampled audits over budget {fa}")
+        return got["r"]
+
+    def outfile(name):
+        return str(ROOT / "build" / "headline" / f"BENCH_{name.upper()}.json")
+
+    def need(cond, what):
+        if not cond:
+            raise RuntimeError(f"headline: {what}")
+
+    entry = out["entry"]
+    kernels.reset_launches()
+
+    # 1. serve_smoke: every leg at its own (reference) size
+    m = mods["serve_smoke"]
+    s1 = checked("serve_smoke", lambda: m.run())
+    s2 = checked("serve_smoke_fleet", lambda: m.run_fleet())
+    s3 = checked("serve_smoke_fleet_procs", lambda: m.run_fleet_procs())
+    s4 = checked("serve_smoke_mergetier", lambda: m.run_mergetier())
+    need(s2["writes"] == 6 and s2["cross_server_ryw"] == 6
+         and s2["fleet0"]["visible"] == 15, f"serve_smoke fleet {s2}")
+    need(s3["misses"] == 4 and s3["hits"] == 8, f"shm ledger {s3}")
+    need(s4["fallbacks"] == {} and s4["batch_width_max"] == 3,
+         f"serve_smoke mergetier {s4}")
+    entry["serve_smoke"] = {
+        "visible": {d: v["visible"] for d, v in s1.items()
+                    if d.startswith("smoke")},
+        "watch": s1["watch"], "fleet": {k: s2[k] for k in (
+            "writes", "forwarded", "cross_server_ryw")},
+        "shm": {k: s3[k] for k in ("misses", "hits", "shared_bytes")},
+        "mergetier": {k: s4[k] for k in (
+            "remote_docs", "batch_width_max", "launches", "fallbacks")},
+        "flight_audit": s1["flight_audit"]}
+
+    def loadgen_ok(name, res, rep_key="report"):
+        rep = res.get(rep_key) or {}
+        need(res.get("violations_total", 0) == 0 and not rep.get("errors"),
+             f"{name}: violations {res.get('violations_total')} errors "
+             f"{rep.get('errors')}")
+        need(rep.get("ops_merged", rep.get("leaves_acked"))
+             == rep.get("leaves_acked"),
+             f"{name}: acked leaves not all merged")
+
+    # 2. the serving headline: the 140,000-op giant, 12-leaf deltas
+    m = mods["bench_serve_headline"]
+    r = checked("serve", lambda: m.run(**HL_SERVE))
+    loadgen_ok("serve", r)
+    entry["serve"] = {k: r[k] for k in (
+        "sessions", "total_leaves", "ops_merged", "sustained_ops_per_sec",
+        "read_p50_ms", "read_p99_ms", "violations_total")}
+    entry["serve"].update(
+        ack_p50_ms=r["report"]["ack_p50_ms"],
+        ack_p99_ms=r["report"]["ack_p99_ms"],
+        giant_commit_s=r["report"].get("giant_commit_s"),
+        flight_audit=r["flight_audit"])
+
+    # 3-4. durability tax, pipelined commit (legs raise on violations)
+    r = checked("wal", lambda: mods["bench_wal_headline"].run(**HL_WAL))
+    entry["wal"] = {
+        "batch_vs_off_regression": r["batch_vs_off_regression"],
+        "commit_vs_off_regression": r["commit_vs_off_regression"],
+        "gate_batch_vs_off_le_0.25": r["batch_vs_off_regression"] <= 0.25,
+        "ack_p50_ms": {mo: r["best"][mo]["ack_p50_ms"] for mo in r["best"]},
+        "ack_p99_ms": {mo: r["best"][mo]["ack_p99_ms"] for mo in r["best"]},
+        "acked_writes_per_s": {mo: r["best"][mo]["acked_writes_per_s"]
+                               for mo in r["best"]},
+        "fsyncs": {mo: r["best"][mo]["wal"]["fsyncs"] for mo in r["best"]
+                   if r["best"][mo]["wal"]},
+        "flight_audit": r["flight_audit"]}
+    r = checked("pipeline", lambda: mods["bench_pipeline_headline"].run(
+        **HL_PIPELINE))
+    sp = r["pipelined_vs_serialized_speedup"]
+    entry["pipeline"] = {
+        "pipelined_vs_serialized_speedup": sp,
+        "gate_speedup_ge_0.8": sp >= 0.8,
+        "ack_p99_ms": {"pipelined": r["ack_p99_pipelined_ms"],
+                       "serialized": r["ack_p99_serialized_ms"]},
+        "acked_writes_per_s": {lg: r["best"][lg]["acked_writes_per_s"]
+                               for lg in r["best"]},
+        "flight_audit": r["flight_audit"]}
+
+    # 5-6. the 1M-op document: cascade restore, cold paths
+    r = checked("oplog", lambda: mods["bench_oplog_headline"].run())
+    need(r["fingerprints_equal"], "oplog fingerprints differ")
+    rs = r["restore"]
+    entry["oplog"] = {
+        "n_ops": r["n_ops"], "ingest_s": r["ingest_s"],
+        "resident_ratio": r["resident"]["ratio"], "restore": rs,
+        "gate_serving_ready_ge_5x":
+            (rs["speedup_serving_ready"] or 0) >= 5.0,
+        "windows": r["windows"], "fingerprints_equal": True}
+    r = checked("coldpath", lambda: mods["bench_coldpath_headline"].run(
+        **HL_COLDPATH))
+    need(r["fingerprints_equal"], "coldpath fingerprints differ")
+    fl = r["fleet"]
+    need(all(g["violations"] == 0 for v in fl["all_rounds"].values()
+             for g in v), "coldpath fleet violations")
+    entry["coldpath"] = {
+        "restore_speedup_to_first_read":
+            r["restore"]["speedup_to_first_read"],
+        "gate_restore_ge_5x": r["restore"]["speedup_to_first_read"] >= 5.0,
+        "restore_total_s": {k: v["total_s"]
+                            for k, v in r["restore"]["best"].items()},
+        "catchup_first_touch_speedup":
+            r["catchup"]["first_touch_speedup"],
+        "fsyncs_per_round": {k: v["fsyncs_per_round"]
+                             for k, v in fl["best"].items()},
+        "fsyncs_per_round_reduction": fl["fsyncs_per_round_reduction"],
+        "gate_fsync_reduction_ge_8x":
+            fl["fsyncs_per_round_reduction"] >= 8.0
+            and fl["shared_vs_perdoc_throughput"] >= 1.0,
+        "shared_vs_perdoc_throughput": fl["shared_vs_perdoc_throughput"],
+        "fingerprints_equal": True,
+        "flight_audit": r["flight_audit"]}
+
+    # 7. storage floor (its shm leg's ledger asserts inside)
+    r = checked("storfloor", lambda: mods["bench_storfloor"].run(
+        **HL_STORFLOOR))
+    ab = r["sync_backend_ab"]
+    entry["storfloor"] = {
+        "fsync_stall_share_cut": ab["fsync_stall_share_cut"],
+        "gate_share_cut_ge_2x": (ab["fsync_stall_share_cut"] or 0) >= 2.0,
+        "median_stall_share": ab["median_stall_share"],
+        "backend_resolved": {b: g["backend_resolved"]
+                             for b, g in ab["best"].items()},
+        "shm": {k: r["shm_fleet"][k] for k in ("misses", "hits")},
+        "sendfile_windows": r["sendfile"]["windows_compared"],
+        "flight_audit": r["flight_audit"]}
+
+    # 8. the merge tier (no fallback on either tiered leg)
+    mt = mods["bench_mergetier_headline"]
+    saved_shape = {k: getattr(mt, k) for k in HL_MERGETIER_SHAPE}
+    for k, v in HL_MERGETIER_SHAPE.items():
+        setattr(mt, k, v)
+    try:
+        r = checked("mergetier", lambda: mt.run(**HL_MERGETIER),
+                    outfile("mergetier"))
+    finally:
+        for k, v in saved_shape.items():
+            setattr(mt, k, v)
+    need(r["violations_total"] == 0 and r["errors_total"] == 0,
+         f"mergetier violations/errors {r['violations_total']}/"
+         f"{r['errors_total']}")
+    for lg in ("coalesced", "perreplica"):
+        need(not r["legs"][lg]["best"].get("fallbacks"),
+             f"mergetier {lg} fallbacks {r['legs'][lg]['best']}")
+    entry["mergetier"] = {
+        "mean_width_ratio": r["mean_width_ratio"],
+        "gate": r["gate"]["pass"],
+        "mean_width": {lg: r["legs"][lg]["best"].get("mean_width")
+                       for lg in r["legs"]},
+        "writes_per_sec": {lg: r["legs"][lg]["best"]["writes_per_sec"]
+                           for lg in r["legs"]},
+        "flight_audit": r["flight_audit"]}
+
+    # 9-10. the fleet, and its visibility ledger with the canary
+    r = checked("fleet", lambda: mods["bench_fleet_headline"].run(
+        **HL_FLEET))
+    loadgen_ok("fleet", r)
+    need(r["converged_docs"] == r["report"]["docs"], "fleet not converged")
+    entry["fleet"] = {k: r[k] for k in (
+        "servers", "sessions", "total_leaves", "sustained_ops_per_sec",
+        "antientropy_lag_p50_s", "antientropy_lag_p99_s",
+        "read_replica_p99_ms", "read_primary_p99_ms", "kill",
+        "converged_docs", "violations_total")}
+    entry["fleet"]["flight_audit"] = r["flight_audit"]
+    r = checked("visibility", lambda: mods["bench_visibility_headline"].run(
+        **HL_VISIBILITY))
+    loadgen_ok("visibility", r)
+    need(r["gate"]["zero_violations"], "visibility violations")
+    entry["visibility"] = {
+        "visibility_lag_s": r["visibility_lag_s"], "canary": r["canary"],
+        "gate": r["gate"], "flight_audit": r["flight_audit"]}
+
+    # 11. watch vs poll, and the 1,000-watcher fan-out
+    fo = mods["bench_fanout_headline"]
+    saved_wall, fo.AB_WALL_S = fo.AB_WALL_S, HL_FANOUT_WALL_S
+    try:
+        r = checked("fanout", lambda: fo.run(**HL_FANOUT), outfile("fanout"))
+    finally:
+        fo.AB_WALL_S = saved_wall
+    need(r["violations_total"] == 0 and r["errors_total"] == 0
+         and r["fanout"]["one_encode"], "fanout violations or encodes")
+    entry["fanout"] = {
+        "watchers": r["fanout"]["watchers"],
+        "notify_ms": {k: r["fanout"]["notify_ms"].get(k)
+                      for k in ("p50", "p99", "max")},
+        "reads_delivered_per_sec_ratio": r["reads_delivered_per_sec_ratio"],
+        "gate": r["gate"]["pass"]}
+
+    # 12. the ops-axis A/B (kernel 5), bit-identical before timing
+    r = checked("opsaxis", lambda: mods["bench_opsaxis_headline"].run(
+        **HL_OPSAXIS))
+    need(r["bit_identical"] and r["opsaxis_audit"]["ok"],
+         f"opsaxis {r['opsaxis_audit']}")
+    entry["opsaxis"] = {k: r[k] for k in (
+        "n_ops", "devices", "p50_ms", "sharded_vs_single_speedup",
+        "tripwire", "fingerprint")}
+    entry["opsaxis"]["audit"] = {k: r["opsaxis_audit"][k] for k in (
+        "shard_width", "shard_budget", "collective_bytes",
+        "collective_count")}
+
+    # 13. the service end to end, egress, the SLO, the soak
+    r = checked("service_e2e", lambda: mods["bench_service_e2e"].run())
+    need(r["wire_identical"], "service_e2e: served log != posted wire")
+    entry["service_e2e"] = {g["leg"]: g["seconds"] for g in r["legs"]}
+    r = checked("egress", lambda: mods["bench_egress"].run())
+    entry["egress"] = {g["path"]: g["seconds"] for g in r["rows"]}
+    r = checked("slo", lambda: mods["bench_slo"].run(**HL_SLO))
+    entry["slo"] = {g["delta_ops"]: {"p50_ms": g["p50_ms"],
+                                     "p99_ms": g["p99_ms"]}
+                    for g in r["rows"]}
+    r = checked("soak", lambda: mods["soak"].run(HL_SOAK))
+    entry["soak"] = {"sessions": r["sessions"], "ops": r["ops"]}
+
+    # 15. the two baselines as engine arguments
+    rp = mods["bench_readpath"]
+    saved_w = rp.WRITES_PER_SESSION
+    rp.WRITES_PER_SESSION = HL_READPATH_WRITES
+    try:
+        r = checked("readpath", lambda: rp.run(**HL_READPATH),
+                    outfile("readpath"))
+    finally:
+        rp.WRITES_PER_SESSION = saved_w
+    wi = r["wire_identity"]
+    need(all(wi[k] for k in ("doc_body_identical", "window_body_identical",
+                             "etag_identical", "since_headers_identical")),
+         f"readpath legs differ on the wire: {wi}")
+    cp = r["conditional_poll"]
+    need(cp["not_modified"] == cp["polls"] and cp["write_invalidates"],
+         f"readpath conditional GET: {cp}")
+    need(r["violations_total"] == 0, "readpath violations")
+    entry["readpath"] = {
+        "reads_per_sec": {lg: r["legs"][lg]["best"]["reads_per_sec"]
+                          for lg in r["legs"]},
+        "read_p99_ms": {lg: r["legs"][lg]["p99_best_ms"]
+                        for lg in r["legs"]},
+        "reads_per_sec_ratio": r["reads_per_sec_ratio"],
+        "p99_ratio": r["p99_ratio"], "gate": r["gate"]["pass"],
+        "wire_identity": wi}
+    r = checked("broadcast", lambda: mods["bench_broadcast_headline"].run(),
+                outfile("broadcast"))
+    need(r["wire_identity"]["identical"],
+         f"broadcast legs differ on the wire: {r['wire_identity']}")
+    need(r["violations_total"] == 0 and r["errors_total"] == 0,
+         "broadcast violations or errors")
+    entry["broadcast"] = {
+        "watchers": {"threaded": r["config"]["threaded_watchers"],
+                     "reactor": r["config"]["ab_watchers"],
+                     "capacity": r["config"]["big_watchers"]},
+        "notify_p99_ms": {m_: r["ab"][m_]["best"]["notify_ms"]["p99"]
+                          for m_ in r["ab"]},
+        "capacity_notify_p99_ms": r["capacity"]["notify_ms"]["p99"],
+        "threads_parked_delta": {
+            m_: r["ab"][m_]["best"]["threads_parked_delta"]
+            for m_ in r["ab"]},
+        "watchers_per_host_ratio": r["watchers_per_host_ratio"],
+        "notify_p99_ratio": r["notify_p99_ratio_reactor_over_threaded"],
+        "gate": r["gate"]["pass"], "wire_identity": True}
+
+    launches = dict(kernels.launches)
+    for k in KERNELS:
+        if launches.get(k, 0) < 1:
+            raise RuntimeError(f"the headline phase never launched {k}")
+    fold_errors(record, errs_all)
+    out["launches"] = launches
+    out["twin_err"] = errs_all
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["reduced"] = {
+        "serve": "sessions 200 -> 32, writes 24 -> 3",
+        "wal": "writes 12 -> 3, rounds 3 -> 1",
+        "pipeline": "writes 6 -> 1, rounds 3 -> 1",
+        "coldpath": "restore rounds 2 -> 1, fleet 64 sessions x 4 "
+                    "writes -> 128 x 1 (2 a document: the staged round "
+                    "releases at once), fleet rounds 2 -> 1",
+        "storfloor": "64 sessions x 8 writes -> 128 x 1 (2 a document), "
+                     "rounds 3 -> 1",
+        "mergetier": "documents a front-end 4 -> 2 with sessions a "
+                     "document 1 -> 2 (4 sessions, as the reference), "
+                     "writes 3 -> 1, rounds 2 -> 1",
+        "fleet": "sessions 60 -> 12, writes 10 -> 3",
+        "visibility": "sessions 36 -> 12, writes 8 -> 3",
+        "fanout": "rounds 3 -> 1, each leg 4 -> 2 s",
+        "opsaxis": "repeats 3 -> 1",
+        "slo": "requests 60 -> 12 a size (20 -> 10 at 4,096)",
+        "soak": f"sessions 60 -> {HL_SOAK}",
+        "readpath": f"writes 10 -> {HL_READPATH_WRITES}, rounds 3 -> 1",
+        "broadcast": "repeats 2 -> 1, rounds 3 -> 1, capacity leg "
+                     "10,000 -> 3,000 watchers"}
+    record["headline"] = out
+    log("headline: " + json.dumps({
+        "card": card, "phase_s": round(out["phase_s"], 1),
+        "seconds": {k: round(v, 1) for k, v in out["seconds"].items()},
+        "entry": entry, "reduced": out["reduced"],
+        "launches": launches, "twin_calls": out["twin_calls"],
+        "twin_max_abs_err": errs_all}))
+    return launches
+
+
 def flip_zip_data(path) -> None:
     """One bit-rot event inside the data of an npz's largest member (a
     flip in a zip local header is benign and legitimately not flagged)."""
@@ -3217,12 +3640,121 @@ def flip_zip_data(path) -> None:
         f.write(bytes([b[0] ^ 0xFF]))
 
 
+SIDE_TIMEOUT_S = 1100          # the side child's limit, inside the script's
+
+
+def twin_fns():
+    """Each kernel's plain PyTorch version, by name."""
+    from crdt_graph_tpu_torch.ops import fused_resolve as fr, \
+        mono_gather as mg, tour_scan as ts
+    return {"plane_rows": fr.plain_rows, "plane_rows2": fr.plain_rows2,
+            "prefix_sums": ts.plain_prefix,
+            "monotone_gather": mg.plain_gather,
+            "ring_exclusive": ts.plain_ring_exclusive}
+
+
+def side_start(route_on: bool):
+    """Start ``chip_smoke.py --side-phases DIR`` (the ``walshared`` and
+    ``headline`` phases) in its own process group, its output into
+    ``DIR``; returns what :func:`side_join` and :func:`side_stop`
+    take."""
+    import os
+    import shutil
+    out = ROOT / "build" / "chip_smoke_side"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    args = [sys.executable, str(Path(__file__).resolve()), "--side-phases",
+            str(out)] + (["--route-on"] if route_on else [])
+    files = (open(out / "stdout.log", "w"), open(out / "stderr.log", "w"))
+    proc = subprocess.Popen(args, stdout=files[0], stderr=files[1],
+                            cwd=str(ROOT), start_new_session=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    return proc, out, files
+
+
+def side_stop(side) -> None:
+    """End the side child and every process it started (its group)."""
+    import os
+    import signal
+    proc, _, files = side
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    for f in files:
+        f.close()
+
+
+def side_join(side) -> dict:
+    """Wait for the side child (at most ``SIDE_TIMEOUT_S``), relay its
+    lines to this process's output and its errors' tail to stderr, and
+    return its result; raises when it failed or ran out of time."""
+    proc, out, _ = side
+    try:
+        rc = proc.wait(SIDE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    side_stop(side)
+    for line in (out / "stdout.log").read_text().splitlines():
+        log(line)
+    err = (out / "stderr.log").read_text()
+    if rc != 0:
+        print(err[-6000:], file=sys.stderr, flush=True)
+        raise RuntimeError(f"the side phases' child "
+                           f"{'ran out of time' if rc is None else f'exited {rc}'}")
+    return json.loads((out / "result.json").read_text())
+
+
+def side_phases_child(out_dir: str) -> int:
+    """``--side-phases DIR``: the ``walshared`` and ``headline`` phases
+    (each its own counted drive), beside the parent's phases; writes
+    their record and launch counts to ``DIR/result.json``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from crdt_graph_tpu_torch import native
+    from crdt_graph_tpu_torch.bench import kerneltime
+    from crdt_graph_tpu_torch.kernels import build
+    import os
+    import signal
+    ppid = os.getppid()
+
+    def orphaned():
+        # this child leads its own process group: when the parent is
+        # gone, end the group (the servers and drivers it started too)
+        while os.getppid() == ppid:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+    threading.Thread(target=orphaned, daemon=True).start()
+    dev = torch.device(DEVICE)
+    build.load()
+    native.load()
+    if not native.available():
+        raise RuntimeError(f"native codec did not load: "
+                           f"{native._build_error}")
+    card = kerneltime.card_line()
+    twins = twin_fns()
+    record = {"kernels": {}, "phases": {}}
+    launches = {}
+    t0 = time.perf_counter()
+    launches["walshared"] = dict(walshared_phase(dev, record, twins, card))
+    record["phases"]["walshared_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["headline"] = dict(headline_phase(dev, record, twins, card))
+    record["phases"]["headline_s"] = time.perf_counter() - t0
+    (Path(out_dir) / "result.json").write_text(json.dumps(
+        {"record": record, "launches": launches}))
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     import os
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profiled-audit", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--side-phases", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument(
         "--route-on", action="store_true",
         help="set GRAFT_OPSAXIS=1 for the run: on a host with two or more "
@@ -3236,6 +3768,10 @@ def main(argv=None) -> int:
         return 2
     if opts.profiled_audit:
         return profiled_audit_child()
+    if opts.route_on:
+        os.environ["GRAFT_OPSAXIS"] = "1"
+    if opts.side_phases:
+        return side_phases_child(opts.side_phases)
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -3251,14 +3787,9 @@ def main(argv=None) -> int:
 
     dev = torch.device(DEVICE)
     record = {"kernels": {}, "phases": {}}
-    if opts.route_on:
-        os.environ["GRAFT_OPSAXIS"] = "1"
 
     # ---- 1. the card --------------------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = kerneltime.card_line()
     log(card)
     name = torch.cuda.get_device_name(0)
     record["card"] = card
@@ -3289,6 +3820,12 @@ def main(argv=None) -> int:
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
 
+    # ---- the side phases (walshared, headline) start beside this one ---
+    import atexit
+    side = side_start(opts.route_on)
+    atexit.register(side_stop, side)
+    t_side = time.perf_counter()
+
     # ---- inputs of the main path (config 5, and with deletes) ---------
     t0 = time.perf_counter()
     adds = workloads.chain_workload(N_REPLICAS, N_OPS)
@@ -3308,10 +3845,7 @@ def main(argv=None) -> int:
 
     # ---- 3. each kernel against its twin ------------------------------
     rng = np.random.default_rng(0)
-    twins = {"plane_rows": fr.plain_rows, "plane_rows2": fr.plain_rows2,
-             "prefix_sums": ts.plain_prefix,
-             "monotone_gather": mg.plain_gather,
-             "ring_exclusive": ts.plain_ring_exclusive}
+    twins = twin_fns()
     calls = {"plane_rows": fr.plane_rows, "plane_rows2": fr.plane_rows2,
              "prefix_sums": ts.prefix_sums,
              "monotone_gather": mg.monotone_gather,
@@ -3558,19 +4092,31 @@ def main(argv=None) -> int:
     bench_launches = bench_phase(dev, record, twins, card)
     record["phases"]["bench_s"] = time.perf_counter() - t0
 
-    # ---- 12-13. the shared WAL stream and the host-shared body cache ----
-    # (one counted drive each; their launches share one column)
+    # ---- 12. the host-shared body cache (its own counted drive) ---------
     t0 = time.perf_counter()
-    wal_shm_launches = dict(walshared_phase(dev, record, twins, card))
-    record["phases"]["walshared_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for k, n in shmcache_phase(dev, record, card).items():
-        wal_shm_launches[k] = wal_shm_launches.get(k, 0) + n
+    shm_launches = shmcache_phase(dev, record, card)
     record["phases"]["shmcache_s"] = time.perf_counter() - t0
+    record["phases"]["main_s"] = time.perf_counter() - t_side
+
+    # ---- 13-14. the side child: the shared WAL stream (its launches
+    # share the shmcache's column) and the headline entry points --------
+    got = side_join(side)
+    record["phases"]["side_wait_s"] = (time.perf_counter() - t_side
+                                       - record["phases"]["main_s"])
+    for key, val in got["record"].items():
+        if key not in ("kernels", "phases"):
+            record[key] = val
+    record["phases"].update(got["record"]["phases"])
+    fold_errors(record, {k: v["max_abs_err"]
+                         for k, v in got["record"]["kernels"].items()})
+    wal_shm_launches = dict(got["launches"]["walshared"])
+    for k, n in shm_launches.items():
+        wal_shm_launches[k] = wal_shm_launches.get(k, 0) + n
+    headline_launches = got["launches"]["headline"]
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in record["phases"].items()}))
 
-    # ---- 14. timing -----------------------------------------------------
+    # ---- 15. timing -----------------------------------------------------
     t_np = honest.time_with_readback(lambda: vouched(adds), repeats=7)
     def h2d():
         cols = convert.ops_from_numpy(
@@ -3686,8 +4232,10 @@ def main(argv=None) -> int:
                      + serve_launches.get(kname, 0)
                      + fleet_launches.get(kname, 0)
                      + bench_launches.get(kname, 0)
-                     + wal_shm_launches.get(kname, 0),
+                     + wal_shm_launches.get(kname, 0)
+                     + headline_launches.get(kname, 0),
                      "launches_wal_shm": wal_shm_launches.get(kname, 0),
+                     "launches_headline": headline_launches.get(kname, 0),
                      "launches_audit": audit_launches[kname],
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,

@@ -417,6 +417,17 @@ def child(root: str) -> dict:
     return out
 
 
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi`` gives
+    them (``"NVIDIA H100 80GB HBM3, 700.00 W"``): the tag every number
+    taken on the card carries, since a card set below its maximum power
+    runs slower under load."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."],
@@ -430,10 +441,7 @@ def main(argv=None) -> int:
     if opts.child:
         print(json.dumps(child(opts.child)), flush=True)
         return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     here = str(Path(__file__).resolve())
     log = Path.cwd() / "build" / "kerneltime.jsonl"

@@ -958,8 +958,7 @@ def _run(cfg: LoadgenConfig, engine: ServingEngine,
 def _aggregate_readcache(engine) -> Dict[str, Any]:
     """Engine-wide sum of the per-doc read-cache counters (the bench
     headline's cache half)."""
-    # this package keeps the read cache on (no switch turns it off)
-    out = {"enabled": True,
+    out = {"enabled": engine.readcache_enabled,
            "hits": 0, "misses": 0, "encoded_bytes": 0,
            "window_evictions": 0, "not_modified": 0}
     for d in engine.docs():

@@ -97,6 +97,21 @@ class CommitRecord:
         return dataclasses.asdict(self)
 
 
+# every recorder's sampled chain audits in this process, so a driver
+# can tell sampled commits from plain ones over a run it does not own
+# the recorders of (a fleet's nodes, a load generator's engine)
+_TALLY_LOCK = threading.Lock()
+_TALLY = {"sampled": 0, "failures": 0}
+
+
+def audit_tally() -> Dict[str, int]:
+    """``{sampled, failures}``: commit records carrying a sampled chain
+    audit, and those over budget, across every recorder of this process
+    since it started (a driver reads the change over its run)."""
+    with _TALLY_LOCK:
+        return dict(_TALLY)
+
+
 class FlightRecorder:
     """Bounded, thread-safe ring of :class:`CommitRecord` with
     automatic JSONL dumps.  One recorder per process by default
@@ -189,9 +204,14 @@ class FlightRecorder:
             if rec.outcome == "error":
                 self._errors += 1
                 reason = REASON_ERROR
-            if rec.audit is not None and not rec.audit.get("ok", True):
-                self._audit_failures += 1
-                reason = reason or REASON_AUDIT
+            if rec.audit is not None:
+                failed = not rec.audit.get("ok", True)
+                with _TALLY_LOCK:
+                    _TALLY["sampled"] += 1
+                    _TALLY["failures"] += failed
+                if failed:
+                    self._audit_failures += 1
+                    reason = reason or REASON_AUDIT
             if self.slo_ms > 0 and rec.total_ms > self.slo_ms:
                 self._slo_breaches += 1
                 reason = reason or REASON_SLO

@@ -247,7 +247,8 @@ def render_engine(engine) -> str:
     if rdocs:
         w.gauge("crdt_readcache_enabled",
                 "1 when the encoded-body cache stores bodies "
-                "(GRAFT_READCACHE)", 1.0)
+                "(GRAFT_READCACHE)",
+                1.0 if engine.readcache_enabled else 0.0)
         for name, help_text, key in (
                 ("crdt_readcache_hits_total",
                  "Reads served from a cached encoded body", "hits"),

@@ -94,10 +94,12 @@ def _env_on(name: str, default: str) -> bool:
     return os.environ.get(name, default).strip() not in ("", "0")
 
 
-# switches whose non-default path the port leaves out, with the
-# default each keeps: the reference's A/B baselines (the per-request
-# re-encode, the buffered cold egress, the thread-per-watcher park, the
-# serialized scheduler)
+# switches whose non-default path the port does not take from the
+# environment, with the default each keeps: the reference's A/B
+# baselines (the per-request re-encode, the buffered cold egress, the
+# thread-per-watcher park, the serialized scheduler).  Three of them
+# are engine arguments instead: ``readcache=False``, ``reactor=False``
+# and ``pipeline=False``.
 _UNPORTED_SWITCHES = (("GRAFT_READCACHE", True), ("GRAFT_SENDFILE", True),
                       ("GRAFT_REACTOR", True), ("GRAFT_PIPELINE", True))
 
@@ -177,6 +179,7 @@ class ServedDoc:
         # stats/policy object per document, shared by every snapshot
         # generation — invalidation is the publish pointer swap itself
         self.readcache = snapshot_mod.ReadCacheStats(
+            enabled=engine.readcache_enabled,
             window_cap=engine.readcache_windows)
         # delta-push fan-out (serve/watch.py; docs/SERVING.md §Watch &
         # fan-out): bounded parked-watcher registry, woken by the
@@ -675,9 +678,11 @@ class ServingEngine:
                  submit_timeout_s: float = 600.0,
                  oplog_hot_ops: Optional[int] = None,
                  oplog_dir: Optional[str] = None,
+                 readcache: bool = True,
                  readcache_windows: Optional[int] = None,
                  shmcache: Optional[bool] = None,
                  watch_max: Optional[int] = None,
+                 reactor: bool = True,
                  durable_dir: Optional[str] = None,
                  wal_sync: Optional[str] = None,
                  wal_sync_backend: Optional[str] = None,
@@ -693,15 +698,17 @@ class ServingEngine:
         # every served document merges on this device: the card unless
         # the caller names another; no card and no device= raises
         self.device = merge_mod.resolve_device(device)
-        # the reference's A/B baselines are not ported: the port keeps
-        # each switch's default path only
+        # the reference's A/B baselines are not environment switches
+        # here: the port keeps each switch's default path, and the
+        # baselines it runs are the constructor arguments above
         for name, default in _UNPORTED_SWITCHES:
             raw = os.environ.get(name)
             if raw is not None and _env_on(name, "") != default:
                 raise NotImplementedError(
-                    f"{name}={raw.strip()!r} is not ported; the port "
-                    f"keeps its default path only: ROADMAP Queue 1 "
-                    f"item 4")
+                    f"{name}={raw.strip()!r} is not ported as an "
+                    f"environment switch; the port keeps its default "
+                    f"path (READCACHE, REACTOR and PIPELINE baselines "
+                    f"are ServingEngine arguments)")
         self._docs: Dict[str, ServedDoc] = {}
         self._lock = threading.Lock()
         self._max_depth = max_depth
@@ -711,7 +718,9 @@ class ServingEngine:
         self.oplog_hot_ops = oplog_hot_ops if oplog_hot_ops is not None \
             else _env_int("GRAFT_OPLOG_HOT_OPS", DEFAULT_OPLOG_HOT_OPS)
         # encoded-body read cache (serve/snapshot.py): each published
-        # generation encodes a wire body at most once
+        # generation encodes a wire body at most once.  readcache=False
+        # is the per-request re-encode baseline (wire bytes identical)
+        self.readcache_enabled = bool(readcache)
         self.readcache_windows = readcache_windows \
             if readcache_windows is not None \
             else _env_int("GRAFT_READCACHE_WINDOWS",
@@ -719,12 +728,13 @@ class ServingEngine:
         # host-shared encoded-body tier (serve/shmcache.py): off by
         # default — GRAFT_SHMCACHE=1 arms it on a many-process host so
         # N processes serve ONE copy of each generation's whole-doc
-        # bodies.  Construction failure (no POSIX shm) degrades to the
+        # bodies.  A disabled read cache bypasses both tiers;
+        # construction failure (no POSIX shm) degrades to the
         # process-local read cache.
         if shmcache is None:
             shmcache = _env_on("GRAFT_SHMCACHE", "0")
         self.shmcache = None
-        if shmcache:
+        if shmcache and self.readcache_enabled:
             from . import shmcache as shmcache_mod
             try:
                 self.shmcache = shmcache_mod.ShmBodyCache()
@@ -749,13 +759,18 @@ class ServingEngine:
         # reactor egress (serve/reactor.py): a caught-up watch
         # connection detaches from its handler thread onto one of
         # GRAFT_REACTOR_THREADS selector loops (lazy-started at the
-        # first park; hard-capped at 4)
-        from . import reactor as reactor_mod
-        self.reactor = reactor_mod.Reactor(
-            threads=_env_int("GRAFT_REACTOR_THREADS",
-                             reactor_mod.DEFAULT_THREADS),
-            buf_cap=_env_int("GRAFT_REACTOR_BUF",
-                             reactor_mod.DEFAULT_BUF_CAP))
+        # first park; hard-capped at 4).  reactor=False is the
+        # thread-per-parked-watcher baseline (same wire bytes).  A
+        # reactor that fails to build raises: an engine asked for one
+        # never parks on threads instead.
+        self.reactor = None
+        if reactor:
+            from . import reactor as reactor_mod
+            self.reactor = reactor_mod.Reactor(
+                threads=_env_int("GRAFT_REACTOR_THREADS",
+                                 reactor_mod.DEFAULT_THREADS),
+                buf_cap=_env_int("GRAFT_REACTOR_BUF",
+                                 reactor_mod.DEFAULT_BUF_CAP))
         # crash durability (wal.py; docs/DURABILITY.md): a durable_dir
         # puts every document's tiers + WAL in a persistent per-doc
         # subdir; acked writes then survive a kill (fsync-before-ack,
@@ -1278,10 +1293,11 @@ class ServingEngine:
         # clean shutdown would stall up to a full park budget
         for d in self.docs():
             d.watch.close()
-        # the registries' close commands are already queued on the
-        # loops: draining writes every reactor-parked watcher its named
-        # close (503 / event: closed) before the loops join
-        self.reactor.stop(timeout=timeout)
+        if self.reactor is not None:
+            # the registries' close commands are already queued on the
+            # loops: draining writes every reactor-parked watcher its
+            # named close (503 / event: closed) before the loops join
+            self.reactor.stop(timeout=timeout)
         self.scheduler.shutdown(timeout=timeout)
         if self.sync_worker is not None:
             self.sync_worker.stop(timeout=timeout)

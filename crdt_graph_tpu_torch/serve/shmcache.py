@@ -297,9 +297,25 @@ class ShmBodyCache:
             self.stats.failed()
             return None
 
+    @staticmethod
+    def _attach(name):
+        """Attach the existing segment ``name``.  Its creator opens it
+        and sizes it in two steps, so an attach between them finds an
+        empty file (``mmap`` raises ``ValueError``): retry until it is
+        sized, within the attach budget (then ``OSError``, counted as a
+        failed attach by the caller)."""
+        deadline = time.monotonic() + _ATTACH_WAIT_S
+        while True:
+            try:
+                return _shm_mod.SharedMemory(name=name)
+            except ValueError:
+                if time.monotonic() >= deadline:
+                    raise OSError(f"shm segment {name} never sized")
+                time.sleep(_ATTACH_POLL_S)
+
     def _attach_or_create(self, name, doc_id, sfp, encode):
         try:
-            seg = _shm_mod.SharedMemory(name=name)
+            seg = self._attach(name)
             created = False
         except FileNotFoundError:
             seg, created = None, True
@@ -317,7 +333,7 @@ class ShmBodyCache:
                                         size=size)
         except FileExistsError:
             # lost the create race — attach the winner's fill
-            seg = _shm_mod.SharedMemory(name=name)
+            seg = self._attach(name)
             _untrack(seg)
             out = self._wait_ready(seg, name, doc_id, sfp)
             if out is None:

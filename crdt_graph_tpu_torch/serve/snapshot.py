@@ -40,8 +40,10 @@ unbounded ``ops_since_bytes`` bootstrap path stays uncached — one-shot
 consumers, and an O(full log) body must not pin on a live snapshot).  Every reader of generation ``seq=k`` then gets
 the SAME ``bytes`` object and the HTTP layer ships a memoryview — the
 read path is O(what changed) per publish, not O(doc) per request.
-The conditional-GET ``ETag`` is the quoted
-replica-independent :meth:`DocSnapshot.state_fingerprint`.
+``ServingEngine(readcache=False)`` disables storing — bodies still come
+from the same encoders, so cached and uncached wire bytes are identical
+by construction (the read-path A/B's byte-identity check).  The
+conditional-GET ``ETag`` is the quoted replica-independent :meth:`DocSnapshot.state_fingerprint`.
 """
 from __future__ import annotations
 
@@ -68,10 +70,12 @@ class ReadCacheStats:
     rendered as the ``crdt_readcache_*`` prom families and stamped
     into the loadgen report."""
 
-    __slots__ = ("window_cap", "_mu", "hits", "misses",
+    __slots__ = ("enabled", "window_cap", "_mu", "hits", "misses",
                  "encoded_bytes", "window_evictions", "not_modified")
 
-    def __init__(self, window_cap: int = DEFAULT_WINDOW_LRU):
+    def __init__(self, enabled: bool = True,
+                 window_cap: int = DEFAULT_WINDOW_LRU):
+        self.enabled = bool(enabled)
         self.window_cap = max(1, int(window_cap))
         self._mu = threading.Lock()
         self.hits = 0
@@ -99,7 +103,7 @@ class ReadCacheStats:
 
     def snapshot(self) -> Dict[str, Any]:
         with self._mu:
-            return {"enabled": True,
+            return {"enabled": self.enabled,
                     "window_cap": self.window_cap,
                     "hits": self.hits, "misses": self.misses,
                     "encoded_bytes": self.encoded_bytes,
@@ -198,8 +202,8 @@ class DocSnapshot:
     def _encode_bodies(self) -> Tuple[bytes, bytes]:
         """Both whole-doc wire bodies, straight off the encoders —
         the single source of truth every cache tier stores verbatim
-        (byte-identity across the private and shared tiers is by
-        construction)."""
+        (byte-identity across the private, shared and uncached paths
+        is by construction)."""
         return (json.dumps({"values": self.values}).encode(),
                 json.dumps({"replicas": self.clock_wire()}).encode())
 
@@ -207,9 +211,10 @@ class DocSnapshot:
         """Resolve both whole-doc bodies against the host-shared tier
         (one segment per generation, serve/shmcache.py).  False means
         tier off or degraded — the caller stays on the process-local
-        path."""
+        path.  A disabled read cache bypasses this tier too (the same
+        ``stats.enabled`` gate as the private cache)."""
         shm = self._shm
-        if shm is None:
+        if shm is None or not self._stats.enabled:
             return False
         got = shm.get_or_publish(self.doc_id, self.state_fingerprint(),
                                  self._encode_bodies)
@@ -234,7 +239,8 @@ class DocSnapshot:
             return body
         body = json.dumps({"values": self.values}).encode()
         self._stats.miss(len(body))
-        self._values_body = body
+        if self._stats.enabled:
+            self._values_body = body
         return body
 
     def clock_body(self) -> bytes:
@@ -250,7 +256,8 @@ class DocSnapshot:
             return body
         body = json.dumps({"replicas": self.clock_wire()}).encode()
         self._stats.miss(len(body))
-        self._clock_body = body
+        if self._stats.enabled:
+            self._clock_body = body
         return body
 
     def etag(self) -> str:
@@ -270,6 +277,14 @@ class DocSnapshot:
         whole watcher population at once, and one encode must serve
         all of them (the fan-out contract the readcache counters
         pin)."""
+        if not self._stats.enabled:
+            out = compute()
+            body = out[0] if isinstance(out, tuple) else out
+            # count the real encoded bytes with storing disabled too:
+            # the uncached leg's encoded_bytes stays comparable to the
+            # cached leg's (both mean "egress work paid")
+            self._stats.miss(len(body))
+            return out
         while True:
             leader, ev = False, None
             with self._win_mu:

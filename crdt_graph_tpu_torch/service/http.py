@@ -370,55 +370,95 @@ def make_handler(store: DocumentStore, max_body: int = DEFAULT_MAX_BODY):
         def _watch_poll(self, doc, reg, since, limit, timeout):
             """One long-poll watch round trip (serve/watch.py): answer
             at once when the window already has new ops (*resume*),
-            else park the connection on the reactor until the next
-            publish (*notify* — latency measured from the pointer
-            swap) or the park budget (*timeout* — an empty-batch
-            heartbeat bounding how long a dead connection pins its
-            slot, stamped with the caught-up window's ``ETag`` so the
-            re-poll can validate).  A first poll carrying
-            ``If-None-Match`` that does NOT match the window etag also
-            delivers — the exactness escape hatch for a client whose
-            delete tail predates its watch call.  A delivery more than
-            one window behind is a *shed*: the window ships, plus the
-            exact resumable mark (``X-Watch-Resume-Since``) — the
-            client polls ``/ops`` until caught up, losing nothing.
-            The correlation headers resolve against the SAME snapshot
-            as the body."""
+            else park until the next publish (*notify* — latency
+            measured from the pointer swap) or the park budget
+            (*timeout* — an empty-batch heartbeat bounding how long a
+            dead connection pins its slot, stamped with the caught-up
+            window's ``ETag`` so the re-poll can validate).  The
+            connection parks on the reactor, or, on an engine built
+            with ``reactor=False``, holds this handler thread on the
+            registry.  A woken watcher delivers whenever the published
+            seq moved past the one it parked on — even if
+            ``next_since`` did not (a delete-only tail grows the
+            re-served window without moving the terminator; duplicates
+            absorb).  A first poll carrying ``If-None-Match`` that does
+            NOT match the window etag also delivers — the exactness
+            escape hatch for a client whose delete tail predates its
+            watch call.  A delivery more than one window behind is a
+            *shed*: the window ships, plus the exact resumable mark
+            (``X-Watch-Resume-Since``) — the client polls ``/ops``
+            until caught up, losing nothing.  The correlation headers
+            resolve against the SAME snapshot as the body."""
             deadline = time.monotonic() + timeout
+            parked, woke_at = False, 0.0
+            last_seq = None
             inm = self.headers.get("If-None-Match")
-            snap = doc.snapshot_view()
-            body, meta = snap.ops_since_window(since, limit)
-            # ONE header builder and freshness predicate for both
-            # delivery tiers (serve/watch.py): the reactor's notify
-            # bytes and this thread's are identical by construction
-            fresh = watch_mod.watch_fresh(meta, since) or (
-                inm is not None and not etag_matches(inm, meta["etag"]))
-            if fresh or timeout <= 0:
+            reactor = getattr(store, "reactor", None)
+            while True:
+                snap = doc.snapshot_view()
+                body, meta = snap.ops_since_window(since, limit)
+                # ONE freshness predicate and header builder for both
+                # delivery tiers (serve/watch.py): the reactor's notify
+                # bytes and this thread's are identical by construction
+                fresh = watch_mod.watch_fresh(meta, since)
+                if not fresh and last_seq is not None \
+                        and snap.seq > last_seq:
+                    # a commit landed while parked: the re-served
+                    # window carries its tail even when the terminator
+                    # (and so next_since) did not move
+                    fresh = True
+                if not fresh and last_seq is None and inm is not None \
+                        and not etag_matches(inm, meta["etag"]):
+                    fresh = True
+                if fresh:
+                    hdrs = watch_mod.delivery_headers(
+                        store, snap, meta, since, ensure_session_id(
+                            self.headers.get(SESSION_HEADER)))
+                    if parked:
+                        reg.stats.observe_notify(
+                            (time.perf_counter() - woke_at) * 1e3)
+                        hdrs[WATCH_EVENT_HEADER] = "notify"
+                    else:
+                        reg.stats.add("resumes")
+                        hdrs[WATCH_EVENT_HEADER] = "resume"
+                    if meta["more"]:
+                        reg.stats.add("shed_slow")
+                        hdrs[WATCH_EVENT_HEADER] = "shed"
+                        hdrs[WATCH_RESUME_HEADER] = str(
+                            meta["next_since"])
+                    self._send_raw(200, body, headers=hdrs)
+                    return
+                last_seq = snap.seq
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    st, pub_at = "timeout", None
+                elif reactor is not None:
+                    # detach seam: the caught-up connection parks on
+                    # the reactor and this thread returns to the pool;
+                    # a stopped reactor means the engine is closing
+                    if self._watch_detach(doc, reg, "poll", since,
+                                          limit, deadline, snap.seq):
+                        return
+                    st, pub_at = "closed", None
+                else:
+                    st, pub_at = reg.wait_beyond(snap.seq, remaining)
+                if st == "new":
+                    parked, woke_at = True, pub_at
+                    continue
+                if st == "closed":
+                    self._send(503, {"error": "engine shutting down"},
+                               headers={WATCH_EVENT_HEADER: "closed"})
+                    return
+                # timeout heartbeat: an EMPTY wire batch (nothing to
+                # re-send), resume mark unchanged, ETag = the caught-up
+                # window's validator for the next poll's If-None-Match
                 hdrs = watch_mod.delivery_headers(
                     store, snap, meta, since, ensure_session_id(
                         self.headers.get(SESSION_HEADER)))
-            if fresh:
-                reg.stats.add("resumes")
-                hdrs[WATCH_EVENT_HEADER] = "resume"
-                if meta["more"]:
-                    reg.stats.add("shed_slow")
-                    hdrs[WATCH_EVENT_HEADER] = "shed"
-                    hdrs[WATCH_RESUME_HEADER] = str(meta["next_since"])
-                self._send_raw(200, body, headers=hdrs)
+                hdrs[WATCH_EVENT_HEADER] = "timeout"
+                reg.stats.add("heartbeats")
+                self._send_raw(200, EMPTY_BATCH_BYTES, headers=hdrs)
                 return
-            if timeout > 0:
-                if self._watch_detach(doc, reg, "poll", since, limit,
-                                      deadline, snap.seq):
-                    return
-                self._send(503, {"error": "engine shutting down"},
-                           headers={WATCH_EVENT_HEADER: "closed"})
-                return
-            # a zero budget: the timeout heartbeat at once — an EMPTY
-            # wire batch (nothing to re-send), resume mark unchanged,
-            # ETag = the caught-up window's validator for the next poll
-            hdrs[WATCH_EVENT_HEADER] = "timeout"
-            reg.stats.add("heartbeats")
-            self._send_raw(200, EMPTY_BATCH_BYTES, headers=hdrs)
 
         def _watch_sse(self, doc, reg, since, limit, timeout):
             """Streamed watch (``mode=sse``): one response, one
@@ -430,11 +470,13 @@ def make_handler(store: DocumentStore, max_body: int = DEFAULT_MAX_BODY):
             engine shutdown (``event: closed``) — every close names
             its reason; reconnect-with-mark is always exact.  This
             thread writes the events already due; a caught-up stream
-            then parks on the reactor, which writes the rest.  What
-            SSE does NOT re-check per event: the bounded-staleness
-            gate ran once, at admission — a long-lived stream on a
-            partitioned replica keeps serving local generations;
-            clients needing a re-armed bound must reconnect."""
+            then parks on the reactor, which writes the rest, or, on
+            an engine built with ``reactor=False``, stays on this
+            thread.  What SSE does NOT re-check per event: the
+            bounded-staleness gate ran once, at admission — a
+            long-lived stream on a partitioned replica keeps serving
+            local generations; clients needing a re-armed bound must
+            reconnect."""
             snap = doc.snapshot_view()
             self.close_connection = True    # streams are not reusable
             self.send_response(200)
@@ -446,7 +488,9 @@ def make_handler(store: DocumentStore, max_body: int = DEFAULT_MAX_BODY):
             self.end_headers()
             deadline = time.monotonic() + timeout
             hb = max(0.05, reg.heartbeat_s)
+            parked, woke_at = False, 0.0
             last_seq = None
+            reactor = getattr(store, "reactor", None)
             while True:
                 snap = doc.snapshot_view()
                 body, meta = snap.ops_since_window(since, limit)
@@ -456,40 +500,64 @@ def make_handler(store: DocumentStore, max_body: int = DEFAULT_MAX_BODY):
                 fresh = watch_mod.watch_fresh(meta, since) or (
                     last_seq is not None and snap.seq > last_seq)
                 last_seq = snap.seq
-                if not fresh:
-                    break
-                reg.stats.add("resumes")
-                ev = bytearray(b"event: ops\n")
-                if meta["next_since"] is not None:
-                    ev += b"id: %d\n" % meta["next_since"]
-                for line in bytes(body).split(b"\n"):
-                    ev += b"data: " + line + b"\n"
-                ev += b"\n"
-                self.wfile.write(ev)
-                self.wfile.flush()
-                if not meta["found"]:
-                    # unknown mark (we restarted with a fresh log): the
-                    # client must resync via /snapshot
-                    self.wfile.write(b"event: reset\ndata: {}\n\n")
+                if fresh:
+                    if parked:
+                        reg.stats.observe_notify(
+                            (time.perf_counter() - woke_at) * 1e3)
+                    else:
+                        reg.stats.add("resumes")
+                    parked = False
+                    ev = bytearray(b"event: ops\n")
+                    if meta["next_since"] is not None:
+                        ev += b"id: %d\n" % meta["next_since"]
+                    for line in bytes(body).split(b"\n"):
+                        ev += b"data: " + line + b"\n"
+                    ev += b"\n"
+                    self.wfile.write(ev)
+                    self.wfile.flush()
+                    if not meta["found"]:
+                        # unknown mark (we restarted with a fresh
+                        # log): the client must resync via /snapshot
+                        self.wfile.write(b"event: reset\ndata: {}\n\n")
+                        return
+                    if meta["next_since"] is not None:
+                        since = meta["next_since"]
+                    if meta["more"]:
+                        reg.stats.add("shed_slow")
+                        self.wfile.write(
+                            b"event: shed\ndata: "
+                            b'{"resume_since": %d}\n\n' % since)
+                        return
+                    continue
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    self.wfile.write(b"event: bye\ndata: "
+                                     b'{"resume_since": %d}\n\n'
+                                     % since)
                     return
-                if meta["next_since"] is not None:
-                    since = meta["next_since"]
-                if meta["more"]:
-                    reg.stats.add("shed_slow")
-                    self.wfile.write(
-                        b"event: shed\ndata: "
-                        b'{"resume_since": %d}\n\n' % since)
+                if reactor is not None:
+                    # caught-up stream: the reactor owns it from here
+                    # (per-generation events, : hb keepalives, named
+                    # closes) — this thread returns to the pool
+                    if not self._watch_detach(
+                            doc, reg, "sse", since, limit, deadline,
+                            snap.seq,
+                            hb_deadline=time.monotonic() + hb):
+                        self.wfile.write(b"event: closed\ndata: {}\n\n")
                     return
-            if deadline <= time.monotonic():
-                self.wfile.write(b"event: bye\ndata: "
-                                 b'{"resume_since": %d}\n\n' % since)
-                return
-            # caught-up stream: the reactor owns it from here
-            # (per-generation events, : hb keepalives, named closes)
-            if not self._watch_detach(doc, reg, "sse", since, limit,
-                                      deadline, snap.seq,
-                                      hb_deadline=time.monotonic() + hb):
-                self.wfile.write(b"event: closed\ndata: {}\n\n")
+                st, pub_at = reg.wait_beyond(
+                    snap.seq, min(hb, remaining))
+                if st == "closed":
+                    self.wfile.write(b"event: closed\ndata: {}\n\n")
+                    return
+                if st == "timeout":
+                    # keepalive comment: detects a dead consumer at
+                    # the next write instead of never
+                    reg.stats.add("heartbeats")
+                    self.wfile.write(b": hb\n\n")
+                    self.wfile.flush()
+                    continue
+                parked, woke_at = True, pub_at
 
         def do_GET(self):
             doc_id, sub, query = self._route()

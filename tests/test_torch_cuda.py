@@ -943,3 +943,70 @@ def test_cuda_chain_audit_kernel_calls_equal_profiler_events(cuda):
              torch.autograd.DeviceType.CUDA]
     got = {k: sum(1 for nm in names if ev in nm) for k, ev in events.items()}
     assert {k: v for k, v in got.items() if v} == audit.kernel_calls
+
+
+def _record_calls(monkeypatch):
+    """Every kernel wrapper records ``(name, args, out)`` for each call
+    (copies, so later calls cannot change them)."""
+    calls = []
+    for mod, name in ((tfr, "plane_rows"), (tfr, "plane_rows2"),
+                      (tts, "prefix_sums"), (tmg, "monotone_gather"),
+                      (tts, "ring_exclusive")):
+        orig = getattr(mod, name)
+
+        def rec(*args, _orig=orig, _name=name):
+            out = _orig(*args)
+            copy = lambda x: type(x)(copy(y) for y in x) \
+                if isinstance(x, (list, tuple)) else \
+                (x.clone() if hasattr(x, "clone") else x)
+            calls.append((_name, copy(args), copy(out)))
+            return out
+        monkeypatch.setattr(mod, name, rec)
+    return calls
+
+
+def _twin_mismatches(calls):
+    twins = {"plane_rows": tfr.plain_rows, "plane_rows2": tfr.plain_rows2,
+             "prefix_sums": tts.plain_prefix,
+             "monotone_gather": tmg.plain_gather,
+             "ring_exclusive": tts.plain_ring_exclusive}
+    cpu = lambda x: type(x)(cpu(y) for y in x) \
+        if isinstance(x, (list, tuple)) else \
+        (x.cpu() if hasattr(x, "cpu") else x)
+    bad = []
+    for name, args, out in calls:
+        want = twins[name](*cpu(args))
+        got = out if isinstance(out, (list, tuple)) else (out,)
+        want = want if isinstance(want, (list, tuple)) else (want,)
+        if len(got) != len(want) or not all(
+                torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            bad.append(name)
+    return bad
+
+
+@pytest.mark.cuda
+def test_cuda_headline_entry_points_kernels_equal_twins(cuda, tmp_path,
+                                                        monkeypatch):
+    """The serving headline (a 16,384-op giant racer beside 12-leaf
+    sessions) and the ops-axis headline (k = 8 logical shards, kernel 5)
+    at a small depth on the card, with no ``device=``: zero violations,
+    the sharded merge bit-identical to the single one, and every kernel
+    call of both equal to its twin."""
+    from crdt_graph_tpu_torch.scripts import (bench_opsaxis_headline,
+                                              bench_serve_headline)
+    calls = _record_calls(monkeypatch)
+    kernels.reset_launches()
+    serve = bench_serve_headline.run(
+        n_sessions=8, writes_per_session=2, n_docs=2, giant_ops=16_384,
+        out_path=str(tmp_path / "serve.json"))
+    ops = bench_opsaxis_headline.run(
+        65_536, 1, str(tmp_path / "opsaxis.json"))
+    assert serve["violations_total"] == 0
+    assert not serve["report"]["errors"]
+    assert serve["device"]["power_limit"] is not None
+    assert ops["bit_identical"] and ops["devices"] >= 2
+    names = {c[0] for c in calls}
+    assert {"plane_rows2", "prefix_sums", "monotone_gather",
+            "ring_exclusive"} <= names, names
+    assert not _twin_mismatches(calls)
+    assert sum(kernels.launches.values()) >= len(calls)

@@ -430,3 +430,71 @@ def test_bench_entry_points_refuse_cpu_fallback():
                              env=env, capture_output=True, text=True,
                              timeout=120)
         assert out.returncode != 0 and "no CUDA device" in out.stderr, mod
+
+
+SCRIPTS = sorted(p.stem for p in (PORT / "scripts").glob("*.py")
+                 if not p.stem.startswith("_"))
+
+
+def test_headline_scripts_import_with_jax_blocked():
+    """Every module of ``crdt_graph_tpu_torch.scripts`` imports with
+    ``jax`` and the reference package blocked."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['crdt_graph_tpu'] = None\n"
+        f"for name in {SCRIPTS!r}:\n"
+        "    importlib.import_module('crdt_graph_tpu_torch.scripts.' + name)\n"
+        "print(len([m for m in sys.modules\n"
+        "           if m.startswith('crdt_graph_tpu_torch.scripts.')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= len(SCRIPTS) == 18
+
+
+def test_broadcast_child_imports_no_torch():
+    """The broadcast headline's client drivers run its file with
+    ``--child`` on the standard library alone: ``torch`` (and so any
+    CUDA context) blocked, a driver of no watchers still runs and
+    reports."""
+    path = PORT / "scripts" / "bench_broadcast_headline.py"
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['torch'] = None\n"
+        "sys.modules['numpy'] = None\n"
+        f"sys.argv = [{str(path)!r}, '--child', '1', 'd', '0', '0', '1']\n"
+        f"runpy.run_path({str(path)!r}, run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    stats = json.loads(out.stdout.strip().splitlines()[-1])
+    assert stats["count"] == 0 and stats["errors"] == []
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the entry points without a card")
+def test_headline_entry_point_without_card_exits_and_writes_nothing(
+        tmp_path, monkeypatch):
+    """With no card and no ``--device``, every headline entry point exits
+    non-zero before it runs or writes anything (``python -m`` for one,
+    ``main([])`` for all 18); ``--device cpu`` is the plain path."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m",
+         "crdt_graph_tpu_torch.scripts.bench_serve_headline"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 2, (out.stdout, out.stderr)
+    assert "no CUDA device" in out.stderr and out.stdout == ""
+    import importlib
+    from crdt_graph_tpu_torch.scripts import _headline
+    monkeypatch.setattr(_headline, "OUT_DIR", tmp_path / "headline")
+    for name in SCRIPTS:
+        mod = importlib.import_module(f"crdt_graph_tpu_torch.scripts.{name}")
+        with pytest.raises(SystemExit) as e:
+            mod.main([])
+        assert e.value.code == 2, name
+    assert not (tmp_path / "headline").exists()

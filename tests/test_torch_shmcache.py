@@ -190,3 +190,41 @@ def test_reference_and_port_share_one_segment(shm_ns, first):
         for e in engines.values():
             e.close()
     assert ref._shm_listing(shm_ns) == []
+
+
+def test_attach_waits_for_the_creator_to_size_the_segment(shm_ns):
+    """A segment exists but is still empty (its creator has opened it and
+    not yet sized it): the attach waits for the size instead of failing
+    on the empty file, and a segment that stays empty is an ``OSError``
+    (a failed attach the cache counts), never a crash."""
+    import _posixshmem
+    import threading
+    import time
+    from multiprocessing import shared_memory
+
+    name = f"graftshm-{shm_ns}-sizing"
+    fd = _posixshmem.shm_open("/" + name, os.O_CREAT | os.O_EXCL
+                              | os.O_RDWR, mode=0o600)
+    try:
+        sizer = threading.Timer(0.05, os.ftruncate, (fd, 4096))
+        sizer.start()
+        t0 = time.monotonic()
+        seg = tshm.ShmBodyCache._attach(name)
+        tshm._untrack(seg)
+        assert seg.size >= 4096 and time.monotonic() - t0 >= 0.04
+        seg.close()
+        sizer.join()
+    finally:
+        os.close(fd)
+        _posixshmem.shm_unlink("/" + name)
+    empty = f"graftshm-{shm_ns}-empty"
+    fd = _posixshmem.shm_open("/" + empty, os.O_CREAT | os.O_EXCL
+                              | os.O_RDWR, mode=0o600)
+    try:
+        with pytest.raises(OSError):
+            tshm.ShmBodyCache._attach(empty)
+        with pytest.raises(ValueError):
+            shared_memory.SharedMemory(name=empty)   # what it guards
+    finally:
+        os.close(fd)
+        _posixshmem.shm_unlink("/" + empty)
