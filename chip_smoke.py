@@ -62,10 +62,15 @@ with ``GRAFT_OBS_AUDIT_EVERY=1`` takes one 65,536-op commit whose flight
 record must carry an ``ok`` audit of its own merge.  Its ``audit:``
 line carries the counts by stage and the audit's cost.
 
-Then the docs-axis batched merge (``parallel.mesh``) is timed at B = 1,
-4 and 16 documents beside the same documents merged one by one, and the
-multi-device layer runs (its own counted path, the ``multidevice``
-phase) on 8 logical devices (the one card 8 times, or the visible cards
+Then the docs-axis batched merge runs (its own counted path, the
+``mesh`` phase): ``parallel.mesh.batched_materialize`` merges B = 1, 4
+and 16 documents of 65,536 ops as ONE merge over a leading document
+axis, timed beside the same documents merged one by one; at B = 16 both
+legs launch each kernel's batched form as often as one single merge
+does, every call equals its batched twin, every slice its single merge;
+the batched kernels also meet per-document traps (wild indices, hops,
+wrapping lanes), and the multi-device layer runs (its own counted
+path, the ``multidevice`` phase) on 8 logical devices (the one card 8 times, or the visible cards
 in turn, logged): ``parallel.shard.shard_materialize`` of config 5 in
 both hint modes, of the deletes batch and of a hostile-hints copy that
 must fall back, and ``parallel.mesh.sharded_materialize`` of config 5,
@@ -149,7 +154,9 @@ C = 3 and C = 17, captured from unvouched 1M-op merges.  Exits
 non-zero, printing no result, without a CUDA device or without the
 package beside it.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launches (all paths), errors and times;
+lists the kernels with their launches (all paths), errors and times,
+the batched forms (``*_batched``) as rows of their own, timed on the
+B = 16 batch's arguments;
 the ``audit:``, ``serve:``, ``mesh:``, ``multidevice:``, ``fleet:``, ``bench:``,
 ``walshared:``, ``shmcache:`` and ``headline:`` lines carry the serving,
 batching, fleet, benchmark, WAL, shared-cache and headline numbers with
@@ -188,6 +195,13 @@ KERNELS = {
 # ops-axis sharded merge)
 MERGE_KERNELS = ("plane_rows", "plane_rows2", "prefix_sums",
                  "monotone_gather")
+# their batched forms (a leading document axis, one launch a batch): the
+# docs-axis batched merge's kernels, built from the same sources
+BATCHED = {k + "_batched": KERNELS[k] for k in MERGE_KERNELS}
+# the batched forms the default (join-leg) batched merge of documents
+# without deletes launches, and how often a batch
+BATCHED_JOIN = {"plane_rows_batched": 2, "prefix_sums_batched": 1,
+                "monotone_gather_batched": 1}
 
 
 def log(msg: str) -> None:
@@ -228,11 +242,15 @@ def _outputs(x):
 # every kernel wrapper of the port: (module name, attribute)
 WRAPPERS = (("fused_resolve", "plane_rows"), ("fused_resolve", "plane_rows2"),
             ("tour_scan", "prefix_sums"), ("mono_gather", "monotone_gather"),
-            ("tour_scan", "ring_exclusive"))
+            ("tour_scan", "ring_exclusive"),
+            ("fused_resolve", "plane_rows_batched"),
+            ("fused_resolve", "plane_rows2_batched"),
+            ("tour_scan", "prefix_sums_batched"),
+            ("mono_gather", "monotone_gather_batched"))
 
 
 def wrapper_modules(names=None):
-    """[(module, attribute)] of the kernel wrappers named (all five by
+    """[(module, attribute)] of the kernel wrappers named (all nine by
     default), for :func:`capture_inputs`."""
     import importlib
     return [(importlib.import_module(f"crdt_graph_tpu_torch.ops.{m}"), a)
@@ -281,6 +299,65 @@ def fold_errors(record, errs):
     for kname, e in errs.items():
         rec = record["kernels"].setdefault(kname, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
+
+def batched_edge_cases(kname, args, rng, dev):
+    """The batched kernels' traps at the mesh phase's shapes, from one
+    recorded call's arguments: every document's indices wild (negative,
+    past R, the int32 extremes), each document's a different draw so a
+    neighbour's rows would show; kernel 2's hop column wild and negative;
+    kernel 3's lanes at the int32 extremes, so a carry across a document
+    boundary would wrap into the next; B = 1 and B = 3 with a ragged
+    last block; a kernel-1 plane of odd C (the one-column access)."""
+    import numpy as np
+    import torch
+
+    def ints(lo, hi, shape, dtype=np.int32):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(dtype)).to(dev)
+
+    out = [args]
+    if kname in ("plane_rows_batched", "plane_rows2_batched"):
+        plane, idx = args[0], args[1]
+        b, r, c = plane.shape
+        t = idx.shape[1]
+        wild = ints(-2 * r, 2 * r, (b, t))
+        wild[:, :6] = torch.tensor([-1, -r, -r - 5, r, 2**31 - 1, -2**31],
+                                   dtype=torch.int32)
+        out.append((plane, wild) + tuple(args[2:]))
+        if kname == "plane_rows2_batched":
+            far = plane.clone()
+            far[:, :, args[2]] = ints(-r // 4, r + 7, (b, r), np.int64)
+            out.append((far, wild, args[2]))
+        ragged = (t // 256) * 256 - 1
+        out.append((plane[:1].contiguous(), idx[:1, :ragged].contiguous())
+                   + tuple(args[2:]))
+        out.append((plane[:3].contiguous(), wild[:3, :ragged].contiguous())
+                   + tuple(args[2:]))
+        if kname == "plane_rows_batched":
+            odd = ints(-2**31, 2**31 - 1, (3, 4099, 3), np.int64)
+            out.append((odd, ints(-9000, 9000, (3, 5001))))
+        return out
+    if kname == "prefix_sums_batched":
+        bnd, w = args
+        b, t = bnd.shape
+        kw, m = w.shape[1:]
+        out.append((ints(-2**31, 2**31 - 1, (b, t)),
+                    ints(-2**31, 2**31 - 1, (b, kw, m))))
+        out.append((ints(0, 2, (3, t - 3)), ints(-5, 9, (3, 2, m + 1))))
+        out.append((ints(0, 2, (1, 4097)),
+                    torch.zeros((1, 0, 4097), dtype=torch.int32,
+                                device=dev)))
+        return out
+    vals, rid = args
+    b, v, r = vals.shape
+    t = rid.shape[1]
+    bad = rid.clone()
+    bad[:, :4] = torch.tensor([-1, -3, r, 2**31 - 1], dtype=torch.int32)
+    out.append((ints(-2**31, 2**31 - 1, (b, v, r)), bad))
+    out.append((vals[:3].contiguous(), bad[:3, :t - 5].contiguous()))
+    out.append((ints(-9, 9, (2, 7, r)), rid[:2].contiguous()))
+    return out
+
 
 N_AUDIT = 65_536               # the audit's card == CPU size (the sampler's floor)
 AUDIT_SHARDS = 8               # the ops-axis audit's logical shards
@@ -1756,7 +1833,7 @@ def serve_phase(dev, record, twins, card):
         if grouped < 1:
             raise RuntimeError("the staged round never grouped on the card")
         errs = twin_errors(caught, twins)
-        for k in ("plane_rows", "prefix_sums", "monotone_gather"):
+        for k in BATCHED_JOIN:
             if k not in errs:
                 raise RuntimeError(f"the batched merge never called {k}")
         if any(e != 0 for e in errs.values()):
@@ -1875,8 +1952,10 @@ def serve_phase(dev, record, twins, card):
             "read_p99_ms": float(np.percentile(read_ms, 99)),
             "launches": launches,
             "coalesce": eng.counters.get("fused_batches")})
-        for k in ("plane_rows", "plane_rows2", "prefix_sums",
-                  "monotone_gather"):
+        # document 0's giant single takes the vouched leg; the grouped
+        # round is one batched merge on the join leg
+        for k in ("plane_rows2", "prefix_sums", "monotone_gather",
+                  *BATCHED_JOIN):
             if launches.get(k, 0) < 1:
                 raise RuntimeError(f"the served path never launched {k}")
 
@@ -1967,18 +2046,31 @@ def serve_phase(dev, record, twins, card):
 
 
 def mesh_phase(dev, record, twins, card):
-    """The docs-axis batched merge on the card: 16 documents of 65,536
-    chain ops (4 to 512 replicas each), batched at B = 1, 4 and 16 and
+    """The docs-axis batched merge on the card (its own counted drive).
+    16 documents of 65,536 chain ops (4 to 512 replicas each) merge as
+    ONE batched merge (``parallel.mesh.batched_materialize``: one chain
+    of dispatches and host reads over a leading document axis, each
+    kernel's batched form launched once a batch) at B = 1, 4 and 16,
     timed beside the same B documents merged one by one (the join leg
     the batch runs, and the vouched leg a single commit would take).
-    Every document's slice == its single merge, and every kernel call
-    of the B = 16 batch == its twin.  Launches counted here do not feed
-    the ``kernels`` line (the serve phase is the main path)."""
+
+    At B = 16 both legs of the batch (the default join leg, and
+    ``exhaustive_hints=True``) run counted from zero: each leg launches
+    every kernel of its single merge as often as ONE single merge does
+    (not 16 times), and nothing else; every kernel call equals its
+    batched twin; every document's slice of either leg equals its own
+    single join merge field for field.  The trace audit counts the
+    batch's device ops, reads and kernel calls beside one single
+    merge's, and the batch's peak device memory is read.  Returns the
+    counted drive's launches and, by batched kernel, the arguments of
+    its first call (the kernels' timing takes them)."""
     import numpy as np
-    from crdt_graph_tpu_torch import convert
+    import torch
+    from crdt_graph_tpu_torch import convert, kernels
     from crdt_graph_tpu_torch.bench import honest, workloads
     from crdt_graph_tpu_torch.ops import merge
     from crdt_graph_tpu_torch.parallel import mesh
+    from crdt_graph_tpu_torch.utils import chainaudit
 
     docs = [packed_chain(workloads.chain_workload(4 << (i % 8), N_MESH),
                          N_MESH) for i in range(max(MESH_WIDTHS))]
@@ -1987,7 +2079,7 @@ def mesh_phase(dev, record, twins, card):
         stacked, aligned = mesh.stack_aligned(docs[:b])
         cols = [p.arrays() for p in aligned]   # host columns, made once
         legs = {
-            "batched": lambda: mesh.materialize_each(stacked, device=dev),
+            "batched": lambda: mesh.batched_materialize(stacked, device=dev),
             "singles_join": lambda: [merge.materialize(
                 a, hints="join", device=dev) for a in cols],
             "singles_vouched": lambda: [merge.materialize(
@@ -1999,31 +2091,96 @@ def mesh_phase(dev, record, twins, card):
                 legs[name], repeats=5)["times_ms"])
         row = {n: float(np.median(v)) / b for n, v in times.items()}
         out["widths"][b] = {"per_doc_ms": row, "times_ms": times}
-        if b == max(MESH_WIDTHS):
-            got = {}
-            caught = capture_inputs(
-                lambda: got.setdefault("t", legs["batched"]()),
-                wrapper_modules())
-            errs = twin_errors(caught, twins)
-            if any(e != 0 for e in errs.values()):
-                raise RuntimeError(f"batched kernel calls differ: {errs}")
-            fold_errors(record, errs)
-            for i, c in enumerate(cols):
-                a = convert.table_to_numpy(got["t"][i])
-                s = convert.table_to_numpy(merge.materialize(
-                    c, hints="join", device=dev))
-                if any(not np.array_equal(a[f], s[f])
-                       for f in merge.FIELDS):
-                    raise RuntimeError(f"doc {i}'s slice != its merge")
-            out["twin_calls"] = {k: len(v) for k, v in caught.items()}
+
+    # ---- B = 16, both legs, counted ------------------------------------
+    b = max(MESH_WIDTHS)
+    stacked, aligned = mesh.stack_aligned(docs[:b])
+    cols = [p.arrays() for p in aligned]
+    runs = {"join": lambda: mesh.batched_materialize(stacked, device=dev),
+            "vouched": lambda: mesh.batched_materialize(
+                stacked, device=dev, exhaustive_hints=True)}
+    single_hints = {"join": "join", "vouched": "exhaustive"}
+    # what one single merge of each leg launches: the batch's expectation
+    expect = {}
+    for leg, hints in single_hints.items():
+        kernels.reset_launches()
+        merge.materialize(cols[0], hints=hints, device=dev)
+        torch.cuda.synchronize()
+        expect[leg] = {k + "_batched": n for k, n in kernels.launches.items()
+                       if n}
+    want_join = [convert.table_to_numpy(merge.materialize(
+        c, hints="join", device=dev)) for c in cols]
+    got = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    caught = capture_inputs(
+        lambda: [got.setdefault(leg, fn()) for leg, fn in runs.items()],
+        wrapper_modules())
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    want = {}
+    for leg in runs:
+        for k, n in expect[leg].items():
+            want[k] = want.get(k, 0) + n
+    if {k: n for k, n in launches.items() if n} != want:
+        raise RuntimeError(f"the B = {b} batches launched {launches}, want "
+                           f"{want} (one single merge's kernels a leg)")
+    for k in BATCHED_JOIN:
+        if launches[k] < 1:
+            raise RuntimeError(f"the batched merge never launched {k}")
+    errs = twin_errors(caught, twins)
+    if any(e != 0 for e in errs.values()) or set(errs) != set(want):
+        raise RuntimeError(f"batched kernel calls differ: {errs}")
+    fold_errors(record, errs)
+    for leg, btab in got.items():
+        for i in range(b):
+            s = convert.table_to_numpy(mesh.doc_table(btab, i))
+            bad = [f for f in merge.FIELDS
+                   if s[f].dtype != want_join[i][f].dtype
+                   or not np.array_equal(s[f], want_join[i][f])]
+            if bad:
+                raise RuntimeError(f"{leg} batch: doc {i}'s slice != its "
+                                   f"single merge in {bad}")
+    args = {k: v[0][0] for k, v in caught.items()}
+    out["twin_calls"] = {k: len(v) for k, v in caught.items()}
+    out["launches_per_batch"] = {leg: expect[leg] for leg in runs}
+    out["launches"] = launches
+    del caught, got
+
+    # ---- the trace audit: one batch against one single merge -----------
+    nd = merge.host_no_deletes(stacked["kind"])
+    audit = {}
+    for leg, hints in single_hints.items():
+        for what, arrs in (("single", cols[0]), (f"batch{b}", stacked)):
+            a = chainaudit.audit_materialize(arrs, hints, nd, dev)
+            audit[f"{leg}_{what}"] = {
+                "device_ops": a.device_ops, "read_syncs": a.read_syncs,
+                "host_syncs": a.host_syncs, "kernel_calls": a.kernel_calls,
+                "merges": a.merges}
+    out["audit"] = audit
+
+    # ---- the batch's peak device memory --------------------------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs["join"]()
+    torch.cuda.synchronize()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_mem_over_base_bytes"] = out["peak_mem_bytes"] - base
     record["mesh"] = out
     log("mesh: " + json.dumps({
-        "card": card, "ops_per_doc": N_MESH,
-        "per_doc_ms": {b: {n: round(v, 4) for n, v in
-                           out["widths"][b]["per_doc_ms"].items()}
-                       for b in MESH_WIDTHS}}))
-    log(f"mesh: B = {max(MESH_WIDTHS)} slices == single merges; "
-        f"{out['twin_calls']} kernel calls == twins")
+        "card": card, "ops_per_doc": N_MESH, "path":
+        "mesh.batched_materialize: one merge over a leading document axis",
+        "per_doc_ms": {b_: {n: round(v, 4) for n, v in
+                            out["widths"][b_]["per_doc_ms"].items()}
+                       for b_ in MESH_WIDTHS},
+        "launches_per_batch": out["launches_per_batch"],
+        "audit": audit, "peak_mem_bytes": out["peak_mem_bytes"],
+        "peak_mem_over_base_bytes": out["peak_mem_over_base_bytes"]}))
+    log(f"mesh: B = {b}, both legs: slices == single merges; "
+        f"{out['twin_calls']} kernel calls == batched twins; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, args
 
 
 
@@ -2033,6 +2190,10 @@ MD_DOCS = 8                    # bench_docs_axis's documents, and the fleet's
 MD_PROCS = 2                   # processes of the two-process leg
 MD_CHILD_TIMEOUT_S = 300       # each of them at most
 MD_REPEATS = 5                 # timed repeats of each single-merge path
+# bench_docs_axis's batched_vs_seq at 8 x 1M on one H100 when the docs
+# axis ran its merges back to back, one per document (PERF.md, section
+# 5): printed beside this run's
+DOCS_AXIS_BACK_TO_BACK = 0.995
 
 
 def md_fingerprints(table):
@@ -2313,10 +2474,14 @@ def _multidevice_runs(dev, record, adds, dels, twins, card, out, kids):
                 raise RuntimeError(f"bench_docs_axis: num_visible "
                                    f"{result['num_visible']}")
             res["docs_axis"] = {kk: result[kk] for kk in (
-                "n_docs", "ops_per_doc", "mesh", "platform",
+                "n_docs", "ops_per_doc", "mesh", "path", "platform",
                 "batched_p50_s", "batched_agg_ops_per_s",
                 "batched_compile_s", "seq_single_device_s",
                 "seq_agg_ops_per_s", "batched_vs_seq")}
+            # the same row when the docs axis ran its merges back to
+            # back (PERF.md, section 5)
+            res["docs_axis"]["batched_vs_seq_back_to_back"] = \
+                DOCS_AXIS_BACK_TO_BACK
         del result
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
@@ -2334,8 +2499,9 @@ def _multidevice_runs(dev, record, adds, dels, twins, card, out, kids):
     if not (per_run["sharded"]["launches"]["ring_exclusive"]
             and per_run["mesh_2d"]["launches"]["ring_exclusive"]):
         raise RuntimeError("the ops-axis paths never launched kernel 5")
-    if not per_run["docs_axis"]["launches"]["plane_rows2"]:
-        raise RuntimeError("bench_docs_axis never launched kernel 2")
+    if not per_run["docs_axis"]["launches"]["plane_rows2_batched"]:
+        raise RuntimeError("bench_docs_axis never launched kernel 2's "
+                           "batched form")
 
     # ---- the two-process leg ------------------------------------------
     t0 = time.perf_counter()
@@ -2592,7 +2758,7 @@ def fleet_phase(dev, record, twins, card):
 
         caught = capture_inputs(clean_leg, wrapper_modules())
         errs = twin_errors(caught, twins)
-        for k in ("plane_rows", "prefix_sums", "monotone_gather"):
+        for k in BATCHED_JOIN:
             if k not in errs:
                 raise RuntimeError(f"the worker's epochs never called {k}")
         if any(e != 0 for e in errs.values()):
@@ -3408,7 +3574,10 @@ def walshared_phase(dev, record, twins, card):
         srv.store.close()
         perdoc["phase_s"] = time.perf_counter() - t0
         launches = dict(kernels.launches)
-        for k in MERGE_KERNELS:
+        # document 0's giant single (vouched leg), the staged rounds'
+        # batched merges (join leg)
+        for k in ("plane_rows2", "prefix_sums", "monotone_gather",
+                  *BATCHED_JOIN):
             if launches.get(k, 0) < 1:
                 raise RuntimeError(f"the walshared phase never launched {k}")
         out.update(shared=shared, perdoc=perdoc, launches=launches,
@@ -4040,13 +4209,18 @@ SIDE_TIMEOUT_S = 1100          # the side child's limit, inside the script's
 
 
 def twin_fns():
-    """Each kernel's plain PyTorch version, by name."""
+    """Each kernel's plain PyTorch version, by name (the batched forms'
+    too)."""
     from crdt_graph_tpu_torch.ops import fused_resolve as fr, \
         mono_gather as mg, tour_scan as ts
     return {"plane_rows": fr.plain_rows, "plane_rows2": fr.plain_rows2,
             "prefix_sums": ts.plain_prefix,
             "monotone_gather": mg.plain_gather,
-            "ring_exclusive": ts.plain_ring_exclusive}
+            "ring_exclusive": ts.plain_ring_exclusive,
+            "plane_rows_batched": fr.plain_rows_batched,
+            "plane_rows2_batched": fr.plain_rows2_batched,
+            "prefix_sums_batched": ts.plain_prefix_batched,
+            "monotone_gather_batched": mg.plain_gather_batched}
 
 
 def side_start(route_on: bool):
@@ -4250,7 +4424,11 @@ def main(argv=None) -> int:
     calls = {"plane_rows": fr.plane_rows, "plane_rows2": fr.plane_rows2,
              "prefix_sums": ts.prefix_sums,
              "monotone_gather": mg.monotone_gather,
-             "ring_exclusive": ts.ring_exclusive}
+             "ring_exclusive": ts.ring_exclusive,
+             "plane_rows_batched": fr.plane_rows_batched,
+             "plane_rows2_batched": fr.plane_rows2_batched,
+             "prefix_sums_batched": ts.prefix_sums_batched,
+             "monotone_gather_batched": mg.monotone_gather_batched}
 
     def edge_cases(kname, args):
         """Synthetic inputs at the main-path shapes: negative hops,
@@ -4478,15 +4656,34 @@ def main(argv=None) -> int:
     serve_launches = serve_phase(dev, record, twins, card)
     record["phases"]["serve_s"] = time.perf_counter() - t0
 
-    # ---- 9. the docs-axis batched merge, B = 1, 4, 16 ------------------
+    # ---- 9. the docs-axis batched merge, B = 1, 4, 16 (its own counted
+    # drive at B = 16) ---------------------------------------------------
     t0 = time.perf_counter()
-    mesh_phase(dev, record, twins, card)
+    mesh_launches, batched_args = mesh_phase(dev, record, twins, card)
     record["phases"]["mesh_s"] = time.perf_counter() - t0
 
     # ---- 9b. the multi-device layer (its own counted drive) -------------
     t0 = time.perf_counter()
     md_launches = multidevice_phase(dev, record, adds, dels, twins, card)
     record["phases"]["multidevice_s"] = time.perf_counter() - t0
+
+    # ---- 9a. the batched kernels against their twins: the mesh phase's
+    # calls (held there), then per-document traps at its shapes ----------
+    for kname in BATCHED:
+        if kname not in batched_args:
+            raise RuntimeError(f"the batched merge never called {kname}")
+        errs = []
+        for args in batched_edge_cases(kname, batched_args[kname], rng, dev):
+            got = _outputs(calls[kname](*args))
+            want = _outputs(twins[kname](*_cpu(args)))
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, want))
+        fold_errors(record, {kname: max(errs)})
+        record["kernels"][kname]["edge_cases"] = len(errs)
+        log(f"kernel {kname}: {len(errs)} edge cases vs batched twin, "
+            f"max_abs_err {max(errs)}")
+        if max(errs) != 0:
+            raise RuntimeError(f"{kname} disagrees with its batched twin")
 
     # ---- 10. the merge tier and the fleet (their own counted drive) ----
     t0 = time.perf_counter()
@@ -4557,8 +4754,9 @@ def main(argv=None) -> int:
     k1_widths = {key: a for key, a in kerneltime.kernel1_inputs(dev).items()
                  if key != "plane_rows"}
     rows = []
-    for kname, (src, replaces) in KERNELS.items():
-        args = ring_args if kname == "ring_exclusive" else caught[kname][0][0]
+    for kname, (src, replaces) in {**KERNELS, **BATCHED}.items():
+        args = ring_args if kname == "ring_exclusive" else \
+            batched_args[kname] if kname in BATCHED else caught[kname][0][0]
         tk = kerneltime.time_kernel(kname, calls[kname], twins[kname], args)
         rec = record["kernels"][kname]
         rec["timing"] = tk
@@ -4632,19 +4830,18 @@ def main(argv=None) -> int:
             rec["widths"] = widths
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": launches[kname] + audit_launches[kname]
-                     + engine_launches[kname]
-                     + dur_launches[kname] + ops_launches[kname]
-                     + serve_launches.get(kname, 0)
-                     + fleet_launches.get(kname, 0)
-                     + bench_launches.get(kname, 0)
-                     + wal_shm_launches.get(kname, 0)
-                     + headline_launches.get(kname, 0)
-                     + md_launches.get(kname, 0),
+                     "launches": sum(d.get(kname, 0) for d in (
+                         launches, audit_launches, engine_launches,
+                         dur_launches, ops_launches, serve_launches,
+                         mesh_launches, fleet_launches, bench_launches,
+                         wal_shm_launches, headline_launches, md_launches)),
+                     "launches_mesh": mesh_launches.get(kname, 0),
+                     "launches_serve": serve_launches.get(kname, 0),
+                     "launches_fleet": fleet_launches.get(kname, 0),
                      "launches_multidevice": md_launches.get(kname, 0),
                      "launches_wal_shm": wal_shm_launches.get(kname, 0),
                      "launches_headline": headline_launches.get(kname, 0),
-                     "launches_audit": audit_launches[kname],
+                     "launches_audit": audit_launches.get(kname, 0),
                      "max_abs_err": rec["max_abs_err"], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": l_ms,

@@ -206,7 +206,17 @@ def launch_floor_ms() -> float:
 def work_of(kname: str, args):
     """(bytes, operations) the kernel's function must do for these
     inputs: each input element it needs read once, each output written
-    once."""
+    once.  A batched form's work is its documents' summed (each reads
+    only its own plane)."""
+    if kname == "prefix_sums_batched":
+        return work_of("prefix_sums", args)
+    if kname.endswith("_batched"):
+        one = kname[:-len("_batched")]
+        nb = nops = 0
+        for b in range(int(args[0].shape[0])):
+            w = work_of(one, (args[0][b], args[1][b]) + tuple(args[2:]))
+            nb, nops = nb + w[0], nops + w[1]
+        return nb, nops
     if kname in ("plane_rows", "plane_rows2"):
         from crdt_graph_tpu_torch.ops import fused_resolve as fr
         plane, idx = args[0], args[1]
@@ -260,6 +270,23 @@ def library(kname: str, args):
     if kname == "monotone_gather":
         vals, rid = args
         return lambda: torch.index_select(vals, 1, rid)
+    if kname == "plane_rows_batched":
+        # one gather of rows over the leading document axis (the index
+        # widened and broadcast over the columns beforehand)
+        plane, idx = args
+        wide = idx.long()[:, :, None].expand(-1, -1, plane.shape[2])
+        return lambda: torch.gather(plane, 1, wide)
+    if kname == "prefix_sums_batched":
+        b, w = args
+        stacked = torch.zeros((b.shape[0], 1 + w.shape[1], b.shape[1]),
+                              dtype=torch.int32, device=dev)
+        stacked[:, 0] = b
+        stacked[:, 1:, :w.shape[2]] = w
+        return lambda: torch.cumsum(stacked, 2, dtype=torch.int32)
+    if kname == "monotone_gather_batched":
+        vals, rid = args
+        wide = rid.long()[:, None, :].expand(-1, vals.shape[1], -1)
+        return lambda: torch.gather(vals, 2, wide)
     if kname == "ring_exclusive":
         # one cumsum over the zero-prepended [k + 1, L] stack: row i is
         # shard i's exclusive sum

@@ -993,15 +993,18 @@ def _aggregate_watch(engine) -> Dict[str, Any]:
 
 
 def _opsaxis_report():
+    """The ops-axis routing counters and the shard audit of this run's
+    first routed merge under ``"audit"`` — None when the run routed
+    none.  The key is always there: the reference attaches the audit of
+    whatever merge last routed in the process, earlier work included,
+    so its report has the key whenever anything ever routed."""
     from ..parallel import opsaxis
     out = opsaxis.stats()
     opsaxis.arm_audit(False)
     try:
-        audit = opsaxis.audit_last()
+        out["audit"] = opsaxis.audit_last()
     except Exception as e:  # pragma: no cover - disclosure over failure
-        audit = {"error": repr(e)[:200]}
-    if audit is not None:
-        out["audit"] = audit
+        out["audit"] = {"error": repr(e)[:200]}
     return out
 
 

@@ -20,7 +20,9 @@ from .ops.merge import FIELDS, NodeTable
 
 def ops_from_numpy(arrs: Dict, device) -> Dict[str, torch.Tensor]:
     """Packed op columns (numpy arrays or tensors, as
-    ``PackedOps.arrays()`` gives them) → tensors on ``device``."""
+    ``PackedOps.arrays()`` gives them, or a batch's ``[B, N]`` columns,
+    as ``parallel.mesh.stack_packed`` stacks them) → tensors on
+    ``device``, shapes and dtypes unchanged."""
     out = {}
     for k, v in arrs.items():
         if isinstance(v, torch.Tensor):

@@ -1,4 +1,6 @@
-// Run-to-token rank expansion: out[v, t] = values[v, rid[t]].
+// Run-to-token rank expansion: out[v, t] = values[v, rid[t]]; batched,
+// out[b, v, t] = values[b, v, rid[b, t]] (blockIdx.y walks the documents,
+// and each index is clamped against the document's own R).
 //
 // Replaces the Pallas kernel of crdt_graph_tpu/ops/mono_gather.py
 // (monotone_gather -> _pallas_call -> _kernel).  Semantics are the
@@ -39,56 +41,72 @@
 
 template <int VT>
 __global__ void __launch_bounds__(MG_THREADS)
-mono_gather_kernel(const int32_t* __restrict__ values, int V, int R,
-                   const int32_t* __restrict__ rid, int T,
-                   int32_t* __restrict__ out) {
+mono_gather_kernel(const int32_t* __restrict__ values_all, int64_t B, int V,
+                   int R, const int32_t* __restrict__ rid_all, int T,
+                   int32_t* __restrict__ out_all) {
   const int nv = VT > 0 ? VT : V;
   const int t0 = blockIdx.x * MG_TILE + threadIdx.x;
-  int r[MG_ITEMS];
-#pragma unroll
-  for (int k = 0; k < MG_ITEMS; ++k) {
-    const int t = t0 + k * MG_THREADS;
-    r[k] = t < T ? jax_row32(__ldg(rid + t), R) : 0;
-  }
-  // nv is a constant for VT > 0: the row loop unrolls
-  for (int v = 0; v < nv; ++v) {
-    const int32_t* vrow = values + (int64_t)v * R;
-    int32_t* orow = out + (int64_t)v * T;
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    const int32_t* values = values_all + b * V * (int64_t)R;
+    const int32_t* rid = rid_all + b * T;
+    int32_t* out = out_all + b * V * (int64_t)T;
+    int r[MG_ITEMS];
 #pragma unroll
     for (int k = 0; k < MG_ITEMS; ++k) {
       const int t = t0 + k * MG_THREADS;
-      if (t < T) orow[t] = __ldg(vrow + r[k]);
+      r[k] = t < T ? jax_row32(__ldg(rid + t), R) : 0;
+    }
+    // nv is a constant for VT > 0: the row loop unrolls
+    for (int v = 0; v < nv; ++v) {
+      const int32_t* vrow = values + (int64_t)v * R;
+      int32_t* orow = out + (int64_t)v * T;
+#pragma unroll
+      for (int k = 0; k < MG_ITEMS; ++k) {
+        const int t = t0 + k * MG_THREADS;
+        if (t < T) orow[t] = __ldg(vrow + r[k]);
+      }
     }
   }
 }
 
 template <int VT>
-static int launch(const void* values, int V, int R, const void* rid, int T,
-                  void* out, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((T + MG_TILE - 1) / MG_TILE);
-  mono_gather_kernel<VT><<<blocks, MG_THREADS, 0, stream>>>(
-      (const int32_t*)values, V, R, (const int32_t*)rid, T, (int32_t*)out);
+static int launch(const void* values, int64_t B, int V, int R,
+                  const void* rid, int T, void* out, cudaStream_t stream) {
+  const dim3 grid((unsigned)((T + MG_TILE - 1) / MG_TILE),
+                  (unsigned)(B < 65535 ? B : 65535));
+  mono_gather_kernel<VT><<<grid, MG_THREADS, 0, stream>>>(
+      (const int32_t*)values, B, V, R, (const int32_t*)rid, T,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int crdt_monotone_gather(const void* values, int64_t V, int64_t R,
-                                    const void* rid, int64_t T, void* out,
-                                    void* stream) {
-  if (V < 1 || V > 0x7fffffff || R < 1 || R > 0x7fffffff - MG_TILE ||
-      T < 0 || T > 0x7fffffff - MG_TILE)
+// B documents: values [B, V, R], rid [B, T], out [B, V, T].
+extern "C" int crdt_monotone_gather_batched(const void* values, int64_t B,
+                                            int64_t V, int64_t R,
+                                            const void* rid, int64_t T,
+                                            void* out, void* stream) {
+  if (B < 0 || V < 1 || V > 0x7fffffff || R < 1 ||
+      R > 0x7fffffff - MG_TILE || T < 0 || T > 0x7fffffff - MG_TILE)
     return (int)cudaErrorInvalidValue;
-  if (T == 0) return (int)cudaSuccess;
+  if (B == 0 || T == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const int v = (int)V, r = (int)R, t = (int)T;
   switch (v) {
-    case 1: return launch<1>(values, v, r, rid, t, out, s);
-    case 2: return launch<2>(values, v, r, rid, t, out, s);
-    case 3: return launch<3>(values, v, r, rid, t, out, s);
-    case 4: return launch<4>(values, v, r, rid, t, out, s);
-    case 5: return launch<5>(values, v, r, rid, t, out, s);
-    case 6: return launch<6>(values, v, r, rid, t, out, s);
-    case 7: return launch<7>(values, v, r, rid, t, out, s);
-    case 8: return launch<8>(values, v, r, rid, t, out, s);
-    default: return launch<0>(values, v, r, rid, t, out, s);
+    case 1: return launch<1>(values, B, v, r, rid, t, out, s);
+    case 2: return launch<2>(values, B, v, r, rid, t, out, s);
+    case 3: return launch<3>(values, B, v, r, rid, t, out, s);
+    case 4: return launch<4>(values, B, v, r, rid, t, out, s);
+    case 5: return launch<5>(values, B, v, r, rid, t, out, s);
+    case 6: return launch<6>(values, B, v, r, rid, t, out, s);
+    case 7: return launch<7>(values, B, v, r, rid, t, out, s);
+    case 8: return launch<8>(values, B, v, r, rid, t, out, s);
+    default: return launch<0>(values, B, v, r, rid, t, out, s);
   }
+}
+
+// One document: the batch of one.
+extern "C" int crdt_monotone_gather(const void* values, int64_t V, int64_t R,
+                                    const void* rid, int64_t T, void* out,
+                                    void* stream) {
+  return crdt_monotone_gather_batched(values, 1, V, R, rid, T, out, stream);
 }

@@ -1,5 +1,7 @@
 // Tour-tail prefix sums: inclusive int32 cumsums of boundary[T] and of
-// each row of weights[Kw, M], every lane independent.
+// each row of weights[Kw, M], every lane independent; batched, of each
+// document's boundary[b, T] and weights[b, Kw, M] (B boundary lanes and
+// B * Kw weight lanes, each restarting at its own first element).
 //
 // Replaces the Pallas kernel of crdt_graph_tpu/ops/tour_scan.py
 // (prefix_sums -> _pallas_call -> _kernel).  Semantics are the
@@ -64,7 +66,8 @@ struct Lanes {
   const int32_t* w;
   int32_t* ow;
   int64_t M;
-  int64_t tiles_b;  // tiles of the boundary lane
+  int64_t nb;       // boundary lanes (the documents), T apart
+  int64_t tiles_b;  // tiles of each boundary lane
   int64_t tiles_w;  // tiles of each weight lane
 };
 
@@ -126,14 +129,16 @@ scan_lookback(Lanes L, unsigned long long* __restrict__ scratch) {
   const int32_t* in;
   int32_t* out;
   int64_t n, j;
-  if (g < L.tiles_b) {
-    in = L.b;
-    out = L.ob;
+  const int64_t all_b = L.nb * L.tiles_b;
+  if (g < all_b) {
+    const int64_t q = g / L.tiles_b;
+    j = g - q * L.tiles_b;
+    in = L.b + q * L.T;
+    out = L.ob + q * L.T;
     n = L.T;
-    j = g;
   } else {
-    const int64_t q = (g - L.tiles_b) / L.tiles_w;
-    j = g - L.tiles_b - q * L.tiles_w;
+    const int64_t q = (g - all_b) / L.tiles_w;
+    j = g - all_b - q * L.tiles_w;
     in = L.w + q * L.M;
     out = L.ow + q * L.M;
     n = L.M;
@@ -223,27 +228,44 @@ scan_lookback(Lanes L, unsigned long long* __restrict__ scratch) {
   }
 }
 
-// scratch: at least 1 + ceil(T/4096) + Kw * ceil(M/4096) 8-byte words
-// (the tile counter, then one status word a tile); zeroed here.
-extern "C" int crdt_prefix_sums(const void* boundary, void* out_b, int64_t T,
-                                const void* weights, void* out_w, int64_t Kw,
-                                int64_t M, void* scratch, int64_t scratch_len,
-                                void* stream) {
-  if (T < 0 || M < 0 || Kw < 0) return (int)cudaErrorInvalidValue;
+// B documents: boundary and out_b [B, T], weights and out_w [B, Kw, M]
+// (B * Kw weight lanes of M).  scratch: at least 1 + B * ceil(T/4096) +
+// B * Kw * ceil(M/4096) 8-byte words (the tile counter, then one status
+// word a tile); zeroed here.
+extern "C" int crdt_prefix_sums_batched(const void* boundary, void* out_b,
+                                        int64_t B, int64_t T,
+                                        const void* weights, void* out_w,
+                                        int64_t Kw, int64_t M, void* scratch,
+                                        int64_t scratch_len, void* stream) {
+  if (B < 0 || T < 0 || M < 0 || Kw < 0) return (int)cudaErrorInvalidValue;
+  const int64_t lim = 0x7fffffff;
   const int64_t tiles_b = (T + SCAN_TILE - 1) / SCAN_TILE;
   const int64_t tiles_w = (M + SCAN_TILE - 1) / SCAN_TILE;
-  if (tiles_w > 0 && Kw > (0x7fffffff - tiles_b) / tiles_w)
+  if (B > 0 && tiles_b > lim / B) return (int)cudaErrorInvalidValue;
+  const int64_t all_b = B * tiles_b;
+  const int64_t lanes_w = B * Kw;
+  if (Kw > 0 && B > lim / Kw) return (int)cudaErrorInvalidValue;
+  if (tiles_w > 0 && lanes_w > (lim - all_b) / tiles_w)
     return (int)cudaErrorInvalidValue;
-  const int64_t tiles = tiles_b + Kw * tiles_w;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = all_b + lanes_w * tiles_w;
   if (tiles == 0) return (int)cudaSuccess;
   if (scratch_len < 1 + tiles) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(1 + tiles) * 8, s);
   if (e != cudaSuccess) return (int)e;
   Lanes L{(const int32_t*)boundary, (int32_t*)out_b, T,
-          (const int32_t*)weights, (int32_t*)out_w, M, tiles_b, tiles_w};
+          (const int32_t*)weights, (int32_t*)out_w, M, B, tiles_b, tiles_w};
   scan_lookback<<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
       L, (unsigned long long*)scratch);
   return (int)cudaGetLastError();
+}
+
+// One document: the batch of one.  scratch: at least 1 + ceil(T/4096) +
+// Kw * ceil(M/4096) 8-byte words.
+extern "C" int crdt_prefix_sums(const void* boundary, void* out_b, int64_t T,
+                                const void* weights, void* out_w, int64_t Kw,
+                                int64_t M, void* scratch, int64_t scratch_len,
+                                void* stream) {
+  return crdt_prefix_sums_batched(boundary, out_b, 1, T, weights, out_w, Kw,
+                                  M, scratch, scratch_len, stream);
 }

@@ -199,3 +199,20 @@ extern "C" int crdt_monotone_gather(const void* values, int64_t V, int64_t R,
     default: return launch<0>(values, v, r, rid, t, out, s);
   }
 }
+
+// The batched entry point the package binds, for this variant built in
+// place of csrc/mono_gather.cu: one launch a document (the variant is
+// timed on one document).
+extern "C" int crdt_monotone_gather_batched(const void* values, int64_t B,
+                                            int64_t V, int64_t R,
+                                            const void* rid, int64_t T,
+                                            void* out, void* stream) {
+  if (B < 0) return (int)cudaErrorInvalidValue;
+  for (int64_t b = 0; b < B; ++b) {
+    const int e = crdt_monotone_gather(
+        (const int32_t*)values + b * V * R, V, R, (const int32_t*)rid + b * T,
+        T, (int32_t*)out + b * V * T, stream);
+    if (e) return e;
+  }
+  return 0;
+}

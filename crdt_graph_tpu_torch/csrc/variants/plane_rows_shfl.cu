@@ -165,3 +165,22 @@ extern "C" int crdt_plane_rows_plan(int64_t C, int aligned16, int* plan) {
   plan[3] = p.rows_per_thread;
   return 0;
 }
+
+// The batched entry point the package binds, for this variant built in
+// place of csrc/plane_rows.cu: one launch a document (the variant is
+// timed on one document).
+extern "C" int crdt_plane_rows_batched(const void* plane, int64_t B,
+                                       int64_t R, int64_t C, const void* idx,
+                                       int64_t T, void* out, void* out2,
+                                       int hop_col, void* stream) {
+  if (B < 0) return (int)cudaErrorInvalidValue;
+  for (int64_t b = 0; b < B; ++b) {
+    const int e = crdt_plane_rows(
+        (const int64_t*)plane + b * R * C, R, C, (const int32_t*)idx + b * T,
+        T, (int64_t*)out + b * T * C,
+        out2 ? (void*)((int64_t*)out2 + b * T * C) : nullptr, hop_col,
+        stream);
+    if (e) return e;
+  }
+  return 0;
+}

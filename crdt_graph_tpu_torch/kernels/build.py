@@ -39,14 +39,24 @@ _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     # plane, R, C, idx, T, out, out2 (NULL = one hop), hop_col, stream
     "crdt_plane_rows": [_VP, _I64, _I64, _VP, _I64, _VP, _VP, _INT, _VP],
+    # plane, B, R, C, idx, T, out, out2, hop_col, stream (B documents)
+    "crdt_plane_rows_batched": [_VP, _I64, _I64, _I64, _VP, _I64, _VP, _VP,
+                                _INT, _VP],
     # C, aligned16, plan (int[4]: kernel 1's launch geometry)
     "crdt_plane_rows_plan": [_I64, _INT, _VP],
     # boundary, out_b, T, weights, out_w, Kw, M, scratch, scratch_len
     # (8-byte words), stream
     "crdt_prefix_sums": [_VP, _VP, _I64, _VP, _VP, _I64, _I64, _VP, _I64,
                          _VP],
+    # boundary, out_b, B, T, weights, out_w, Kw, M, scratch, scratch_len,
+    # stream (B documents)
+    "crdt_prefix_sums_batched": [_VP, _VP, _I64, _I64, _VP, _VP, _I64, _I64,
+                                 _VP, _I64, _VP],
     # values, V, R, rid, T, out, stream
     "crdt_monotone_gather": [_VP, _I64, _I64, _VP, _I64, _VP, _VP],
+    # values, B, V, R, rid, T, out, stream (B documents)
+    "crdt_monotone_gather_batched": [_VP, _I64, _I64, _I64, _VP, _I64, _VP,
+                                     _VP],
     # src pointers, dst pointers (host arrays of k), k, L, op, stream
     "crdt_ring_exclusive": [_VP, _VP, _INT, _I64, _INT, _VP],
     # device, peer

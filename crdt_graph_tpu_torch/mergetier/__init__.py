@@ -6,8 +6,8 @@ and anti-entropy; the merges of giant and coalescible rounds ship to a
 pooled **merge worker** that owns the card, accumulates candidate sets
 from the WHOLE fleet's traffic inside a ``GRAFT_MERGETIER_BATCH_MS``
 linger window, and merges each window's documents as one batched merge
-on the card (``parallel.mesh.stack_aligned`` +
-``parallel.mesh.materialize_each``).
+over a document axis on the card (``parallel.mesh.stack_aligned`` +
+``parallel.mesh.batched_materialize``).
 
 - :mod:`.wire` — the packed-npz ``POST /merge`` request/response codec
   with end-to-end digests.

@@ -6,9 +6,10 @@ ANY front-end in the fleet — inside a
 :class:`~crdt_graph_tpu_torch.parallel.mesh.LingerBatcher` window
 (``GRAFT_MERGETIER_BATCH_MS`` linger, ``GRAFT_MERGETIER_MAX_WIDTH``
 cap), then merge the whole epoch as ONE batched merge on its device
-(``stack_aligned`` + ``materialize_each``: every document's table at
-the shared capacity), read the epoch back to the host once, and hand
-each requester its own document's table.  The worker is stateless per
+(``stack_aligned`` + ``batched_materialize``: one chain of dispatches
+over a leading document axis, every document at the shared capacity),
+read the epoch back to the host once, and hand each requester its own
+document's slice of the table.  The worker is stateless per
 request (the candidate set arrives complete), so workers are a POOL:
 any request may go to any live worker, death loses no state, and the
 front-end's fallback ladder (mergetier/client.py) makes every failure
@@ -100,8 +101,8 @@ class MergeWorker:
         t0 = time.perf_counter()
         prepared = [p for p, _ in cargo]
         stacked, aligned = mesh_mod.stack_aligned(prepared)
-        tables = mesh_mod.materialize_each(stacked, device=self.device)
-        host = read_back(tables)
+        btab = mesh_mod.batched_materialize(stacked, device=self.device)
+        host = read_back(btab)
         with self._lock:
             self._last_launch_ms = (time.perf_counter() - t0) * 1e3
         width = len(cargo)
@@ -239,31 +240,25 @@ class MergeWorkerServer:
         self._thread.join(10)
 
 
-def read_back(tables: List[NodeTable]) -> List[NodeTable]:
-    """The epoch's tables → one host-numpy :class:`NodeTable` each, by
-    ONE device-to-host copy: every field of every table is viewed as
-    bytes and concatenated on the device (each padded to 8 bytes, so
-    every view below is aligned), copied once, then cut back into
-    (dtype, shape) views on the host."""
+def read_back(btab: NodeTable) -> List[NodeTable]:
+    """The epoch's batched table → one host-numpy :class:`NodeTable` a
+    document, by ONE device-to-host copy: every field is viewed as bytes
+    and concatenated on the device (each padded to 8 bytes, so every
+    view below is aligned), copied once, then cut back into (dtype,
+    shape) views on the host and sliced by document."""
     parts, layout = [], []
-    for t in tables:
-        for f in FIELDS:
-            a = getattr(t, f)
-            nbytes = a.numel() * a.element_size()
-            layout.append((a.dtype, tuple(a.shape), nbytes))
-            parts.append(a.contiguous().reshape(-1).view(torch.uint8))
-            if nbytes % 8:
-                parts.append(a.new_zeros(8 - nbytes % 8,
-                                         dtype=torch.uint8))
+    for f in FIELDS:
+        a = getattr(btab, f)
+        nbytes = a.numel() * a.element_size()
+        layout.append((f, a.dtype, tuple(a.shape), nbytes))
+        parts.append(a.contiguous().reshape(-1).view(torch.uint8))
+        if nbytes % 8:
+            parts.append(a.new_zeros(8 - nbytes % 8, dtype=torch.uint8))
     flat = torch.cat(parts).cpu().numpy()
-    out, off, k = [], 0, 0
-    for _ in tables:
-        cols = {}
-        for f in FIELDS:
-            dtype, shape, nbytes = layout[k]
-            k += 1
-            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-            cols[f] = flat[off:off + nbytes].view(np_dtype).reshape(shape)
-            off += -(-nbytes // 8) * 8
-        out.append(NodeTable(**cols))
-    return out
+    cols, off = {}, 0
+    for f, dtype, shape, nbytes in layout:
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        cols[f] = flat[off:off + nbytes].view(np_dtype).reshape(shape)
+        off += -(-nbytes // 8) * 8
+    return [NodeTable(**{f: cols[f][i, ...] for f in FIELDS})
+            for i in range(int(btab.status.shape[0]))]

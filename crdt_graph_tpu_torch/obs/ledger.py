@@ -11,7 +11,11 @@ records the stages a write crosses on its way to global visibility:
   commit's own stage breakdown (``wal_append`` + ``wal_fsync``);
 - **delivered** — the first watch delivery of the generation
   (``serve.watch.delivery_headers`` stamps it: threaded and reactor
-  egress share that one builder, so both paths are covered);
+  egress share that one builder, so both paths are covered).  The
+  scheduler resolves a commit's tickets before it stamps the ack, so
+  a watcher can be handed the generation first: such an early
+  delivery is held (bounded, :data:`EARLY_MAX`) and stamped, at zero
+  lag, by the ack that follows;
 - **visible-at-replica** — stamped on the PULLING node when an
   anti-entropy window applies: the window's ``X-Trace-Frontier``
   carries the primary's send timestamp, and the one-way delta
@@ -38,6 +42,8 @@ from ..utils.hostenv import env_int as _env_int
 DEFAULT_RING = 256
 DEFAULT_DOCS = 64
 DEFAULT_REMOTE_RING = 128
+# watch deliveries held until their commit's ack is stamped
+EARLY_MAX = 256
 
 # visibility lag in SECONDS: sub-ms local stages up through the
 # multi-second anti-entropy cadence
@@ -69,6 +75,8 @@ class VisibilityLedger:
         # (doc, peer, trace_ids, bound_s, t_wall)
         self._remote: deque = deque(maxlen=DEFAULT_REMOTE_RING)
         self._hists: Dict[Tuple[str, str], Histogram] = {}
+        # (doc, seq) of watch deliveries that beat the commit's ack
+        self._early: "OrderedDict[Tuple[str, int], None]" = OrderedDict()
         self.commits = 0
         self.watch_stamped = 0
         self.replica_applies = 0
@@ -86,9 +94,12 @@ class VisibilityLedger:
     def record_commit(self, doc_id: str, seq: int,
                       trace_ids: Tuple[str, ...],
                       durable_ms: Optional[float],
-                      publish_ms: float) -> None:
+                      publish_ms: float) -> Optional[List[str]]:
         """Ack-at-primary: called from ``ServingEngine.record_commit``
-        — the single seam every commit already crosses."""
+        — the single seam every commit already crosses.  Where a watch
+        already delivered this generation, the entry is stamped
+        delivered at zero lag and its trace ids are returned (the
+        caller registers their ``watch_delivery`` spans); else None."""
         now_wall = time.time()
         now_mono = time.perf_counter()
         entry = {"seq": seq, "trace_ids": list(trace_ids),
@@ -108,6 +119,12 @@ class VisibilityLedger:
             if durable_ms is not None:
                 self._observe("durable", "", durable_ms / 1e3)
             self._observe("publish", "", publish_ms / 1e3)
+            if self._early.pop((doc_id, seq), False) is None:
+                entry["watch_ms"] = 0.0
+                self.watch_stamped += 1
+                self._observe("watch", "", 0.0)
+                return list(entry["trace_ids"])[:8]
+        return None
 
     def note_watch_delivery(self, doc_id: str,
                             seq: int) -> Optional[List[str]]:
@@ -119,9 +136,7 @@ class VisibilityLedger:
         now_mono = time.perf_counter()
         with self._lock:
             ring = self._docs.get(doc_id)
-            if ring is None:
-                return None
-            for entry in reversed(ring):
+            for entry in reversed(ring or ()):
                 if entry["seq"] == seq:
                     if entry["watch_ms"] is not None:
                         return None
@@ -132,7 +147,12 @@ class VisibilityLedger:
                                   entry["watch_ms"] / 1e3)
                     return list(entry["trace_ids"])[:8]
                 if entry["seq"] < seq:
-                    return None
+                    break
+            if not ring or ring[-1]["seq"] < seq:
+                # delivered before its ack was stamped: held for it
+                self._early[(doc_id, seq)] = None
+                while len(self._early) > EARLY_MAX:
+                    self._early.popitem(last=False)
         return None
 
     def note_replica_apply(self, doc_id: str, peer: str,

@@ -146,7 +146,7 @@ class CommitTrace:
                  "chunk_count", "applied_ops", "dup_ops", "outcome",
                  "staleness_s", "total_ms", "error", "packed",
                  "wal_deferred", "audit_sampled", "audit_result",
-                 "batch_width")
+                 "batch_width", "t_start", "visibility_stamped")
 
     def __init__(self, doc_id: str, tickets) -> None:
         self.doc_id = doc_id
@@ -187,6 +187,11 @@ class CommitTrace:
         # group size, or the merge worker's achieved cross-FLEET width
         # — docs/MERGETIER.md); None for per-document merges
         self.batch_width: Optional[int] = None
+        # perf_counter at the start of the commit on the scheduler
+        # thread, and whether its visibility stamps (the fleet's ledger
+        # and spans) are in: they go in before its tickets resolve
+        self.t_start = time.perf_counter()
+        self.visibility_stamped = False
 
     @contextlib.contextmanager
     def stage(self, name: str, span_name: Optional[str] = None):

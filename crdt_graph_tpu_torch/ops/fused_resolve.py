@@ -13,6 +13,12 @@ statement of what the kernels compute (the reference's ``_lax_rows`` /
 ``_lax_rows2``, JAX's index clamp included).  :func:`row_plan` states
 kernel 1's launch geometry as its C entry point chooses it.
 
+``plane_rows_batched`` / ``plane_rows2_batched`` are the same gathers
+over a leading document axis (``plane[B, R, C]``, ``idx[B, T]``): each
+document's rows are gathered from its own plane, every index wrapped and
+clamped against that plane's R — the reference's vmapped merge.  One
+launch serves the batch.
+
 The span constants and :func:`halo_window_ok` serve the ops-axis
 sharded merge (``parallel.opsaxis``): its windowed plane gather reads,
 per shard, only a halo of ``SPAN2`` rows around the shard's own slots.
@@ -26,7 +32,7 @@ import torch
 from .. import kernels
 from ..kernels import build
 from ..utils import chainaudit
-from .indexing import take
+from .indexing import jax_index, take
 
 TILE = 1024           # the reference kernel's output rows per tile
 SPAN = TILE + 128     # plane rows its one-hop tile window holds
@@ -71,6 +77,26 @@ def plain_rows2(plane: torch.Tensor, idx: torch.Tensor,
     return g, torch.where((hop >= 0)[:, None], g2, 0)
 
 
+def plain_rows_batched(plane: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """Twin of kernel 1 over documents: ``out[b] = plain_rows(plane[b],
+    idx[b])``."""
+    c = plane.shape[2]
+    i = jax_index(idx, plane.shape[1])
+    return torch.gather(plane, 1, i[:, :, None].expand(-1, -1, c))
+
+
+def plain_rows2_batched(plane: torch.Tensor, idx: torch.Tensor,
+                        hop_col: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Twin of kernel 2 over documents: ``(out[b], out2[b]) =
+    plain_rows2(plane[b], idx[b], hop_col)``."""
+    g = plain_rows_batched(plane, idx)
+    hop = g[:, :, hop_col]
+    g2 = plain_rows_batched(plane, hop.clamp(0, plane.shape[1] - 1)
+                            .to(torch.int32))
+    return g, torch.where((hop >= 0)[:, :, None], g2, 0)
+
+
 def row_plan(c: int, aligned16: bool) -> Tuple[int, int, int, int]:
     """Kernel 1's launch geometry for a ``C``-column plane, as
     ``crdt_plane_rows`` chooses it: (bytes an access, threads a row,
@@ -85,32 +111,46 @@ def row_plan(c: int, aligned16: bool) -> Tuple[int, int, int, int]:
     return vec, threads, ROWS_THREADS // threads, ROWS_PER_THREAD
 
 
-def _check(plane: torch.Tensor, idx: torch.Tensor) -> None:
-    if plane.dtype != torch.int64 or plane.dim() != 2 or \
-            not plane.is_contiguous() or plane.shape[0] < 1:
-        raise ValueError("plane must be a contiguous non-empty int64 [R, C]")
-    if idx.dtype != torch.int32 or idx.dim() != 1 or \
-            not idx.is_contiguous():
-        raise ValueError("idx must be a contiguous int32 [T]")
+def _check(plane: torch.Tensor, idx: torch.Tensor, docs: bool) -> None:
+    lead = 1 if docs else 0
+    shape = "[B, R, C]" if docs else "[R, C]"
+    if plane.dtype != torch.int64 or plane.dim() != 2 + lead or \
+            not plane.is_contiguous() or plane.shape[lead] < 1:
+        raise ValueError(f"plane must be a contiguous non-empty int64 "
+                         f"{shape}")
+    if idx.dtype != torch.int32 or idx.dim() != 1 + lead or \
+            not idx.is_contiguous() or \
+            (docs and idx.shape[0] != plane.shape[0]):
+        raise ValueError("idx must be a contiguous int32 "
+                         + ("[B, T]" if docs else "[T]"))
     if idx.device != plane.device:
         raise ValueError("plane and idx must share a device")
 
 
-def _launch(plane, idx, hop_col):
-    _check(plane, idx)
+def _launch(plane, idx, hop_col, docs: bool = False):
+    """One launch of kernel 1 (``hop_col`` None) or 2; ``docs``: the
+    operands carry a leading document axis."""
+    _check(plane, idx, docs)
     lib = build.load()
-    r, c = plane.shape
-    t = idx.shape[0]
-    out = torch.empty((t, c), dtype=torch.int64, device=plane.device)
+    b = plane.shape[0] if docs else 1
+    r, c = plane.shape[-2:]
+    t = idx.shape[-1]
+    out = torch.empty(idx.shape + (c,), dtype=torch.int64,
+                      device=plane.device)
     out2 = None if hop_col is None else torch.empty_like(out)
-    if t:
-        build.check(lib.crdt_plane_rows(
-            plane.data_ptr(), r, c, idx.data_ptr(), t, out.data_ptr(),
-            None if out2 is None else out2.data_ptr(),
-            0 if hop_col is None else int(hop_col),
-            build.stream_ptr(plane.device)), "crdt_plane_rows")
-        kernels.launches["plane_rows" if out2 is None else
-                         "plane_rows2"] += 1
+    if t and b:
+        tail = (idx.data_ptr(), t, out.data_ptr(),
+                None if out2 is None else out2.data_ptr(),
+                0 if hop_col is None else int(hop_col),
+                build.stream_ptr(plane.device))
+        if docs:
+            build.check(lib.crdt_plane_rows_batched(
+                plane.data_ptr(), b, r, c, *tail), "crdt_plane_rows_batched")
+        else:
+            build.check(lib.crdt_plane_rows(plane.data_ptr(), r, c, *tail),
+                        "crdt_plane_rows")
+        name = "plane_rows" if out2 is None else "plane_rows2"
+        kernels.launches[name + "_batched" if docs else name] += 1
     return out, out2
 
 
@@ -137,3 +177,31 @@ def plane_rows2(plane: torch.Tensor, idx: torch.Tensor,
     if not 0 <= hop_col < plane.shape[1]:
         raise ValueError(f"hop_col {hop_col} outside the plane")
     return _launch(plane, idx, hop_col)
+
+
+@chainaudit.kernel_call
+def plane_rows_batched(plane: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """``plane[b][idx[b]]`` for every document b of ``plane[B, R, C]``
+    and ``idx[B, T]``: one launch of the CUDA kernel on CUDA tensors,
+    the twin on CPU tensors (any other device raises)."""
+    if plane.device.type == "cpu":
+        return plain_rows_batched(plane, idx)
+    if plane.device.type != "cuda":
+        raise ValueError(f"unsupported device {plane.device}")
+    return _launch(plane, idx, None, docs=True)[0]
+
+
+@chainaudit.kernel_call
+def plane_rows2_batched(plane: torch.Tensor, idx: torch.Tensor,
+                        hop_col: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-hop sweep of every document (see
+    :func:`plain_rows2_batched`): one launch of the CUDA kernel on CUDA
+    tensors, the twin on CPU tensors."""
+    if plane.device.type == "cpu":
+        return plain_rows2_batched(plane, idx, hop_col)
+    if plane.device.type != "cuda":
+        raise ValueError(f"unsupported device {plane.device}")
+    if not 0 <= hop_col < plane.shape[-1]:
+        raise ValueError(f"hop_col {hop_col} outside the plane")
+    return _launch(plane, idx, hop_col, docs=True)

@@ -147,15 +147,65 @@ def _pack_u(h: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     return (h.to(torch.int64) << 32) | (l.to(torch.int64) & 0xFFFFFFFF)
 
 
+def _g(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` along the last axis, each document's indices into its own
+    row (in range by construction)."""
+    return torch.gather(x, -1, i.long())
+
+
+def _read_all(x: torch.Tensor) -> bool:
+    """Whether a per-document predicate holds for every document: one
+    counted read (of the predicate itself for one document)."""
+    return _read(x if x.numel() == 1 else torch.all(x))
+
+
+def _read_max(x: torch.Tensor) -> int:
+    """The largest of a per-document count: one counted read."""
+    return _read(x if x.numel() == 1 else torch.max(x))
+
+
+# -- the kernels, on one document or on a batch ------------------------------
+
+def _plane_rows(plane, idx):
+    """Kernel 1 (``[R, C]`` and ``[T]``) or its batched form (``[B, R,
+    C]`` and ``[B, T]``): one launch either way."""
+    if idx.dim() == 1:
+        return fused_resolve.plane_rows(plane, idx)
+    return fused_resolve.plane_rows_batched(plane, idx)
+
+
+def _plane_rows2(plane, idx, hop_col: int):
+    """Kernel 2, on one document or a batch (see :func:`_plane_rows`)."""
+    if idx.dim() == 1:
+        return fused_resolve.plane_rows2(plane, idx, hop_col)
+    return fused_resolve.plane_rows2_batched(plane, idx, hop_col)
+
+
+def _prefix_sums(boundary, weights):
+    """Kernel 3, on one document or a batch."""
+    if boundary.dim() == 1:
+        return tour_scan.prefix_sums(boundary, weights)
+    return tour_scan.prefix_sums_batched(boundary, weights)
+
+
+def _monotone_gather(values, rid):
+    """Kernel 4, on one document or a batch."""
+    if rid.dim() == 1:
+        return mono_gather.monotone_gather(values, rid)
+    return mono_gather.monotone_gather_batched(values, rid)
+
+
 def _fix_and(ok, ptr, cap: int):
     """AND of ``ok`` over every ancestor along ``ptr`` chains, by pointer
     doubling with early exit and a static trip cap (reference
-    ``_fix_and``)."""
+    ``_fix_and``).  In a batch the loop runs until no document changes:
+    a round on a document whose pointers are at their roots ANDs each
+    node with its root's value again, which it already holds."""
     live, i = True, 0
     with chainaudit.loop():
         while live and i < cap and _read(torch.any(~ok)):
-            ok = ok & ok[ptr]
-            ptr2 = ptr[ptr]
+            ok = ok & _g(ok, ptr)
+            ptr2 = _g(ptr, ptr)
             live = _read(torch.any(ptr2 != ptr))
             ptr, i = ptr2, i + 1
     return ok
@@ -163,12 +213,14 @@ def _fix_and(ok, ptr, cap: int):
 
 def _fix_min(val, ptr, active: bool, cap: int):
     """MIN of ``val`` over self and every ancestor along ``ptr`` chains;
-    skipped when ``active`` is false (reference ``_fix_min``)."""
+    skipped when ``active`` is false (reference ``_fix_min``).  Extra
+    rounds on a converged document take the minimum with its roots'
+    values again: no change."""
     live, i = active, 0
     with chainaudit.loop():
         while live and i < cap:
-            val = torch.minimum(val, val[ptr])
-            ptr2 = ptr[ptr]
+            val = torch.minimum(val, _g(val, ptr))
+            ptr2 = _g(ptr, ptr)
             live = _read(torch.any(ptr2 != ptr))
             ptr, i = ptr2, i + 1
     return val
@@ -196,6 +248,8 @@ def _sib_links(kp, gg, neg, M: int):
     M (still last), the group bit sits below, and the biased ``neg``
     fills the low 32 bits.  Rows with equal keys are identical, so the
     sort needs no stability."""
+    lead = tuple(kp.shape[:-1])
+    dev = kp.device
     kpc = torch.clamp(kp.to(torch.int64), max=M)
     key = (kpc << 33) | (gg.to(torch.int64) << 32) | \
         (neg.to(torch.int64) + 2**31)
@@ -203,13 +257,15 @@ def _sib_links(kp, gg, neg, M: int):
     s_parent = skey >> 33
     s_neg = (skey & 0xFFFFFFFF) - 2**31
     s_slot = torch.where(s_neg == IPOS, M, -s_neg)
-    same_parent = (s_parent[1:] == s_parent[:-1]) & (s_slot[1:] < M)
-    sib = set_drop(torch.full((M,), -1, dtype=torch.int32, device=kp.device),
-                   s_slot[:-1], torch.where(same_parent, s_slot[1:], -1))
-    s_start = torch.cat([torch.ones(1, dtype=torch.bool, device=kp.device),
-                         ~same_parent])
+    same_parent = (s_parent[..., 1:] == s_parent[..., :-1]) & \
+        (s_slot[..., 1:] < M)
+    sib = set_drop(torch.full(lead + (M,), -1, dtype=torch.int32, device=dev),
+                   s_slot[..., :-1],
+                   torch.where(same_parent, s_slot[..., 1:], -1))
+    s_start = torch.cat([torch.ones(lead + (1,), dtype=torch.bool,
+                                    device=dev), ~same_parent], -1)
     fc_tgt = torch.where(s_start & (s_slot < M), s_parent, M)
-    fc = set_drop(torch.full((M,), -1, dtype=torch.int32, device=kp.device),
+    fc = set_drop(torch.full(lead + (M,), -1, dtype=torch.int32, device=dev),
                   fc_tgt, s_slot)
     return sib, fc
 
@@ -224,12 +280,21 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     parent frame is a row gather through ``pslot`` and the anchor's
     parent a plain index.
 
+    Every column is one document's ``[N]`` or a batch's ``[B, N]`` (the
+    reference's body under ``vmap``): each op works along the last axis,
+    each kernel launches once for the batch, and each host decision
+    (:func:`_read`) is one read for the whole batch — a loop runs until
+    no document changes, a tier fits the batch's largest document (a
+    tier changes speed, never a table), sizes that differ by document
+    pad to the batch's largest with a mask per document.
+
     ``part`` is the ops-axis partition context
-    (``parallel.opsaxis.OpsAxisPart``) or None.  Under it the merge's
-    memory-bound ops go through the context's sharded forms at the
-    reference's hook sites, and the node frame takes the one-hop plane
-    (the reference's sharded trace runs without its device kernels, and
-    the two-hop frame is device-only there); the table is the same."""
+    (``parallel.opsaxis.OpsAxisPart``, one document only) or None.
+    Under it the merge's memory-bound ops go through the context's
+    sharded forms at the reference's hook sites, and the node frame
+    takes the one-hop plane (the reference's sharded trace runs without
+    its device kernels, and the two-hop frame is device-only there); the
+    table is the same."""
     kind = ops["kind"]
     dev = kind.device
     ts = ops["ts"].to(torch.int64)
@@ -238,8 +303,9 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     paths = ops["paths"].to(torch.int64)
     value_ref = ops["value_ref"].to(torch.int32)
     pos = ops["pos"].to(torch.int32)
-    N = kind.shape[0]
-    D = paths.shape[1]
+    N = kind.shape[-1]
+    lead = tuple(kind.shape[:-1])
+    D = paths.shape[-1]
     M = N + 2
     ROOT = 0
     NULL = M - 1
@@ -267,38 +333,37 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     extra = []
     if fused:
         ap_src = _pack_u(ops["anchor_psl"].to(torch.int32), pos)
-        extra = [ap_src[:, None], ts[:, None]]
+        extra = [ap_src[..., None], ts[..., None]]
     fused2 = fused and "parent_row" in ops and part is None
-    rows = part.gather_rows if part is not None else \
-        (lambda t, i: t[i.long()])
+    rows = part.gather_rows if part is not None else _g
     if fused2:
-        extra.append(ops["parent_row"].to(torch.int64)[:, None])
+        extra.append(ops["parent_row"].to(torch.int64)[..., None])
     HOP_COL = 2 + len(extra) - 1
-    plane = torch.cat([dsv_src[:, None], pa[:, None]] + extra + [paths],
-                      dim=1).contiguous()
+    plane = torch.cat([dsv_src[..., None], pa[..., None]] + extra + [paths],
+                      dim=-1).contiguous()
     nsr = nsr.to(torch.int32).contiguous()
     if fused2:
-        g, g2 = fused_resolve.plane_rows2(plane, nsr, HOP_COL)
+        g, g2 = _plane_rows2(plane, nsr, HOP_COL)
     elif part is not None:
         g, g2 = part.plane_rows(plane, nsr), None
     else:
-        g, g2 = fused_resolve.plane_rows(plane, nsr), None
+        g, g2 = _plane_rows(plane, nsr), None
     k = 2 + len(extra)
-    dsv, pa_g, claimed_raw = g[:, 0], g[:, 1], g[:, k:]
+    dsv, pa_g, claimed_raw = g[..., 0], g[..., 1], g[..., k:]
     if fused:
-        ap_g, ts_g = g[:, 2], g[:, 3]
+        ap_g, ts_g = g[..., 2], g[..., 3]
         node_ts = torch.where(is_node_slot, ts_g, BIG)
-        node_ts[ROOT] = 0
+        node_ts[..., ROOT] = 0
         node_pos = torch.where(is_node_slot,
                                (ap_g & 0xFFFFFFFF).to(torch.int32), IPOS)
         ansl = torch.where(is_node_slot, (ap_g >> 32).to(torch.int32),
                            NULL << 1)
     node_depth = torch.where(is_node_slot, (dsv >> 33).to(torch.int32), 0)
-    node_depth[ROOT] = 0
+    node_depth[..., ROOT] = 0
     node_anchor_is_sentinel = is_node_slot & (((dsv >> 32) & 1) != 0)
     node_value_ref = torch.where(is_node_slot,
                                  (dsv & 0xFFFFFFFF).to(torch.int32), -1)
-    claimed = torch.where(is_node_slot[:, None], claimed_raw, 0)
+    claimed = torch.where(is_node_slot[..., None], claimed_raw, 0)
     null2 = _pack_u(torch.tensor(NULL << 1, **i32),
                     torch.tensor(NULL << 1, **i32))
     pa_n = torch.where(is_node_slot, pa_g, null2)
@@ -308,13 +373,13 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     aslot, afound = af_pack >> 1, (af_pack & 1) != 0
     d_tslot, d_tfound = at_slot, at_found
     dp_slot, dp_found = pp_slot, pp_found
-    pslot[ROOT] = ROOT
+    pslot[..., ROOT] = ROOT
 
     # full materialised path: the claimed anchor path with the node's
     # own timestamp at depth-1
     col = torch.clamp(node_depth - 1, 0, D - 1)
-    put = (cols == col[:, None]) & (node_depth[:, None] > 0)
-    fp = torch.where(put, node_ts[:, None], claimed)
+    put = (cols == col[..., None]) & (node_depth[..., None] > 0)
+    fp = torch.where(put, node_ts[..., None], claimed)
 
     # ---- 5. Local validity: claimed prefix == the parent's materialised
     # path, anchor a sibling, depths chain.
@@ -322,23 +387,24 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         # parent frame from the second hop: the parent's claimed path
         # with its own timestamp at its depth-1 (zeroed when the parent
         # is the root, unresolved or absent)
-        pvalid = is_node_slot & (g[:, HOP_COL] >= 0)
-        par_depth = torch.where(pvalid, (g2[:, 0] >> 33).to(torch.int32), 0)
-        pc = torch.where(pvalid[:, None], g2[:, k:], 0)
-        pts = torch.where(pvalid, g2[:, 3], 0)
-        put_p = (cols == torch.clamp(par_depth - 1, 0, D - 1)[:, None]) & \
-            (par_depth[:, None] > 0)
-        par = torch.where(put_p, pts[:, None], pc)
+        pvalid = is_node_slot & (g[..., HOP_COL] >= 0)
+        par_depth = torch.where(pvalid, (g2[..., 0] >> 33).to(torch.int32),
+                                0)
+        pc = torch.where(pvalid[..., None], g2[..., k:], 0)
+        pts = torch.where(pvalid, g2[..., 3], 0)
+        put_p = (cols == torch.clamp(par_depth - 1, 0, D - 1)[..., None]) & \
+            (par_depth[..., None] > 0)
+        par = torch.where(put_p, pts[..., None], pc)
     else:
         # parent path + depth in one [M, D+1] row gather through pslot
-        pplane_src = torch.cat([fp, node_depth[:, None].to(torch.int64)],
-                               dim=1).contiguous()
+        pplane_src = torch.cat([fp, node_depth[..., None].to(torch.int64)],
+                               dim=-1).contiguous()
         pplane = part.plane_rows(pplane_src, pslot) if part is not None \
-            else fused_resolve.plane_rows(pplane_src, pslot.contiguous())
-        par, par_depth = pplane[:, :D], pplane[:, D].to(torch.int32)
+            else _plane_rows(pplane_src, pslot.contiguous())
+        par, par_depth = pplane[..., :D], pplane[..., D].to(torch.int32)
     prefix_ok = torch.all(
-        torch.where(cols < node_depth[:, None] - 1, claimed == par, True),
-        dim=1)
+        torch.where(cols < node_depth[..., None] - 1, claimed == par, True),
+        dim=-1)
     depth_ok = (node_depth >= 1) & (node_depth <= D) & \
         (node_depth == par_depth + 1)
     parent_ok = pfound & depth_ok & prefix_ok
@@ -346,7 +412,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     anchor_ok = node_anchor_is_sentinel | \
         (afound & (anchor_parent == pslot) & (aslot != ROOT))
     local_ok = is_node_slot & (node_ts > 0) & parent_ok & anchor_ok
-    local_ok[ROOT] = True
+    local_ok[..., ROOT] = True
     if probe is not None:
         acc = _acc(acc, local_ok, parent_ok, fp)
         if probe == 2:
@@ -354,10 +420,12 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     chainaudit.stage(3)
 
     # ---- 6. Validity cascades along the anchor forest; 6b. anchor
-    # cycles (only when some anchor has a larger slot).
+    # cycles (only when some anchor has a larger slot; in a batch, for
+    # every document when any has one: a document without such an
+    # anchor has no cycle, so the chase marks its every chain acyclic).
     order_parent = torch.where(node_anchor_is_sentinel, pslot, aslot)
-    order_parent[ROOT] = ROOT
-    order_parent[NULL] = NULL
+    order_parent[..., ROOT] = ROOT
+    order_parent[..., NULL] = NULL
     op_l = order_parent.long()
     cascade_ok = _fix_and(local_ok | ~is_node_slot, op_l,
                           _ceil_log2(M) + 1)
@@ -367,14 +435,14 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         p = op_l
         with chainaudit.loop():
             for _ in range(_ceil_log2(M) + 1):
-                p = p[p]
+                p = _g(p, p)
         acyclic = (p == ROOT) | (p == NULL)
     else:
-        acyclic = torch.ones(M, dtype=torch.bool, device=dev)
+        acyclic = torch.ones(lead + (M,), dtype=torch.bool, device=dev)
     valid = cascade_ok & acyclic & is_node_slot
-    valid[ROOT] = True
+    valid[..., ROOT] = True
     parent_eff = torch.where(valid, pslot, NULL).to(torch.int32)
-    parent_eff[ROOT] = ROOT
+    parent_eff[..., ROOT] = ROOT
     if probe is not None:
         acc = _acc(acc, valid, parent_eff)
         if probe == 3:
@@ -385,21 +453,21 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     # the target's materialised path, depth and validity arrive in one
     # row gather of an [M, D+1] plane — kernel 1, ``plane_rows``.
     if no_deletes:
-        deleted = torch.zeros(M, dtype=torch.bool, device=dev)
-        anc_del = torch.full((M,), IPOS, **i32)
-        dead = torch.zeros(M, dtype=torch.bool, device=dev)
+        deleted = torch.zeros(lead + (M,), dtype=torch.bool, device=dev)
+        anc_del = torch.full(lead + (M,), IPOS, **i32)
+        dead = torch.zeros(lead + (M,), dtype=torch.bool, device=dev)
     else:
         tplane = torch.cat(
             [fp, ((node_depth.to(torch.int64) << 1) |
-                  valid.to(torch.int64))[:, None]], dim=1).contiguous()
+                  valid.to(torch.int64))[..., None]], dim=-1).contiguous()
         tg = part.gather_rows(tplane, d_tslot) if part is not None else \
-            fused_resolve.plane_rows(tplane, d_tslot.contiguous())
-        t_depth = (tg[:, D] >> 1).to(torch.int32)
-        t_valid = (tg[:, D] & 1) != 0
+            _plane_rows(tplane, d_tslot.contiguous())
+        t_depth = (tg[..., D] >> 1).to(torch.int32)
+        t_valid = (tg[..., D] & 1) != 0
         d_depth_ok = (depth >= 1) & (depth <= D) & (t_depth == depth)
         d_path_ok = torch.all(
-            torch.where(cols < depth[:, None], paths == tg[:, :D], True),
-            dim=1)
+            torch.where(cols < depth[..., None], paths == tg[..., :D], True),
+            dim=-1)
         d_ok = is_del & d_tfound & (d_tslot != ROOT) & t_valid & \
             d_depth_ok & d_path_ok
         d_tgt = torch.where(d_ok, d_tslot, NULL)
@@ -408,11 +476,12 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
                 M, 0, d_tgt, torch.ones(N, **i32), "max") != 0
             del_pos = part.frame_reduce(M, IPOS, d_tgt, pos, "min")
         else:
-            deleted = set_drop(torch.zeros(M, dtype=torch.bool, device=dev),
-                               d_tgt, True)
-            del_pos = min_drop(torch.full((M,), IPOS, **i32), d_tgt, pos)
-        deleted[NULL] = False
-        del_pos[NULL] = IPOS
+            deleted = set_drop(torch.zeros(lead + (M,), dtype=torch.bool,
+                                           device=dev), d_tgt, True)
+            del_pos = min_drop(torch.full(lead + (M,), IPOS, **i32), d_tgt,
+                               pos)
+        deleted[..., NULL] = False
+        del_pos[..., NULL] = IPOS
         # ---- 8. Dead-subtree propagation down tree-parent chains
         pe = parent_eff.long()
         anc_del = torch.where(rows(deleted, parent_eff),
@@ -429,6 +498,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     # ---- 9. The order forest: each node's T* parent is the nearest node
     # on its anchor chain with a smaller slot — pointer-halving chase,
     # finished by binary lifting for walkers the trip cap leaves behind.
+    # A round moves only unresolved walkers: a resolved document's
+    # pointers stay as they are.
     in_forest = valid & is_node_slot
     mptr0 = torch.where(node_anchor_is_sentinel | ~in_forest, -1, aslot)
     mptr = mptr0
@@ -439,26 +510,26 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
                 _read(torch.any((mptr >= 0) & (mptr > slot_ids))):
             m = torch.where(mptr >= 0, mptr, NULL).long()
             unresolved = (mptr >= 0) & (mptr > slot_ids)
-            mptr = torch.where(unresolved, mptr[m], mptr)
+            mptr = torch.where(unresolved, _g(mptr, m), mptr)
             i += 1
     nsa_unresolved = (mptr >= 0) & (mptr > slot_ids)
     if probe == 41:
         return _acc(acc, mptr, nsa_unresolved)
     if _read(torch.any(nsa_unresolved)):
         up0 = torch.where(mptr0 >= 0, mptr0, ROOT).to(torch.int32)
-        up0[ROOT] = ROOT
+        up0[..., ROOT] = ROOT
         ups, mns = [up0.long()], [up0]
         k_levels = _ceil_log2(M)
-        cur = slot_ids.long()
+        cur = slot_ids.long().expand(lead + (M,))
         with chainaudit.loop():
             for _ in range(1, k_levels):
                 pu, pm = ups[-1], mns[-1]
-                ups.append(pu[pu])
-                mns.append(torch.minimum(pm, pm[pu]))
+                ups.append(_g(pu, pu))
+                mns.append(torch.minimum(pm, _g(pm, pu)))
             for kk in reversed(range(k_levels)):
-                skip = nsa_unresolved & (mns[kk][cur] >= slot_ids)
-                cur = torch.where(skip, ups[kk][cur], cur)
-        ans = up0[cur]
+                skip = nsa_unresolved & (_g(mns[kk], cur) >= slot_ids)
+                cur = torch.where(skip, _g(ups[kk], cur), cur)
+        ans = _g(up0, cur)
         lifted = torch.where(ans == ROOT, -1, ans)
         mptr = torch.where(nsa_unresolved, lifted, mptr)
     star_parent = torch.where(mptr >= 0, mptr, pslot)
@@ -471,8 +542,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     # (group 1), each group slot-DESCENDING.  Only crowded parents (≥ 2
     # children) need sorting, so they are compacted to a small width.
     order_parent = torch.where(in_forest, star_parent, order_parent)
-    order_parent[ROOT] = ROOT
-    order_parent[NULL] = NULL
+    order_parent[..., ROOT] = ROOT
+    order_parent[..., NULL] = NULL
     ggrp = torch.where(star_sentinel, 0, 1).to(torch.int8)
     skey = torch.where(in_forest, order_parent, NULL).to(torch.int32)
     neg_slot = torch.where(in_forest, -slot_ids, IPOS).to(torch.int32)
@@ -481,12 +552,14 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     if S_CAP >= M:
         sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
     else:
+        # n_crowded_t: each document's crowded count, [..., 1]
         if crowd_hinted:
-            pad_f = torch.zeros(1, dtype=torch.bool, device=dev)
-            crowded = torch.cat([pad_f, ops["crowd_slot"] != 0, pad_f])
+            pad_f = torch.zeros(lead + (1,), dtype=torch.bool, device=dev)
+            crowded = torch.cat([pad_f, ops["crowd_slot"] != 0, pad_f], -1)
             cc = ops["crowd_cpos"].to(torch.int32)
-            cpos = torch.cat([torch.full((1,), -1, **i32), cc, cc[N - 1:N]])
-            n_crowded_t = cc[N - 1] + 1
+            cpos = torch.cat([torch.full(lead + (1,), -1, **i32), cc,
+                              cc[..., N - 1:N]], -1)
+            n_crowded_t = cc[..., N - 1:N] + 1
         else:
             par = torch.where(in_forest, order_parent, M)
             cnt = part.frame_add(M, par) if part is not None else \
@@ -494,9 +567,9 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             crowded = in_forest & (rows(cnt, torch.clamp(par, max=M - 1))
                                    >= 2)
             cpos = (part.cumsum(crowded) if part is not None else
-                    torch.cumsum(crowded.to(torch.int32), 0,
+                    torch.cumsum(crowded.to(torch.int32), -1,
                                  dtype=torch.int32)) - 1
-            n_crowded_t = cpos[M - 1] + 1
+            n_crowded_t = cpos[..., M - 1:M] + 1
 
         def fc_singletons(fc):
             """The singleton first-child overlay (every uncrowded
@@ -510,16 +583,17 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             return set_drop(fc, tgt, val)
 
         def br_compact(cap):
-            """The compact sibling branch at width ``cap`` ≥ n_crowded:
-            the k-th crowded row is the first index where ``cpos``
-            reaches k (a binary search per compact slot)."""
-            ks = torch.arange(cap, **i32)
+            """The compact sibling branch at width ``cap`` ≥ the batch's
+            largest crowded count: each document's k-th crowded row is
+            the first index where its ``cpos`` reaches k (a binary
+            search per compact slot); slots past its own count pad."""
+            ks = torch.arange(cap, **i32).expand(lead + (cap,)).contiguous()
             src = torch.searchsorted(cpos, ks, right=False)
             valid_k = ks < n_crowded_t
             srcc = torch.clamp(src, max=M - 1)
-            kp = torch.where(valid_k, skey[srcc], IPOS)
-            gg = torch.where(valid_k, ggrp[srcc], 0).to(torch.int8)
-            neg = torch.where(valid_k, neg_slot[srcc], IPOS)
+            kp = torch.where(valid_k, _g(skey, srcc), IPOS)
+            gg = torch.where(valid_k, _g(ggrp, srcc), 0).to(torch.int8)
+            neg = torch.where(valid_k, _g(neg_slot, srcc), IPOS)
             sib, fc = _sib_links(kp, gg, neg, M)
             return sib, fc_singletons(fc)
 
@@ -533,39 +607,45 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             if part is not None:
                 pc = part.cummax(torch.where(crowded, slot_ids, -1))
             else:
-                c = torch.cumsum(crowded.to(torch.int32), 0,
+                c = torch.cumsum(crowded.to(torch.int32), -1,
                                  dtype=torch.int32)
-                kth = set_drop(torch.full((M,), -1, **i32),
-                               torch.where(crowded, c - 1, M), slot_ids)
-                pc = torch.where(c > 0, kth[torch.clamp(c - 1, min=0)], -1)
-            prev = torch.cat([torch.full((1,), -1, **i32), pc[:-1]])
+                c1 = c - 1
+                kth = set_drop(torch.full(lead + (M,), -1, **i32),
+                               torch.where(crowded, c1, M), slot_ids)
+                pc = torch.where(c > 0, _g(kth, torch.clamp(c1, min=0)), -1)
+            prev = torch.cat([torch.full(lead + (1,), -1, **i32),
+                              pc[..., :-1]], -1)
             sib = torch.where(crowded, prev, -1).to(torch.int32)
-            head = torch.max(torch.where(crowded, slot_ids, -1))
-            gkey = torch.clamp(torch.max(torch.where(crowded, skey, -1)),
-                               0, M - 1)
-            fc = torch.full((M,), -1, **i32).scatter(
-                0, gkey.reshape(1).long(), head.reshape(1).to(torch.int32))
+            head = torch.amax(torch.where(crowded, slot_ids, -1), -1,
+                              keepdim=True)
+            gkey = torch.clamp(torch.amax(torch.where(crowded, skey, -1), -1,
+                                          keepdim=True), 0, M - 1)
+            fc = torch.full(lead + (M,), -1, **i32).scatter(
+                -1, gkey.long(), head.to(torch.int32))
             return sib, fc_singletons(fc)
 
+        # the single-group shortcut only when every document is one
+        # group; else the smallest tier that fits the largest document
         gi = ggrp.to(torch.int32)
         one_group = (n_crowded_t > 0) & \
-            (torch.min(torch.where(crowded, skey, IPOS)) ==
-             torch.max(torch.where(crowded, skey, -1))) & \
-            (torch.min(torch.where(crowded, gi, IPOS)) ==
-             torch.max(torch.where(crowded, gi, -1)))
+            (torch.amin(torch.where(crowded, skey, IPOS), -1, keepdim=True)
+             == torch.amax(torch.where(crowded, skey, -1), -1,
+                           keepdim=True)) & \
+            (torch.amin(torch.where(crowded, gi, IPOS), -1, keepdim=True)
+             == torch.amax(torch.where(crowded, gi, -1), -1, keepdim=True))
         S_CAP2 = _env_cap("GRAFT_S_CAP2", S_CAP2_DEFAULT)
-        if _read(one_group):
+        if _read_all(one_group):
             sib_next, first_child = br_single()
         else:
-            n_crowded = _read(n_crowded_t)
+            n_crowded = _read_max(n_crowded_t)
             if S_CAP2 < S_CAP and n_crowded <= S_CAP2:
                 sib_next, first_child = br_compact(S_CAP2)
             elif n_crowded <= S_CAP:
                 sib_next, first_child = br_compact(S_CAP)
             else:
                 sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
-    sib_next[ROOT] = -1
-    first_child[NULL] = -1
+    sib_next[..., ROOT] = -1
+    first_child[..., NULL] = -1
     if probe == 43:
         return _acc(acc, sib_next, first_child)
 
@@ -574,7 +654,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     T = 2 * M
     tok = torch.arange(T, **i32)
     in_tour = in_forest.clone()
-    in_tour[ROOT] = True
+    in_tour[..., ROOT] = True
     up = torch.where(order_parent == slot_ids, M + slot_ids,
                      M + order_parent)
     chain_next = torch.where(sib_next >= 0, sib_next, up)
@@ -582,7 +662,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     enter_succ = torch.where(~in_tour, slot_ids,
                              torch.where(is_leaf, chain_next, first_child))
     exit_succ = torch.where(~in_tour | is_leaf, M + slot_ids, chain_next)
-    succ = torch.cat([enter_succ, exit_succ]).to(torch.int32)
+    succ = torch.cat([enter_succ, exit_succ], -1).to(torch.int32)
     if probe is not None:
         acc = _acc(acc, succ, sib_next, first_child)
         if probe == 5:
@@ -599,86 +679,98 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     # run-id prefix sum and the weight lanes are kernel 3
     # (``prefix_sums``); the run→token expansion is kernel 4
     # (``monotone_gather``).
-    fwd = succ[:-1] == tok[1:]
-    bwd = succ[1:] == tok[:-1]
+    fwd = succ[..., :-1] == tok[1:]
+    bwd = succ[..., 1:] == tok[:-1]
     loop_ = succ == tok
-    same_run = fwd | bwd | (loop_[:-1] & loop_[1:])
-    boundary = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          ~same_run])
+    same_run = fwd | bwd | (loop_[..., :-1] & loop_[..., 1:])
+    boundary = torch.cat([torch.ones(lead + (1,), dtype=torch.bool,
+                                     device=dev), ~same_run], -1)
     w_lanes = torch.stack(
         [exists.to(torch.int32)] if single_w else
-        [exists.to(torch.int32), visible.to(torch.int32)]).contiguous()
-    scan = part.prefix_sums if part is not None else tour_scan.prefix_sums
+        [exists.to(torch.int32), visible.to(torch.int32)], -2).contiguous()
+    scan = part.prefix_sums if part is not None else _prefix_sums
     rid_incl, w_incl = scan(boundary.to(torch.int32).contiguous(), w_lanes)
     rid = rid_incl - 1
-    z1 = torch.zeros(1, **i32)
-    cse_doc = torch.cat([z1, w_incl[0]])
-    cse_vis = cse_doc if single_w else torch.cat([z1, w_incl[1]])
-    rid_m = rid[:M].contiguous()
+    z1 = torch.zeros(lead + (1,), **i32)
+    cse_doc = torch.cat([z1, w_incl[..., 0, :]], -1)
+    cse_vis = cse_doc if single_w else torch.cat([z1, w_incl[..., 1, :]], -1)
+    rid_m = rid[..., :M].contiguous()
 
     def runs_full():
         """T-wide run starts (each run has exactly one start token); a
         run ends where the next begins."""
-        run_s = set_drop(torch.full((T,), IPOS, **i32),
+        run_s = set_drop(torch.full(lead + (T,), IPOS, **i32),
                          torch.where(boundary, rid, T), tok)
-        next_s = torch.cat([run_s[1:], torch.full((1,), IPOS, **i32)])
+        next_s = torch.cat([run_s[..., 1:],
+                            torch.full(lead + (1,), IPOS, **i32)], -1)
         run_e = torch.where(run_s == IPOS, 0,
                             torch.where(next_s == IPOS, T - 1, next_s - 1))
         return run_s, run_e.to(torch.int32)
 
     def expand(run_s_w, run_e_w):
         """Per-run chain data at width w → Wyllie → the [4|7, M] token
-        expansion (direction, weight-window bounds, suffix weights)."""
-        w = run_s_w.shape[0]
+        expansion (direction, weight-window bounds, suffix weights).  A
+        padding run never lies on a real run's chain, so it changes no
+        real run's sums; a round on a converged chain adds its
+        terminal's zero."""
+        w = run_s_w.shape[-1]
         run_s_l = run_s_w.long()
-        run_fwd = succ[torch.clamp(run_s_l, max=T - 1)] == run_s_l + 1
+        run_fwd = _g(succ, torch.clamp(run_s_l, max=T - 1)) == run_s_l + 1
         run_tail = torch.where(run_fwd, run_e_w, run_s_w).long()
-        tail_succ = succ[torch.clamp(run_tail, max=T - 1)].long()
+        tail_succ = _g(succ, torch.clamp(run_tail, max=T - 1)).long()
         run_terminal = tail_succ == run_tail
-        rid_of = lambda x: rid[torch.clamp(x, max=T - 1)]  # noqa: E731
+        rid_of = lambda x: _g(rid, torch.clamp(x, max=T - 1))  # noqa: E731
         run_next = torch.where(run_terminal, rid_of(run_tail),
                                rid_of(tail_succ))
         run_s_c = torch.clamp(run_s_l, max=M)
         run_e1_c = torch.clamp(run_e_w.long() + 1, max=M)
-        a = torch.where(run_terminal, 0, cse_doc[run_e1_c] - cse_doc[run_s_c])
+        a = torch.where(run_terminal, 0,
+                        _g(cse_doc, run_e1_c) - _g(cse_doc, run_s_c))
         b = None if single_w else torch.where(
-            run_terminal, 0, cse_vis[run_e1_c] - cse_vis[run_s_c])
+            run_terminal, 0, _g(cse_vis, run_e1_c) - _g(cse_vis, run_s_c))
         p = torch.clamp(run_next, max=w - 1).long()
         live, it, cap = True, 0, _ceil_log2(w) + 1
         with chainaudit.loop():
             while live and it < cap:
-                a = a + a[p]
+                a = a + _g(a, p)
                 if b is not None:
-                    b = b + b[p]
-                p2 = p[p]
+                    b = b + _g(b, p)
+                p2 = _g(p, p)
                 live = _read(torch.any(p2 != p))
                 p, it = p2, it + 1
         out = min(w, M)
         per_run = torch.stack([
-            run_fwd[:out].to(torch.int32),
-            cse_doc[run_s_c[:out]], cse_doc[run_e1_c[:out]], a[:out],
+            run_fwd[..., :out].to(torch.int32),
+            _g(cse_doc, run_s_c[..., :out]), _g(cse_doc, run_e1_c[..., :out]),
+            a[..., :out],
         ] + ([] if single_w else [
-            cse_vis[run_s_c[:out]], cse_vis[run_e1_c[:out]], b[:out],
-        ])).to(torch.int32).contiguous()
+            _g(cse_vis, run_s_c[..., :out]), _g(cse_vis, run_e1_c[..., :out]),
+            b[..., :out],
+        ]), -2).to(torch.int32).contiguous()
         if part is not None:
             return part.mono_expand(per_run, rid_m)
-        return mono_gather.monotone_gather(per_run, rid_m)
+        return _monotone_gather(per_run, rid_m)
 
     R_CAP = _env_cap("GRAFT_R_CAP", R_CAP_DEFAULT)
     if R_CAP >= T:
         ex = expand(*runs_full())
     else:
-        n_runs = _read(rid[T - 1]) + 1
+        # each document's last run id, [..., 1]; the tier fits the
+        # batch's largest run count
+        last_rid = rid[..., T - 1:T]
+        n_runs = _read_max(last_rid) + 1
 
         def compact(cap):
             """The run pipeline at width ``cap`` ≥ n_runs: run k's first
-            token is a binary search over the nondecreasing ``rid``."""
-            ks = torch.arange(cap, **i32)
+            token is a binary search over the nondecreasing ``rid``; a
+            document's runs past its own count pad."""
+            ks = torch.arange(cap, **i32).expand(lead + (cap,)).contiguous()
             ss = torch.searchsorted(rid, ks, right=False)
-            run_s_w = torch.where(ks < n_runs, ss, IPOS)
-            next_s = torch.cat([run_s_w[1:],
-                                torch.full((1,), IPOS, dtype=run_s_w.dtype,
-                                           device=dev)])
+            run_s_w = torch.where(ks <= last_rid, ss, IPOS)
+            next_s = torch.cat([run_s_w[..., 1:],
+                                torch.full(lead + (1,), IPOS,
+                                           dtype=run_s_w.dtype, device=dev)],
+                               -1)
             run_e_w = torch.where(run_s_w == IPOS, 0,
                                   torch.where(next_s == IPOS, T - 1,
                                               next_s - 1))
@@ -699,27 +791,29 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
 
     # E(tok) = weight at-or-after tok along the chain; ranks read at
     # ENTER tokens (0..M-1).
-    rf_m = ex[0] != 0
+    rf_m = ex[..., 0, :] != 0
 
     def rank_of(ws_m, we1_m, a_m, cse):
-        within = torch.where(rf_m, cse[:M] - ws_m, we1_m - cse[1:M + 1])
+        within = torch.where(rf_m, cse[..., :M] - ws_m,
+                             we1_m - cse[..., 1:M + 1])
         e_tok = a_m - within
-        return e_tok[ROOT] - e_tok
+        return e_tok[..., ROOT:ROOT + 1] - e_tok
 
     def order_frame(mask, dense):
         """Rank→slot frame scatter (ranks are unique per mask)."""
         tgt = torch.where(mask, dense, M)
         if part is not None:
             return part.frame_set(M, NULL, tgt, slot_ids, "min")
-        return set_drop(torch.full((M,), NULL, **i32), tgt, slot_ids)
+        return set_drop(torch.full(lead + (M,), NULL, **i32), tgt, slot_ids)
 
-    doc_dense = rank_of(ex[1], ex[2], ex[3], cse_doc)
+    doc_dense = rank_of(ex[..., 1, :], ex[..., 2, :], ex[..., 3, :], cse_doc)
     doc_index = torch.where(exists, doc_dense, IPOS).to(torch.int32)
     order = order_frame(exists, doc_dense)
     if single_w:
         visible_order = order          # no deletes: visible ≡ exists
     else:
-        vis_dense = rank_of(ex[4], ex[5], ex[6], cse_vis)
+        vis_dense = rank_of(ex[..., 4, :], ex[..., 5, :], ex[..., 6, :],
+                            cse_vis)
         visible_order = order_frame(visible, vis_dense)
     if probe is not None:
         acc = _acc(acc, doc_index, order, visible_order)
@@ -727,7 +821,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
             return acc
 
     # ---- 13. Sequential-parity statuses per op.
-    status = torch.full((N,), PAD, dtype=torch.int8, device=dev)
+    status = torch.full(lead + (N,), PAD, dtype=torch.int8, device=dev)
     a_slot = op_slot.long()
     a_sentinel = ts <= 0
     if no_deletes:
@@ -738,7 +832,7 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         # valid[pslot] (the NOT_FOUND/INVALID_PATH split) is read only
         # when some non-sentinel add is invalid
         if _read(torch.any(is_add & ~a_sentinel & ~a_valid)):
-            a_grand = valid[pslot.long()][a_slot]
+            a_grand = _g(_g(valid, pslot), a_slot)
             invalid = torch.where(a_parent_ok & a_grand, NOT_FOUND,
                                   INVALID_PATH)
         else:
@@ -782,8 +876,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
         value_ref=node_value_ref, paths=fp, exists=exists, tombstone=tomb,
         dead=dead, visible=visible, doc_index=doc_index, order=order,
         visible_order=visible_order,
-        num_nodes=torch.sum(exists).to(torch.int32),
-        num_visible=torch.sum(visible).to(torch.int32),
+        num_nodes=torch.sum(exists, -1).to(torch.int32),
+        num_visible=torch.sum(visible, -1).to(torch.int32),
         status=status)
 
 
@@ -793,9 +887,9 @@ def _node_cols_from_row(node_row, src_ts, src_pos, M: int, N: int):
     pos IPOS, the root ts 0."""
     is_node_slot = node_row < N
     wc = torch.where(is_node_slot, node_row, 0).long()
-    node_ts = torch.where(is_node_slot, src_ts[wc], BIG)
-    node_ts[0] = 0
-    node_pos = torch.where(is_node_slot, src_pos[wc], IPOS)
+    node_ts = torch.where(is_node_slot, _g(src_ts, wc), BIG)
+    node_ts[..., 0] = 0
+    node_pos = torch.where(is_node_slot, _g(src_pos, wc), IPOS)
     return is_node_slot, node_ts, node_pos.to(torch.int32)
 
 
@@ -811,26 +905,29 @@ def _sorted_slots(is_add, ts, pos, N: int, M: int):
     c-th run start, c the running count of starts — a cumsum and one
     scatter, exactly."""
     dev = ts.device
+    lead = tuple(ts.shape[:-1])
     i32 = dict(dtype=torch.int32, device=dev)
     NULL = M - 1
     sort_ts = torch.where(is_add & (ts > 0), ts, BIG)
     sorted_ts, sorted_idx = torch.sort(sort_ts, stable=True)
     sorted_idx = sorted_idx.to(torch.int32)
-    run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                           sorted_ts[1:] != sorted_ts[:-1]])
+    run_start = torch.cat([torch.ones(lead + (1,), dtype=torch.bool,
+                                      device=dev),
+                           sorted_ts[..., 1:] != sorted_ts[..., :-1]], -1)
     not_big = sorted_ts < BIG
     is_canon = run_start & not_big
-    c = torch.cumsum(run_start.to(torch.int32), 0, dtype=torch.int32)
+    c = torch.cumsum(run_start.to(torch.int32), -1, dtype=torch.int32)
     ar = torch.arange(N, **i32)
-    starts = set_drop(torch.zeros(N, **i32),
+    starts = set_drop(torch.zeros(lead + (N,), **i32),
                       torch.where(run_start, c - 1, N), ar)
-    slot_of_sorted = starts[(c - 1).long()] + 1
+    slot_of_sorted = _g(starts, c - 1) + 1
     perm = sorted_idx.long()
-    op_slot = torch.empty(N, **i32)
-    op_slot[perm] = torch.where(not_big, slot_of_sorted, NULL).to(torch.int32)
-    op_is_dup = torch.empty(N, dtype=torch.bool, device=dev)
-    op_is_dup[perm] = ~run_start & not_big
-    node_row = set_drop(torch.full((M,), IPOS, **i32),
+    op_slot = torch.empty(lead + (N,), **i32)
+    op_slot.scatter_(-1, perm, torch.where(not_big, slot_of_sorted,
+                                           NULL).to(torch.int32))
+    op_is_dup = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+    op_is_dup.scatter_(-1, perm, ~run_start & not_big)
+    node_row = set_drop(torch.full(lead + (M,), IPOS, **i32),
                         torch.where(is_canon, slot_of_sorted, M), sorted_idx)
     is_node_slot, node_ts, node_pos = _node_cols_from_row(
         node_row, sort_ts, pos, M, N)
@@ -842,14 +939,15 @@ def _join_ops(sorted_ts, parent_ts, at_ts, N: int, M: int):
     """Per-op sort-merge join (reference ``_join_ops_impl``): the parent
     and the fused anchor-or-target references against the sorted add
     axis, by binary search."""
-    queries = torch.cat([parent_ts, at_ts])
+    queries = torch.cat([parent_ts, at_ts], -1)
     qidx = torch.searchsorted(sorted_ts, queries, side="left")
     qidx_c = torch.clamp(qidx, max=N - 1)
-    qhit = (sorted_ts[qidx_c] == queries) & (queries > 0) & (queries < BIG)
+    qhit = (_g(sorted_ts, qidx_c) == queries) & (queries > 0) & \
+        (queries < BIG)
     qslot = torch.where(queries == 0, 0,
                         torch.where(qhit, qidx_c + 1, M - 1)).to(torch.int32)
     qfound = (queries == 0) | qhit
-    return qslot[:N], qslot[N:], qfound[:N], qfound[N:]
+    return qslot[..., :N], qslot[..., N:], qfound[..., :N], qfound[..., N:]
 
 
 def _res_hint(hint, want, slot_or_neg, ts, N: int, M: int, check_ts: bool):
@@ -858,10 +956,10 @@ def _res_hint(hint, want, slot_or_neg, ts, N: int, M: int, check_ts: bool):
     timestamp when ``check_ts``; ``miss`` flags a nonzero reference
     without a verified hint."""
     p = torch.clamp(hint, 0, N - 1).long()
-    sp = slot_or_neg[p]
+    sp = _g(slot_or_neg, p)
     ok = (hint >= 0) & (sp >= 0) & (want > 0) & (want < BIG)
     if check_ts:
-        ok = ok & (ts[p] == want)
+        ok = ok & (_g(ts, p) == want)
     slot = torch.where(want == 0, 0, torch.where(ok, sp, M - 1))
     miss = (want > 0) & (want < BIG) & ~ok
     return slot.to(torch.int32), (want == 0) | ok, miss
@@ -884,15 +982,19 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
       join.
 
     ``leg`` is :func:`select_leg` of the caller's columns.  Each
-    verification is ONE predicate read back to the host.  Under the
-    ops-axis context ``part`` the winner frame is its sharded scatter-min
-    and the ranked leg's winner read-back its sharded gather."""
+    verification is ONE predicate read back to the host; in a batch it
+    holds for every document or the whole batch takes the sort+join
+    (which gives a document with good hints its hinted resolution).
+    Under the ops-axis context ``part`` the winner frame is its sharded
+    scatter-min and the ranked leg's winner read-back its sharded
+    gather."""
     global fallbacks
     kind = ops["kind"]
     dev = kind.device
+    lead = tuple(kind.shape[:-1])
     ts = ops["ts"].to(torch.int64)
     pos = ops["pos"].to(torch.int32)
-    N = kind.shape[0]
+    N = kind.shape[-1]
     M = N + 2
     NULL = M - 1
     i32 = dict(dtype=torch.int32, device=dev)
@@ -904,7 +1006,7 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
         row_idx = torch.arange(N, **i32)
         if part is not None:
             return part.frame_reduce(M, IPOS, tgt, row_idx, "min")
-        return min_drop(torch.full((M,), IPOS, **i32), tgt, row_idx)
+        return min_drop(torch.full(lead + (M,), IPOS, **i32), tgt, row_idx)
 
     if leg == "slot":
         rank = ops["ts_rank"].to(torch.int32)
@@ -912,8 +1014,8 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
         has_rank = is_real_add & (rank >= 0) & (rank < N)
         op_slot = torch.where(has_rank, rank + 1, NULL).to(torch.int32)
         if "win_row" in ops:
-            pad = torch.full((1,), IPOS, **i32)
-            win = torch.cat([pad, ops["win_row"].to(torch.int32), pad])
+            pad = torch.full(lead + (1,), IPOS, **i32)
+            win = torch.cat([pad, ops["win_row"].to(torch.int32), pad], -1)
         else:
             win = win_frame(has_rank, op_slot)
         op_is_dup = (ops["dup_row"] != 0) & has_rank
@@ -949,7 +1051,7 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
         # canonical copy = min array row per slot (first array row wins)
         win = win_frame(has_rank, op_slot)
         win_back = part.gather_rows(win, op_slot) if part is not None \
-            else win[op_slot.long()]
+            else _g(win, op_slot)
         is_canon_op = has_rank & (row_idx == win_back)
         op_is_dup = has_rank & ~is_canon_op
         is_node_slot, node_ts, node_pos = _node_cols_from_row(
@@ -963,12 +1065,12 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
         # the four rank properties hold iff ts_rank is exactly the
         # unique-add-timestamp rank; plus every link verified
         used = is_node_slot
-        dense_ok = torch.all(~used[2:M - 1] | used[1:M - 2])
-        incr_ok = torch.all(torch.where(used[1:M - 1] & used[2:M],
-                                        node_ts[1:M - 1] < node_ts[2:M],
-                                        True))
+        dense_ok = torch.all(~used[..., 2:M - 1] | used[..., 1:M - 2])
+        incr_ok = torch.all(torch.where(
+            used[..., 1:M - 1] & used[..., 2:M],
+            node_ts[..., 1:M - 1] < node_ts[..., 2:M], True))
         ts_match = torch.all(torch.where(
-            has_rank, node_ts[torch.clamp(op_slot, 0, M - 1).long()] == ts,
+            has_rank, _g(node_ts, torch.clamp(op_slot, 0, M - 1)) == ts,
             True))
         all_ranked = torch.all(~is_real_add | has_rank)
         link_miss = torch.any(pp_miss) | torch.any(at_miss & (is_add | is_del))
@@ -1006,7 +1108,7 @@ def crowding_hinted(ops: Dict, hints: Optional[str],
     count it replaces exists only on the compacted sibling branch
     (``GRAFT_S_CAP`` below the slot count)."""
     compacted = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT) < \
-        ops["kind"].shape[0] + 2
+        ops["kind"].shape[-1] + 2
     return select_leg(ops, hints) == "slot" and compacted and \
         _crowd_cols(ops, no_deletes)
 
@@ -1035,7 +1137,8 @@ LEG_COLS = {"slot": MERGE_COLS,
 
 def host_no_deletes(kind) -> bool:
     """The host-side check behind the no-deletes specialisation: True
-    only for a host-resident kind column with no Delete row."""
+    only for a host-resident kind column with no Delete row (for a
+    batch's ``[B, N]`` column: in no document)."""
     if isinstance(kind, torch.Tensor):
         if kind.device.type != "cpu":
             return False
@@ -1078,17 +1181,25 @@ def materialize(ops: Dict, hints: Optional[str] = None, device=None,
 
 def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
                  no_deletes: bool, probe: Optional[int] = None, part=None):
-    """The merge on ``dev`` with the no-deletes promise already checked;
-    ``part`` is the ops-axis partition context, which only
-    ``parallel.opsaxis.materialize`` passes."""
+    """The merge on ``dev`` with the no-deletes promise already checked
+    (for a batch, in every document).  ``ops`` are one document's ``[N]``
+    columns or a batch's ``[B, N]`` (``parallel.mesh``): a batch is ONE
+    merge, one chain of dispatches and host reads, whose table carries
+    the leading document axis.  ``part`` is the ops-axis partition
+    context, which only ``parallel.opsaxis.materialize`` passes (one
+    document)."""
     from ..convert import ops_from_numpy
     leg = select_leg(ops, hints)
     t_ops = ops_from_numpy({k: ops[k] for k in LEG_COLS[leg] if k in ops},
                            dev)
-    n = t_ops["kind"].shape[0]
+    kind = t_ops["kind"]
+    n = kind.shape[-1]
     if n + 2 > 2**30:
         raise ValueError("op count exceeds the 2^30 - 2 slot space")
-    chainaudit.begin_merge(n, leg, not no_deletes)
+    if part is not None and kind.dim() != 1:
+        raise ValueError("the ops-axis merge takes one document")
+    chainaudit.begin_merge(n, leg, not no_deletes,
+                           docs=kind.shape[0] if kind.dim() == 2 else 1)
     try:
         sel = _resolve(t_ops, hints, leg, part)
         acc = _probe_sum(*(x for x in sel if x is not None)) \

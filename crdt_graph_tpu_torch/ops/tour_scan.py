@@ -7,6 +7,9 @@ own.  On CUDA tensors it runs the single-pass decoupled look-back scan of
 ``csrc/prefix_sums.cu`` (the port of the reference's Pallas
 ``tour_scan._kernel``), over the tiles :func:`scan_plan` counts; on CPU
 tensors its plain twin (the reference's ``_lax_prefix``).
+``prefix_sums_batched`` scans every document of ``boundary[B, T]`` and
+``weights[B, Kw, M]`` in one launch, each lane restarting at its own
+first element.
 
 The ops-axis sharded merge (``parallel.opsaxis``) splits the same scans
 into k contiguous chunks: each shard scans its own chunk (through
@@ -41,16 +44,74 @@ def plain_prefix(boundary: torch.Tensor, weights: torch.Tensor
             torch.cumsum(weights, 1, dtype=torch.int32))
 
 
-def scan_plan(t: int, kw: int, m: int) -> Tuple[int, int, int]:
-    """The tile plan of kernel 3 for ``boundary[t]`` and ``weights[kw,
-    m]``: (tiles of the boundary lane, tiles of each weight lane, 8-byte
-    scratch words: the tile counter and one status word a tile — 0 when
-    there is nothing to scan)."""
-    if min(t, kw, m) < 0:
-        raise ValueError(f"negative extent in ({t}, {kw}, {m})")
+def plain_prefix_batched(boundary: torch.Tensor, weights: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Twin over documents: ``plain_prefix(boundary[b], weights[b])`` for
+    every document b (int32, wrapping, restarting at each document)."""
+    return (torch.cumsum(boundary, 1, dtype=torch.int32),
+            torch.cumsum(weights, 2, dtype=torch.int32))
+
+
+def scan_plan(t: int, kw: int, m: int, b: int = 1) -> Tuple[int, int, int]:
+    """The tile plan of kernel 3 for ``b`` documents' ``boundary[t]`` and
+    ``weights[kw, m]``: (tiles of each boundary lane, tiles of each
+    weight lane, 8-byte scratch words: the tile counter and one status
+    word a tile — 0 when there is nothing to scan)."""
+    if min(t, kw, m, b) < 0:
+        raise ValueError(f"negative extent in ({b}, {t}, {kw}, {m})")
     tiles_b, tiles_w = -(-t // SCAN_TILE), -(-m // SCAN_TILE)
-    tiles = tiles_b + kw * tiles_w
+    tiles = b * (tiles_b + kw * tiles_w)
     return tiles_b, tiles_w, 1 + tiles if tiles else 0
+
+
+def _scan(boundary: torch.Tensor, weights: torch.Tensor, docs: bool):
+    """Check the operands, then run the twin (CPU) or one launch (CUDA);
+    ``docs``: they carry a leading document axis.
+
+    On the card both results and the kernel's scratch are views of one
+    allocation (each result starts on a 16-byte boundary)."""
+    dev = boundary.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    lead = 1 if docs else 0
+    for x, nd in ((boundary, 1 + lead), (weights, 2 + lead)):
+        if x.dtype != torch.int32 or x.dim() != nd or \
+                not x.is_contiguous() or x.device != dev:
+            raise ValueError(
+                "boundary must be int32 [B, T] and weights int32 [B, Kw, "
+                "M], contiguous, on one device" if docs else
+                "boundary must be int32 [T] and weights int32 [Kw, M], "
+                "contiguous, on one device")
+    if docs and boundary.shape[0] != weights.shape[0]:
+        raise ValueError("boundary and weights must have one document axis")
+    if dev.type == "cpu":
+        return (plain_prefix_batched if docs else plain_prefix)(
+            boundary, weights)
+    b = boundary.shape[0] if docs else 1
+    t = boundary.shape[-1]
+    kw, m = weights.shape[-2:]
+    _, _, words = scan_plan(t, kw, m, b)
+    # one allocation: [ob | ow | scratch], each part 16-byte aligned
+    at_w = -(-(b * t) // 4) * 4
+    at_s = at_w + -(-(b * kw * m) // 4) * 4
+    buf = torch.empty(at_s + 2 * words, dtype=torch.int32, device=dev)
+    ob = buf.as_strided(boundary.shape, boundary.stride())
+    ow = buf.as_strided(weights.shape, weights.stride(), at_w)
+    if words:
+        p = buf.data_ptr()
+        lib = build.load()
+        scratch = (p + 4 * at_s, words, build.stream_ptr(dev))
+        if docs:
+            build.check(lib.crdt_prefix_sums_batched(
+                boundary.data_ptr(), p, b, t, weights.data_ptr(),
+                p + 4 * at_w, kw, m, *scratch), "crdt_prefix_sums_batched")
+        else:
+            build.check(lib.crdt_prefix_sums(
+                boundary.data_ptr(), p, t, weights.data_ptr(), p + 4 * at_w,
+                kw, m, *scratch), "crdt_prefix_sums")
+        kernels.launches["prefix_sums_batched" if docs
+                         else "prefix_sums"] += 1
+    return ob, ow
 
 
 @chainaudit.kernel_call
@@ -59,37 +120,18 @@ def prefix_sums(boundary: torch.Tensor, weights: torch.Tensor
     """Inclusive prefix sums of i32 ``boundary[T]`` and of each row of
     i32 ``weights[Kw, M]``: the CUDA kernel on CUDA tensors, the twin on
     CPU tensors; any other device, and arguments the kernel does not
-    take, raise ``ValueError`` on either.
+    take, raise ``ValueError`` on either."""
+    return _scan(boundary, weights, False)
 
-    On the card both results and the kernel's scratch are views of one
-    allocation (each result starts on a 16-byte boundary)."""
-    dev = boundary.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    for x, nd in ((boundary, 1), (weights, 2)):
-        if x.dtype != torch.int32 or x.dim() != nd or \
-                not x.is_contiguous() or x.device != dev:
-            raise ValueError("boundary must be int32 [T] and weights int32 "
-                             "[Kw, M], contiguous, on one device")
-    t = boundary.shape[0]
-    kw, m = weights.shape
-    if dev.type == "cpu":
-        return plain_prefix(boundary, weights)
-    _, _, words = scan_plan(t, kw, m)
-    # one allocation: [ob | ow | scratch], each part 16-byte aligned
-    at_w = -(-t // 4) * 4
-    at_s = at_w + -(-(kw * m) // 4) * 4
-    buf = torch.empty(at_s + 2 * words, dtype=torch.int32, device=dev)
-    ob = buf.as_strided((t,), (1,))
-    ow = buf.as_strided((kw, m), (m, 1), at_w)
-    if words:
-        p = buf.data_ptr()
-        build.check(build.load().crdt_prefix_sums(
-            boundary.data_ptr(), p, t, weights.data_ptr(), p + 4 * at_w, kw,
-            m, p + 4 * at_s, words, build.stream_ptr(dev)),
-            "crdt_prefix_sums")
-        kernels.launches["prefix_sums"] += 1
-    return ob, ow
+
+@chainaudit.kernel_call
+def prefix_sums_batched(boundary: torch.Tensor, weights: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`prefix_sums` of every document of i32 ``boundary[B, T]``
+    and ``weights[B, Kw, M]`` in one launch (each lane restarts at its
+    own first element): the CUDA kernel on CUDA tensors, the twin on CPU
+    tensors."""
+    return _scan(boundary, weights, True)
 
 
 # ---- the ring carry exchange (kernel 5) ---------------------------------

@@ -25,13 +25,28 @@ has no SPMD partitioner, so each mesh form is written out:
 - :func:`sharded_materialize` — one merge with the op axis sharded over
   the mesh's ``ops`` row: the port's explicit ops-axis merge
   (``parallel.opsaxis``), whose joins are written out;
-- :func:`batched_materialize` — B independent merges (``[B, N]``
-  columns).  With a mesh, document i runs on its docs-axis row (the
-  first device of it, or, with ``shard_ops_axis=True``, the ops-axis
-  merge over the whole row); with ``device=`` (the serving form) every
-  document runs on that device.  The B merges run back to back on the
-  host, each with its own host decisions and every kernel on; the
-  tables stack into ``[B, ...]`` as the reference's batched table.
+- :func:`batched_materialize` — B independent documents (``[B, N]``
+  columns) merged as ONE merge over a leading document axis, the
+  reference's vmapped body: one chain of dispatches and host reads for
+  the batch, each kernel launched once in its batched form
+  (``ops.merge._materialize`` on ``[B, N]`` columns).  With ``device=``
+  (the serving form) the batch runs on that device; with a mesh, each
+  docs row's documents run as one batched merge on the row's first
+  device (consecutive rows on one device as one batch), or, with
+  ``shard_ops_axis=True``, one ops-axis merge a document over the whole
+  row.  The table carries the leading document axis, as the
+  reference's batched table does.
+
+  A batch is cut into sub-batches of at most :data:`BATCH_ROWS` op rows
+  (``BATCH_ROWS // N`` documents, at least one), merged one after
+  another and concatenated: a merge's intermediates peak at a few
+  hundred bytes an op row (0.49 GB over the columns for 16 documents of
+  65,536 ops on an H100), so the cap holds a batch near 8 GB, far
+  inside the card's memory.  The kernels' int32 index types bound each
+  document (the 2^30 slot guard), never the batch: every batched
+  kernel offsets a document's rows by 64-bit arithmetic after clamping
+  its index to the document's own rows.  The rule is fixed, not a
+  setting.
 
 The explicitly partitioned resolve (the reference's ``shard_map``
 schedule) is ``parallel.shard``; the multi-process mesh is
@@ -42,8 +57,8 @@ Entry points:
 - :func:`make_mesh` / :func:`logical_devices` — a mesh, and n logical
   devices of one card (or of the CPU).
 - :func:`sharded_materialize`, :func:`batched_materialize`,
-  :func:`materialize_each` (one table per document, the serving
-  scheduler's form), :func:`doc_table` (document i's slice).
+  :func:`materialize_each` (one table per document, each a view of the
+  one batched table), :func:`doc_table` (document i's slice).
 - :func:`stack_packed` / :func:`stack_aligned` — per-document packed
   ops → ``[B, N]`` numpy columns (aligned: every batch re-padded to the
   shared capacity first).
@@ -74,6 +89,11 @@ OPS_AXIS = "ops"
 # batched body does: its hinted path's ``lax.cond`` would run both
 # branches under ``vmap``, so it joins instead
 POS_HINTS = ("parent_pos", "anchor_pos", "target_pos")
+
+# the most op rows (documents times rows) one batched merge takes; a
+# larger batch is merged in sub-batches of BATCH_ROWS // N documents
+# (module docstring)
+BATCH_ROWS = 1 << 24
 
 
 class Mesh:
@@ -187,36 +207,50 @@ class GlobalDocs:
     offset: int
 
 
+def _merge_docs(ops: Dict, keys, hints: str, dev) -> NodeTable:
+    """One batched merge of ``[B, N]`` columns on ``dev``: sub-batches
+    of at most :data:`BATCH_ROWS` rows, concatenated."""
+    b, n = (int(x) for x in ops["kind"].shape[:2])
+    per = max(1, BATCH_ROWS // max(n, 1))
+    parts = []
+    for lo in range(0, b, per):
+        sub = {k: ops[k][lo:lo + per] for k in keys}
+        parts.append(merge_mod._materialize(
+            sub, hints, dev, merge_mod.host_no_deletes(sub["kind"])))
+    if len(parts) == 1:
+        return parts[0]
+    return NodeTable(**{f: torch.cat([getattr(t, f) for t in parts])
+                        for f in FIELDS})
+
+
+def _hints(cols, exhaustive_hints: bool):
+    """The hint mode and the columns of the batched body: the join leg
+    without the position hints (the reference's default body), or the
+    exhaustive leg with every column."""
+    keys = [k for k in cols if exhaustive_hints or k not in POS_HINTS]
+    return ("exhaustive" if exhaustive_hints else "join"), keys
+
+
 def materialize_each(ops: Dict[str, np.ndarray], device=None,
                      exhaustive_hints: bool = False) -> List[NodeTable]:
-    """B independent merges: arrays carry a leading document axis
-    ``[B, N]`` (:func:`stack_packed`).  Returns one
-    :class:`NodeTable` per document, each at the shared capacity ``N``,
-    on ``device`` — the form the serving scheduler commits from.
-
-    The default drops the position hints and runs ``hints="join"``,
-    which is correct for any input.  ``exhaustive_hints=True`` runs
-    ``hints="exhaustive"`` — ONLY for batches whose link-hint coverage
-    the caller vouches for (pack/stack_packed provenance); a violated
-    promise silently mis-resolves references."""
-    dev = merge_mod.resolve_device(device)
-    b = int(ops["kind"].shape[0])
-    if b < 1:
-        raise ValueError("batched_materialize needs at least one document")
-    hints = "exhaustive" if exhaustive_hints else "join"
-    keys = [k for k in ops if exhaustive_hints or k not in POS_HINTS]
-    tables = []
-    for i in range(b):
-        one = {k: ops[k][i] for k in keys}
-        tables.append(merge_mod._materialize(
-            one, hints, dev, merge_mod.host_no_deletes(one["kind"])))
-    return tables
+    """The batched merge of ``[B, N]`` columns (:func:`stack_packed`) as
+    one :class:`NodeTable` per document: views of the one batched table
+    (:func:`doc_table`), each at the shared capacity ``N``, on
+    ``device``.  Hint modes as :func:`batched_materialize`."""
+    btab = batched_materialize(ops, exhaustive_hints=exhaustive_hints,
+                               device=device)
+    return [doc_table(btab, i) for i in range(int(btab.status.shape[0]))]
 
 
 def _mesh_tables(ops, mesh: Mesh, shard_ops_axis: bool,
                  exhaustive_hints: bool) -> List[NodeTable]:
     """The mesh form: document i (global index) on docs row
-    ``i // (B / docs)``; only this process's rows are merged."""
+    ``i // (B / docs)``; only this process's rows are merged, each row's
+    documents as one batched merge on the row's first device, and the
+    documents of consecutive rows that start on the same device (logical
+    devices of one card) as one batch (with ``shard_ops_axis``, one
+    ops-axis merge a document over its row).  Returns the batched tables
+    in document order."""
     if isinstance(ops, GlobalDocs):
         cols, b, offset = ops.local, ops.global_b, ops.offset
     else:
@@ -229,23 +263,37 @@ def _mesh_tables(ops, mesh: Mesh, shard_ops_axis: bool,
         raise ValueError(f"op axis {cols['kind'].shape[1]} not divisible "
                          f"by mesh ops axis {n_ops}; pad the columns")
     per = b // n_docs
-    hints = "exhaustive" if exhaustive_hints else "join"
-    keys = [k for k in cols if exhaustive_hints or k not in POS_HINTS]
+    hints, keys = _hints(cols, exhaustive_hints)
     mine = set(mesh.local_rows())
+    n_local = int(cols["kind"].shape[0])
     tables = []
-    for i in range(int(cols["kind"].shape[0])):
-        r = (offset + i) // per
+    lo = 0
+    while lo < n_local:
+        r = (offset + lo) // per
         if r not in mine:
-            raise ValueError(f"document {offset + i} lies on docs row {r}, "
+            raise ValueError(f"document {offset + lo} lies on docs row {r}, "
                              f"which process {mesh.row_process[r]} owns")
+        hi = min(n_local, (r + 1) * per - offset)
         row = mesh.ops_row(r)
-        one = {k: _host(cols[k][i]) for k in keys}
+        # the next rows' documents join the batch while their rows
+        # start on the same device (logical devices of one card)
+        while not shard_ops_axis and hi < n_local:
+            r2 = (offset + hi) // per
+            if r2 not in mine or mesh.ops_row(r2)[0] != row[0]:
+                break
+            hi = min(n_local, (r2 + 1) * per - offset)
         if shard_ops_axis:
-            tables.append(opsaxis.materialize(one, k=n_ops, hints=hints,
-                                              device=row[0], devices=row))
+            for i in range(lo, hi):
+                one = {k: _host(cols[k][i]) for k in keys}
+                t = opsaxis.materialize(one, k=n_ops, hints=hints,
+                                        device=row[0], devices=row)
+                tables.append(NodeTable(**{f: getattr(t, f)[None]
+                                           for f in FIELDS}))
         else:
-            tables.append(merge_mod._materialize(
-                one, hints, row[0], merge_mod.host_no_deletes(one["kind"])))
+            tables.append(_merge_docs(
+                {k: _host(cols[k][lo:hi]) for k in keys}, keys, hints,
+                row[0]))
+        lo = hi
     if not tables:
         raise ValueError("batched_materialize needs at least one document")
     return tables
@@ -255,32 +303,40 @@ def batched_materialize(ops, mesh: Optional[Mesh] = None,
                         shard_ops_axis: bool = False,
                         exhaustive_hints: bool = False,
                         device=None) -> NodeTable:
-    """B independent merges of ``[B, N]`` columns, their tables stacked
-    into one :class:`NodeTable` whose every field has the leading
-    document axis — the reference's batched table, field for field.
+    """B independent documents' ``[B, N]`` columns merged as one batched
+    merge (module docstring): one :class:`NodeTable` whose every field
+    has the leading document axis — the reference's batched table, field
+    for field.
 
     With ``mesh`` (the reference's form): a batch the docs axis does not
-    divide raises ``ValueError``; document i runs on its docs-axis row,
-    and with ``shard_ops_axis`` its merge is the ops-axis merge over that
-    row.  ``ops`` may be a :class:`GlobalDocs`: then only this process's
-    documents merge, and the table holds them (global rows ``offset``
-    on).  Without ``mesh`` every document merges on ``device`` (default:
-    the card).  The table lies on the first document's device.
+    divide raises ``ValueError``; each docs row's documents merge on
+    that row, and with ``shard_ops_axis`` each document's merge is the
+    ops-axis merge over the row (one merge a document).  ``ops`` may be
+    a :class:`GlobalDocs`: then only this process's documents merge, and
+    the table holds them (global rows ``offset`` on).  Without ``mesh``
+    the batch merges on ``device`` (default: the card).  The table lies
+    on the first document's device.
 
     ``exhaustive_hints=True`` opts into the hinted resolution — ONLY for
     batches whose link-hint coverage the caller vouches for
     (pack/stack_packed provenance); the default drops the position hints
     and joins, which is correct for any input."""
     if mesh is None:
-        tables = materialize_each(ops, device, exhaustive_hints)
-    else:
-        if device is not None:
-            raise ValueError("give batched_materialize a mesh or a "
-                             "device, not both")
-        tables = _mesh_tables(ops, mesh, shard_ops_axis, exhaustive_hints)
+        dev = merge_mod.resolve_device(device)
+        if int(ops["kind"].shape[0]) < 1:
+            raise ValueError("batched_materialize needs at least one "
+                             "document")
+        hints, keys = _hints(ops, exhaustive_hints)
+        return _merge_docs(ops, keys, hints, dev)
+    if device is not None:
+        raise ValueError("give batched_materialize a mesh or a "
+                         "device, not both")
+    tables = _mesh_tables(ops, mesh, shard_ops_axis, exhaustive_hints)
+    if len(tables) == 1:
+        return tables[0]
     home = tables[0].status.device
-    return NodeTable(**{f: torch.stack([getattr(t, f).to(home)
-                                        for t in tables])
+    return NodeTable(**{f: torch.cat([getattr(t, f).to(home)
+                                      for t in tables])
                         for f in FIELDS})
 
 

@@ -8,9 +8,11 @@ Each document is config-5-shaped (the 64-chain join) with a replica-id
 space of its own (distinct documents, not one array aliased n times).
 The mesh is ``docs = n_docs × ops = 1`` over ``mesh.logical_devices``:
 n entries of the one card (or of the CPU), or the visible cards in turn.
-On one card the batched merge runs the documents back to back, so
-``batched_vs_seq`` is about 1: the row says what the docs axis costs on
-one device, not a speedup across devices.
+Documents whose rows lie on one device merge as ONE batched merge over a
+leading document axis (one chain of dispatches and host reads, each
+kernel launched once for the batch), so on one card the 8 documents are
+one merge; with a card a row each, each card merges its own.  The
+output's ``path`` names that.
 
 Every batched document must show every op visible (``num_visible ==
 ops_per_doc`` when 64 divides it, as at the default 1M).
@@ -91,6 +93,9 @@ def run(n_docs: int = 8, ops_per_doc: int = 1_000_000, device=None,
         "host_cores": os.cpu_count(),
         "mesh": "docs=%d x ops=1 (logical devices %s)" % (
             n_docs, ", ".join(str(d) for d in devs)),
+        "path": "mesh.batched_materialize(exhaustive_hints=True): the "
+                "documents of consecutive docs rows on one device as one "
+                "batched merge over a leading document axis",
         "platform": _headline.platform_tag(block),
         "device": block,
         "num_visible": visible.tolist(),
@@ -105,7 +110,7 @@ def run(n_docs: int = 8, ops_per_doc: int = 1_000_000, device=None,
     }
     _headline.write(out, out_path or _headline.out_path("docs_axis"))
     print(json.dumps({k: out[k] for k in (
-        "n_docs", "ops_per_doc", "mesh", "batched_p50_s",
+        "n_docs", "ops_per_doc", "mesh", "path", "batched_p50_s",
         "seq_single_device_s", "batched_vs_seq")}), flush=True)
     return out
 

@@ -13,7 +13,8 @@ inverted, the same shape as a continuous-batching inference server:
   the document's bounded queue (or refused with 429 + Retry-After), and
   merged by the single scheduler thread, which fuses every delta pending
   on a document into one merge and batches independent documents
-  through one batched merge (parallel.mesh.materialize_each).
+  through one batched merge over a document axis
+  (parallel.mesh.batched_materialize).
 - **One thread launches on the card.**  All kernel work funnels through
   the scheduler thread; handler threads never launch, and read only
   host mirrors and published snapshots.  The engine's ``device`` is the
@@ -1139,15 +1140,28 @@ class ServingEngine:
             })
         except Exception:            # noqa: BLE001 — recorder boundary
             self.counters.add("flight_record_errors")
-        if self.fleettrace is not None or self.ledger is not None:
-            try:
-                self._stamp_visibility(doc, ct)
-            except Exception:        # noqa: BLE001 — same boundary:
-                # tracing must never take down the scheduler
-                self.counters.add("fleettrace_stamp_errors")
+        self.stamp_visibility(doc, ct, ct.total_ms)
 
-    def _stamp_visibility(self, doc: ServedDoc,
-                          ct: trace_mod.CommitTrace) -> None:
+    def stamp_visibility(self, doc: ServedDoc, ct: trace_mod.CommitTrace,
+                         total_ms: float) -> None:
+        """The commit's fleet stamps (:meth:`_stamp_visibility`), once:
+        the scheduler calls this just before a committed round's
+        tickets resolve, so a client holding its ack finds the commit's
+        ledger entry and spans already there (a watch or a scrape right
+        after the ack cannot miss them); :meth:`record_commit` stamps
+        any commit that reached it unstamped."""
+        if ct.visibility_stamped or (self.fleettrace is None
+                                     and self.ledger is None):
+            return
+        ct.visibility_stamped = True
+        try:
+            self._stamp_visibility(doc, ct, total_ms)
+        except Exception:        # noqa: BLE001 — same boundary:
+            # tracing must never take down the scheduler
+            self.counters.add("fleettrace_stamp_errors")
+
+    def _stamp_visibility(self, doc: ServedDoc, ct: trace_mod.CommitTrace,
+                          total_ms: float) -> None:
         """Fleet-node commit stamping (docs/OBSERVABILITY.md §Fleet
         tracing & visibility ledger): register the local admission →
         fsync → publish spans for every trace id the fused commit
@@ -1163,7 +1177,7 @@ class ServingEngine:
                      if k.startswith("wal_"))
         durable_ms = round(wal_ms, 3) if wal_ms > 0.0 else None
         seq = doc.snapshot_view().seq
-        total_ms = round(ct.total_ms, 3)
+        total_ms = round(total_ms, 3)
         ft = self.fleettrace
         if ft is not None:
             for tid in ct.trace_ids:
@@ -1173,8 +1187,12 @@ class ServingEngine:
                 ft.record(tid, "publish", ms=total_ms, seq=seq)
             ft.note_commit(ct.doc_id, ct.trace_ids)
         if self.ledger is not None:
-            self.ledger.record_commit(ct.doc_id, seq, ct.trace_ids,
-                                      durable_ms, ct.total_ms)
+            early = self.ledger.record_commit(ct.doc_id, seq, ct.trace_ids,
+                                              durable_ms, total_ms)
+            if early and ft is not None:
+                # a watch delivered this generation before the stamp
+                for tid in early:
+                    ft.record(tid, "watch_delivery", doc=ct.doc_id, seq=seq)
 
     @contextlib.contextmanager
     def audit_commit(self, ct: trace_mod.CommitTrace):

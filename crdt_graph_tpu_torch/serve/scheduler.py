@@ -14,8 +14,9 @@ Scheduling policy, per round:
    the batched kernel; when ≥2 documents route to the kernel in the same
    round (and each fits one chunk), their candidate sets are padded to a
    shared capacity and materialized as ONE batched merge on the card
-   (parallel.mesh.materialize_each), one table per document at the
-   shared capacity.  Everything
+   (parallel.mesh.batched_materialize: one chain of dispatches over a
+   leading document axis), each document committed from its slice of
+   the batched table at the shared capacity.  Everything
    else merges per-document, with giant pushes split into bounded chunks
    (``engine.apply_packed_chunked``) so p50 commit latency is set by the
    chunk size, not the largest client.
@@ -67,6 +68,19 @@ _SAVED_UNSET = object()
 _WorkItem = Tuple["ServedDoc", List[WriteTicket],
                   Optional[packed_mod.PackedOps], List[Tuple[int, int]],
                   CommitTrace]
+
+
+def _commit_ms(ct: CommitTrace) -> float:
+    """A commit's total so far: its time on the scheduler thread since
+    ``_guarded`` started it, plus a grouped round's shared prepare and
+    batched launch (or a remote merge), which ran BEFORE it (stamped
+    into ``stages_ms`` by ``_process_grouped``): billed into the commit
+    total, or the SLO tripwire would be blind to the dominant device
+    step of exactly these commits."""
+    return (time.perf_counter() - ct.t_start) * 1e3 \
+        + ct.stages_ms.get("batch_prepare", 0.0) \
+        + ct.stages_ms.get("batched_launch", 0.0) \
+        + ct.stages_ms.get("remote_merge", 0.0)
 
 
 class MergeScheduler(threading.Thread):
@@ -497,7 +511,7 @@ class MergeScheduler(threading.Thread):
         (an ``error`` outcome is one of its dump triggers)."""
         doc, tickets, ct = item[0], item[1], item[4]
         doc._round_records = []     # pipelined-round encode buffer
-        t0 = time.perf_counter()
+        ct.t_start = time.perf_counter()
         try:
             fn(item, *args)
         except Exception as e:   # noqa: BLE001 — thread boundary: the
@@ -515,20 +529,10 @@ class MergeScheduler(threading.Thread):
             # bill a grouped round's shared prepare+launch here too —
             # an errored member of the slowest rounds must not
             # under-report the dominant device step to the SLO tripwire
-            ct.total_ms = (time.perf_counter() - t0) * 1e3 \
-                + ct.stages_ms.get("batch_prepare", 0.0) \
-                + ct.stages_ms.get("batched_launch", 0.0) \
-                + ct.stages_ms.get("remote_merge", 0.0)
+            ct.total_ms = _commit_ms(ct)
             self.engine.record_commit(doc, ct)
             return
-        # a grouped commit's shared prepare + batched launch ran BEFORE
-        # _guarded (stamped into stages_ms by _process_grouped): bill
-        # them into the commit total too, or the SLO tripwire would be
-        # blind to the dominant device step of exactly these commits
-        total_ms = (time.perf_counter() - t0) * 1e3 \
-            + ct.stages_ms.get("batch_prepare", 0.0) \
-            + ct.stages_ms.get("batched_launch", 0.0) \
-            + ct.stages_ms.get("remote_merge", 0.0)
+        total_ms = _commit_ms(ct)
         ct.total_ms = total_ms
         if ct.wal_deferred:
             # group commit: the round barrier fsyncs, publishes,
@@ -615,6 +619,7 @@ class MergeScheduler(threading.Thread):
         if any_applied:
             with ct.stage("publish"):
                 ct.staleness_s = doc.publish()
+        self.engine.stamp_visibility(doc, ct, _commit_ms(ct))
         for t in tickets:
             t.done.set()
 
@@ -657,6 +662,7 @@ class MergeScheduler(threading.Thread):
         if mask.any():
             with ct.stage("publish"):
                 ct.staleness_s = doc.publish()
+        self.engine.stamp_visibility(doc, ct, _commit_ms(ct))
         for t in tickets:
             t.done.set()
 
@@ -799,12 +805,13 @@ class MergeScheduler(threading.Thread):
             if entry.publish_needed:
                 with ct.stage("publish"):
                     ct.staleness_s = doc.publish()
-            for t in tickets:
-                t.done.set()
             ct.wal_deferred = False
             ct.total_ms = round(
                 ct.total_ms + ms
                 + (time.perf_counter() - t0) * 1e3, 3)
+            self.engine.stamp_visibility(doc, ct, ct.total_ms)
+            for t in tickets:
+                t.done.set()
             doc.commit_ms.observe(ct.total_ms)
             self.engine.record_commit(doc, ct)
             doc.note_durable(entry.log_len)
@@ -841,12 +848,13 @@ class MergeScheduler(threading.Thread):
             if entry.publish_needed:
                 with ct.stage("publish"):
                     ct.staleness_s = doc.publish()
-            for t in tickets:
-                t.done.set()
             ct.wal_deferred = False
             ct.total_ms = round(
                 ct.total_ms + ms
                 + (time.perf_counter() - t1) * 1e3, 3)
+            self.engine.stamp_visibility(doc, ct, ct.total_ms)
+            for t in tickets:
+                t.done.set()
             doc.commit_ms.observe(ct.total_ms)
             self.engine.record_commit(doc, ct)
             doc.note_durable(entry.log_len)
@@ -1007,7 +1015,7 @@ class MergeScheduler(threading.Thread):
                 stacked, ps = mesh_mod.stack_aligned(prepared)
             prep_ms = (time.perf_counter() - t0) * 1e3
             with profiling.span("serve.batched_launch"):
-                tables = mesh_mod.materialize_each(
+                btab = mesh_mod.batched_materialize(
                     stacked, device=self.engine.device)
         except Exception as e:   # noqa: BLE001 — launch failed before any
             # commit: every grouped document's tickets get the error
@@ -1036,7 +1044,8 @@ class MergeScheduler(threading.Thread):
             item[4].stages_ms["batch_prepare"] = round(prep_ms, 3)
             item[4].stages_ms["batched_launch"] = round(launch_ms, 3)
             item[4].batch_width = len(grouped)
-            self._guarded(self._finish_grouped, item, ps[i], tables[i])
+            self._guarded(self._finish_grouped, item, ps[i],
+                          mesh_mod.doc_table(btab, i))
 
     def _finish_grouped(self, item: _WorkItem, p, table) -> None:
         doc, tickets, fused, spans, ct = item

@@ -504,12 +504,13 @@ class WalSyncWorker(threading.Thread):
         t1 = time.perf_counter()
         if entry.publish_needed:
             ct.staleness_s = doc.publish_prepared(entry.snap)
-        for t in entry.tickets:
-            t.done.set()
         ct.wal_deferred = False
         ct.total_ms = round(
             ct.total_ms + queued_ms + fsync_ms
             + (time.perf_counter() - t1) * 1e3, 3)
+        self.engine.stamp_visibility(doc, ct, ct.total_ms)
+        for t in entry.tickets:
+            t.done.set()
         doc.commit_ms.observe(ct.total_ms)
         self.engine.record_commit(doc, ct)
         doc.note_durable(entry.log_len)

@@ -41,8 +41,11 @@ hand-written kernel's call as ONE op, whether it launched its CUDA kernel
 or, on the CPU, ran its twin (the twin's own ops are not counted, so a
 CPU audit and a card audit give the same rows).  An op is M-wide at
 ``width >= threshold`` (default a quarter of the widest leading input
-axis); ``compact_floor <= width < threshold`` is the compacted-stage
-bucket (default ``threshold // 16``).
+axis, or of the widest merge: a batch's documents times its rows);
+``compact_floor <= width < threshold`` is the compacted-stage bucket
+(default ``threshold // 16``).  A batch of documents (``ops.merge`` on
+``[B, N]`` columns, ``parallel.mesh.batched_materialize``) is one merge
+with its document count: its rows are one chain, whatever B is.
 
 Host syncs are counted by op name, the same on either device: the scalar
 read (``_local_scalar_dense``, what ``.item()`` and ``merge._read``
@@ -146,6 +149,7 @@ class _Run:
         self.pending_read = False
         self.legs: List[str] = []
         self.deletes: List[bool] = []
+        self.docs: List[int] = []
         self.widest = 0
 
     def note(self) -> str:
@@ -259,14 +263,17 @@ def running() -> bool:
     return _active() is not None
 
 
-def begin_merge(n: int, leg: str, deletes: bool) -> None:
+def begin_merge(n: int, leg: str, deletes: bool, docs: int = 1) -> None:
     """A merge of ``n`` op rows on resolution leg ``leg`` starts (stage
-    1); ``deletes``: it runs its delete stage."""
+    1); ``deletes``: it runs its delete stage.  A batch of ``docs``
+    documents of ``n`` rows each is ONE merge: its ops sweep ``docs * n``
+    elements, so that is its width."""
     run = _active()
     if run is not None:
         run.legs.append(leg)
         run.deletes.append(bool(deletes))
-        run.widest = max(run.widest, int(n))
+        run.docs.append(int(docs))
+        run.widest = max(run.widest, int(n) * int(docs))
         run.stage = 1
 
 
@@ -313,12 +320,22 @@ def shard():
         run.shard -= 1
 
 
+def _kernel_width(t: torch.Tensor, docs: bool) -> int:
+    """A kernel row's width from one output: its longest axis, times the
+    documents of a batched kernel's leading axis."""
+    if docs and t.dim() > 1:
+        return int(t.shape[0]) * max(t.shape[1:])
+    return max(t.shape, default=1)
+
+
 def kernel_call(fn):
     """Decorator of a kernel wrapper: under an audit, each call is ONE
-    row named after the wrapper (its width the longest output axis), and
-    nothing it dispatches inside (allocations on the card, the twin's ops
-    on the CPU) is counted."""
+    row named after the wrapper (its width the longest output axis; for
+    a ``*_batched`` wrapper, whose outputs lead with the document axis,
+    that axis times the longest other), and nothing it dispatches inside
+    (allocations on the card, the twin's ops on the CPU) is counted."""
     name = fn.__name__
+    docs = name.endswith("_batched")
     _KERNELS.add(name)
 
     @functools.wraps(fn)
@@ -332,7 +349,7 @@ def kernel_call(fn):
         finally:
             run.suppress -= 1
         outs = _tensors(out)
-        run.add(name, max((max(t.shape, default=1) for t in outs),
+        run.add(name, max((_kernel_width(t, docs) for t in outs),
                           default=0),
                 _nbytes(_tensors((args, kwargs)) + outs))
         return out
@@ -392,6 +409,7 @@ class ChainAudit:
     crowding_leg: str = ""
     legs: List[str] = dataclasses.field(default_factory=list)
     deletes: List[bool] = dataclasses.field(default_factory=list)
+    docs: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def merges(self) -> int:
@@ -546,6 +564,7 @@ class ChainAudit:
             "loop_ops": self.loop_ops,
             "bytes": self.bytes,
             "merges": self.merges,
+            "docs": sum(self.docs),
             "legs": sorted(set(self.legs)),
             "deletes": any(self.deletes),
         }
@@ -592,7 +611,7 @@ class Audit:
         audit = ChainAudit(fast_path=0, static=0, threshold=threshold,
                            rows=rows, width_ref=widest,
                            compact_floor=floor, legs=list(run.legs),
-                           deletes=list(run.deletes))
+                           deletes=list(run.deletes), docs=list(run.docs))
         mwide = [r for r in rows if audit._mwide(r)]
         audit.fast_path = sum(1 for r in mwide if r[4] != "loop")
         audit.static = len(mwide)

@@ -448,15 +448,16 @@ def test_audit_opsaxis_shard_width_within_budget(k):
 
 def test_loadgen_opsaxis_block_carries_the_last_routed_audit(monkeypatch):
     """The load generator's ``opsaxis`` block: the routing counters, and
-    the audit of the sharded merge sampled once a run armed it (none
-    before, and a merge that was not armed keeps nothing)."""
+    the audit of the sharded merge sampled once a run armed it (None
+    before, and a merge that was not armed keeps nothing; the key is
+    always there)."""
     monkeypatch.setattr(topsaxis, "_STATS",
                         {"merges": 0, "devices": 0, "routed_ops": 0})
     monkeypatch.setattr(topsaxis, "_AUDIT", {"armed": False, "last": None})
-    assert "audit" not in tloadgen._opsaxis_report()
+    assert tloadgen._opsaxis_report()["audit"] is None
     arrs = tw.chain_workload(64, 8192)
     plain = topsaxis.materialize(arrs, k=4, hints="exhaustive", device="cpu")
-    assert "audit" not in tloadgen._opsaxis_report()
+    assert tloadgen._opsaxis_report()["audit"] is None
     topsaxis.arm_audit()
     seen = topsaxis.materialize(arrs, k=4, hints="exhaustive", device="cpu")
     out = tloadgen._opsaxis_report()

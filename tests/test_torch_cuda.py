@@ -81,7 +81,11 @@ def test_cuda_kernels_equal_twins(cuda):
     torch.cuda.synchronize()
     assert kernels.launches == {"plane_rows": 1, "plane_rows2": 1,
                                 "prefix_sums": 2, "monotone_gather": 2,
-                                "ring_exclusive": 0}
+                                "ring_exclusive": 0,
+                                "plane_rows_batched": 0,
+                                "plane_rows2_batched": 0,
+                                "prefix_sums_batched": 0,
+                                "monotone_gather_batched": 0}
 
 
 @pytest.mark.cuda
@@ -520,7 +524,9 @@ def _chain_docs(n_docs, n_ops):
 def test_cuda_batched_equals_singles_and_cpu(cuda, b):
     """``batched_materialize`` on the card: every document's slice equals
     its own single merge on the card and the whole batch equals the CPU
-    batch, field for field; the join leg launches kernels 1, 3 and 4."""
+    batch, field for field; the join leg launches the batched forms of
+    kernels 1, 3 and 4 once a batch (kernel 1 once more for the delete
+    stage a document with deletes brings), and no single kernel."""
     from crdt_graph_tpu_torch import convert
     from crdt_graph_tpu_torch.bench import workloads
     from crdt_graph_tpu_torch.codec import packed
@@ -540,8 +546,9 @@ def test_cuda_batched_equals_singles_and_cpu(cuda, b):
     kernels.reset_launches()
     got = mesh.batched_materialize(stacked)
     torch.cuda.synchronize()
-    for k in ("plane_rows", "prefix_sums", "monotone_gather"):
-        assert kernels.launches[k] >= b, k
+    assert {k: n for k, n in kernels.launches.items() if n} == {
+        "plane_rows_batched": 3 if b > 1 else 2, "prefix_sums_batched": 1,
+        "monotone_gather_batched": 1}, kernels.launches
     assert got.status.device.type == "cuda"
     want = convert.table_to_numpy(mesh.batched_materialize(stacked,
                                                            device="cpu"))
@@ -551,6 +558,120 @@ def test_cuda_batched_equals_singles_and_cpu(cuda, b):
     for i, p in enumerate(aligned):
         one = convert.table_to_numpy(merge.materialize(p.arrays(),
                                                        hints="join"))
+        two = convert.table_to_numpy(mesh.doc_table(got, i))
+        for f in merge.FIELDS:
+            np.testing.assert_array_equal(two[f], one[f],
+                                          err_msg=f"doc {i} {f}")
+
+
+def _recording(monkeypatch, names):
+    """Wrap the batched kernel wrappers named: each call's arguments
+    and output, copied, by name."""
+    mods = {"plane_rows_batched": tfr, "plane_rows2_batched": tfr,
+            "prefix_sums_batched": tts, "monotone_gather_batched": tmg}
+    seen = {}
+    for name in names:
+        real = getattr(mods[name], name)
+
+        def rec(*args, _real=real, _name=name):
+            out = _real(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            seen.setdefault(_name, []).append((
+                [a.clone() if hasattr(a, "clone") else a for a in args],
+                [o.clone() for o in outs]))
+            return out
+        monkeypatch.setattr(mods[name], name, rec)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exhaustive", [False, True],
+                         ids=["join", "exhaustive"])
+def test_cuda_batched_kernels_equal_batched_twins(cuda, monkeypatch,
+                                                  exhaustive):
+    """At the mesh phase's shapes (16 documents of 65,536 chain ops, 4
+    to 512 replicas), every batched kernel call of the batched merge
+    equals its batched twin on CPU copies of the same arguments, and
+    each kernel of the leg launches once."""
+    from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.parallel import mesh
+    n = 65_536
+    docs = [_vouched(workloads.chain_workload(4 << (i % 8), n), n)
+            for i in range(16)]
+    stacked, _ = mesh.stack_aligned(docs)
+    twins = {"plane_rows_batched": tfr.plain_rows_batched,
+             "plane_rows2_batched": tfr.plain_rows2_batched,
+             "prefix_sums_batched": tts.plain_prefix_batched,
+             "monotone_gather_batched": tmg.plain_gather_batched}
+    seen = _recording(monkeypatch, twins)
+    kernels.reset_launches()
+    mesh.batched_materialize(stacked, exhaustive_hints=exhaustive)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in kernels.launches.items() if n}
+    assert launched == {k: len(v) for k, v in seen.items()}, launched
+    assert launched["prefix_sums_batched"] == 1
+    assert launched["monotone_gather_batched"] == 1
+    assert launched.get("plane_rows2_batched" if exhaustive
+                        else "plane_rows_batched")
+    for name, calls in seen.items():
+        for args, outs in calls:
+            want = twins[name](*[a.cpu() if hasattr(a, "cpu") else a
+                                 for a in args])
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(outs, want):
+                assert g.shape[0] == 16
+                np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                              err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernels_keep_documents_apart(cuda):
+    """Wild indices (negative, past R, the int32 extremes), hops below
+    zero and past R, and int32 lanes that wrap: each document reads only
+    its own rows and each scan restarts at its document."""
+    rng = np.random.default_rng(5)
+    b, r, c, t = 3, 20_011, 4, 30_001
+    plane = _t(rng.integers(-2**62, 2**62, (b, r, c), dtype=np.int64))
+    plane[:, :, 2] = _t(rng.integers(-r // 4, r + 9, (b, r)))
+    idx = rng.integers(-2 * r, 2 * r, (b, t)).astype(np.int32)
+    idx[:, :6] = [-1, -r, -r - 5, r, 2**31 - 1, -2**31]
+    idx = _t(idx)
+    got = tfr.plane_rows_batched(plane.to(cuda), idx.to(cuda))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), tfr.plain_rows_batched(plane, idx).numpy())
+    for g, w in zip(tfr.plane_rows2_batched(plane.to(cuda), idx.to(cuda), 2),
+                    tfr.plain_rows2_batched(plane, idx, 2)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    bnd = _t(rng.integers(-2**31, 2**31 - 1, (b, 2 * t),
+                          dtype=np.int64).astype(np.int32))
+    w = _t(rng.integers(-2**31, 2**31 - 1, (b, 2, t),
+                        dtype=np.int64).astype(np.int32))
+    for g, want in zip(tts.prefix_sums_batched(bnd.to(cuda), w.to(cuda)),
+                       tts.plain_prefix_batched(bnd, w)):
+        np.testing.assert_array_equal(g.cpu().numpy(), want.numpy())
+    vals = _t(rng.integers(-2**31, 2**31 - 1, (b, 7, 999),
+                           dtype=np.int64).astype(np.int32))
+    rid = _t(np.sort(rng.integers(-5, 1010, (b, t)), axis=1)
+             .astype(np.int32))
+    np.testing.assert_array_equal(
+        tmg.monotone_gather_batched(vals.to(cuda), rid.to(cuda))
+        .cpu().numpy(), tmg.plain_gather_batched(vals, rid).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exhaustive", [False, True],
+                         ids=["join", "exhaustive"])
+def test_cuda_batched_merge_equals_per_document_merges(cuda, exhaustive):
+    """B = 4 on the card: each document's slice of the one batched merge
+    equals its own single merge on the card, field for field."""
+    from crdt_graph_tpu_torch import convert
+    from crdt_graph_tpu_torch.ops import merge
+    from crdt_graph_tpu_torch.parallel import mesh
+    stacked, aligned = mesh.stack_aligned(_chain_docs(4, 16_384))
+    got = mesh.batched_materialize(stacked, exhaustive_hints=exhaustive)
+    for i, p in enumerate(aligned):
+        one = convert.table_to_numpy(merge.materialize(
+            p.arrays(), hints="exhaustive" if exhaustive else "join"))
         two = convert.table_to_numpy(mesh.doc_table(got, i))
         for f in merge.FIELDS:
             np.testing.assert_array_equal(two[f], one[f],
@@ -599,7 +720,10 @@ def test_cuda_serving_engine_commits_a_grouped_round(cuda):
             t.join(120)
             assert not t.is_alive()
         assert eng.counters.get("cross_doc_batches") == 1
-        assert kernels.launches["plane_rows"] >= 3
+        # one batched merge on the join leg: each kernel once
+        assert {k: n for k, n in kernels.launches.items() if n} == {
+            "plane_rows_batched": 2, "prefix_sums_batched": 1,
+            "monotone_gather_batched": 1}, kernels.launches
         for d, b in bodies.items():
             assert boxes[d][0]
             assert ref.submit(d, b)[0]
@@ -678,8 +802,9 @@ def _epoch_on(worker, bodies):
 @pytest.mark.cuda
 def test_cuda_merge_worker_epoch_equals_cpu(cuda):
     """One worker epoch of four riders on the card equals the same epoch
-    on the CPU twins, frame for frame and field for field; the epoch
-    launches kernels 1, 3 and 4."""
+    on the CPU twins, frame for frame and field for field; the epoch is
+    one batched merge, launching the batched forms of kernels 1, 3 and
+    4 once each (kernel 1 twice)."""
     from crdt_graph_tpu_torch.mergetier import MergeWorker, wire
     from crdt_graph_tpu_torch.ops.merge import FIELDS
     docs = _chain_docs(4, 65_536)
@@ -698,8 +823,9 @@ def test_cuda_merge_worker_epoch_equals_cpu(cuda):
     finally:
         card.close()
         cpu.close()
-    for k in ("plane_rows", "prefix_sums", "monotone_gather"):
-        assert launches.get(k, 0) >= 4, launches
+    assert {k: n for k, n in launches.items() if n} == {
+        "plane_rows_batched": 2, "prefix_sums_batched": 1,
+        "monotone_gather_batched": 1}, launches
     assert card.stats()["batcher"]["launches"] == 1
     for (gs, gb, _), (ws, wb, _) in zip(got, want):
         assert gs == ws == 200

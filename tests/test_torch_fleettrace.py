@@ -50,3 +50,21 @@ def test_fleettrace_test_passes_on_port(name, index, tmp_path,
         ("fleettrace_mod", tft),
         ("prom_mod", tprom),
         ("ServingEngine", functools.partial(TEngine, device="cpu"))))
+
+
+def test_ledger_stamps_a_watch_delivery_that_beats_its_ack():
+    """A parked watcher is woken by the publish, which comes before the
+    commit's ledger stamp: that early delivery is held and stamped, at
+    zero lag, by the ack that follows (its trace ids returned for the
+    ``watch_delivery`` spans); a later delivery of the same generation
+    is the fan-out, not the edge."""
+    from crdt_graph_tpu_torch.obs.ledger import VisibilityLedger
+    led = VisibilityLedger("n0")
+    assert led.note_watch_delivery("d", 1) is None
+    assert led.record_commit("d", 1, ("t1", "t2"), None, 3.0) == \
+        ["t1", "t2"]
+    assert led.watch_stamped == 1
+    assert led.note_watch_delivery("d", 1) is None
+    assert led.record_commit("d", 2, ("t3",), None, 1.0) is None
+    assert led.note_watch_delivery("d", 2) == ["t3"]
+    assert led.watch_stamped == 2

@@ -228,24 +228,26 @@ def test_exhaustive_hints_leg_equals_reference_and_join():
 def test_batched_join_body_drops_position_hints(monkeypatch):
     """The default body runs the join leg without the position hints,
     as the reference's batched body does; the exhaustive body keeps
-    them."""
+    them.  Either way the batch is ONE merge of its ``[B, N]`` columns."""
     seen = []
     real = tmerge._materialize
 
     def spy(ops, hints, dev, no_deletes, *a, **kw):
         seen.append((hints, tmerge.select_leg(ops, hints),
-                     any(k in ops for k in tmesh.POS_HINTS)))
+                     any(k in ops for k in tmesh.POS_HINTS),
+                     tuple(ops["kind"].shape)))
         return real(ops, hints, dev, no_deletes, *a, **kw)
 
     monkeypatch.setattr(tmerge, "_materialize", spy)
     _, tdocs = _docs(2)
     stacked, _ = tmesh.stack_aligned(tdocs)
+    shape = tuple(stacked["kind"].shape)
     tmesh.batched_materialize(stacked, device="cpu")
-    assert seen == [("join", "join", False)] * 2
+    assert seen == [("join", "join", False, shape)]
     seen.clear()
     tmesh.batched_materialize(stacked, device="cpu", exhaustive_hints=True)
-    assert [s[0] for s in seen] == ["exhaustive"] * 2
-    assert all(s[2] for s in seen)
+    assert [s[0] for s in seen] == ["exhaustive"]
+    assert all(s[2] and s[3] == shape for s in seen)
 
 
 def test_batched_materialize_refuses_without_a_card():
