@@ -1,0 +1,11 @@
+"""crdtbench: the benchmark of the PyTorch/CUDA port
+(``crdt_graph_tpu_torch``) on one H100.
+
+``python3 -m crdtbench --workload <name> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once
+(:mod:`crdtbench.run`).  Configurations are ``configs/<config>.json``,
+traffic mixes ``traffic/<config>.<mix>.json`` (each naming the driver
+in ``drivers/`` that runs it), per-metric readers ``metrics/<metric>.py``,
+the plain reference and the check ``reference/``.  Nothing here imports
+JAX or the JAX package.
+"""
