@@ -67,6 +67,7 @@ import numpy as np
 
 from ..core import operation as op_mod
 from ..core.operation import Add, Batch, Delete, Operation
+from ..utils import profiling
 
 KIND_ADD = 0
 KIND_DELETE = 1
@@ -165,15 +166,18 @@ class PackedOps:
         per-op Python loop here (np.unique's return_index gives the
         first occurrence per timestamp)."""
         if self.ts_index is None:
-            n = self.num_ops
-            add_pos = np.nonzero(self.kind[:n] == KIND_ADD)[0]
-            uniq, first_idx = np.unique(self.ts[:n][add_pos],
-                                        return_index=True)
-            self.ts_index = dict(zip(uniq.tolist(),
-                                     add_pos[first_idx].tolist()))
+            with profiling.span("packed.ts_index"):
+                n = self.num_ops
+                add_pos = np.nonzero(self.kind[:n] == KIND_ADD)[0]
+                profiling.count("packed.index_rows", int(add_pos.size))
+                uniq, first_idx = np.unique(self.ts[:n][add_pos],
+                                            return_index=True)
+                self.ts_index = dict(zip(uniq.tolist(),
+                                         add_pos[first_idx].tolist()))
         return self.ts_index
 
 
+@profiling.span("packed.ts_rank")
 def compute_ts_rank(kind: np.ndarray, ts: np.ndarray) -> np.ndarray:
     """Rank of each add's timestamp among the batch's unique add
     timestamps, ascending; -1 for non-add rows.  One vectorized
@@ -187,6 +191,7 @@ def compute_ts_rank(kind: np.ndarray, ts: np.ndarray) -> np.ndarray:
     return rank
 
 
+@profiling.span("packed.slot_hints")
 def derive_slot_hints(arrs: dict) -> dict:
     """Slot-level hint columns derived from the position hints + ranks —
     the pack philosophy taken to its endpoint: the host already resolved
@@ -766,62 +771,65 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
         return pack([])
     if len(parts) == 1:
         return parts[0]
-    n = sum(p.num_ops for p in parts)
-    cap = _bucket(n)
-    width = max(p.max_depth for p in parts)
-    values: List[Any] = []
-    out = PackedOps(
-        kind=np.full(cap, KIND_PAD, dtype=np.int8),
-        ts=np.zeros(cap, dtype=np.int64),
-        parent_ts=np.zeros(cap, dtype=np.int64),
-        anchor_ts=np.zeros(cap, dtype=np.int64),
-        depth=np.zeros(cap, dtype=np.int32),
-        paths=np.zeros((cap, width), dtype=np.int64),
-        value_ref=np.full(cap, -1, dtype=np.int32),
-        pos=np.arange(cap, dtype=np.int32),
-        values=values, num_ops=n)
+    with profiling.span("packed.concat"):
+        n = sum(p.num_ops for p in parts)
+        cap = _bucket(n)
+        width = max(p.max_depth for p in parts)
+        values: List[Any] = []
+        out = PackedOps(
+            kind=np.full(cap, KIND_PAD, dtype=np.int8),
+            ts=np.zeros(cap, dtype=np.int64),
+            parent_ts=np.zeros(cap, dtype=np.int64),
+            anchor_ts=np.zeros(cap, dtype=np.int64),
+            depth=np.zeros(cap, dtype=np.int32),
+            paths=np.zeros((cap, width), dtype=np.int64),
+            value_ref=np.full(cap, -1, dtype=np.int32),
+            pos=np.arange(cap, dtype=np.int32),
+            values=values, num_ops=n)
 
-    bases: List[int] = []
-    b = 0
-    for p in parts:
-        bases.append(b)
-        b += p.num_ops
+        bases: List[int] = []
+        b = 0
+        for p in parts:
+            bases.append(b)
+            b += p.num_ops
 
-    def _lookup(t: int) -> int:
-        for q, qb in zip(parts, bases):
-            hit = q.index().get(t)
-            if hit is not None:
-                return hit + qb
-        return -1
+        def _lookup(t: int) -> int:
+            for q, qb in zip(parts, bases):
+                hit = q.index().get(t)
+                if hit is not None:
+                    return hit + qb
+            return -1
 
-    for p, base in zip(parts, bases):
-        k = p.num_ops
-        for name in ("kind", "ts", "parent_ts", "anchor_ts", "depth"):
-            getattr(out, name)[base:base + k] = getattr(p, name)[:k]
-        out.paths[base:base + k, :p.max_depth] = p.paths[:k]
-        shifted = p.value_ref[:k].copy()
-        shifted[shifted >= 0] += len(values)
-        out.value_ref[base:base + k] = shifted
-        values.extend(p.values)
+        for p, base in zip(parts, bases):
+            k = p.num_ops
+            for name in ("kind", "ts", "parent_ts", "anchor_ts", "depth"):
+                getattr(out, name)[base:base + k] = getattr(p, name)[:k]
+            out.paths[base:base + k, :p.max_depth] = p.paths[:k]
+            shifted = p.value_ref[:k].copy()
+            shifted[shifted >= 0] += len(values)
+            out.value_ref[base:base + k] = shifted
+            values.extend(p.values)
 
-        for name, ref_col in (("parent_pos", "parent_ts"),
-                              ("anchor_pos", "anchor_ts"),
-                              ("target_pos", "ts")):
-            h = getattr(p, name)[:k].copy()
-            refs = getattr(p, ref_col)[:k]
-            unresolved = h < 0
-            h[~unresolved] += base
-            if name == "target_pos":
-                unresolved &= p.kind[:k] == KIND_DELETE
-            elif name == "anchor_pos":
-                unresolved &= p.kind[:k] == KIND_ADD
-            for i in np.nonzero(unresolved & (refs != 0))[0]:
-                h[i] = _lookup(int(refs[i]))
-            getattr(out, name)[base:base + k] = h
+            for name, ref_col in (("parent_pos", "parent_ts"),
+                                  ("anchor_pos", "anchor_ts"),
+                                  ("target_pos", "ts")):
+                h = getattr(p, name)[:k].copy()
+                refs = getattr(p, ref_col)[:k]
+                unresolved = h < 0
+                h[~unresolved] += base
+                if name == "target_pos":
+                    unresolved &= p.kind[:k] == KIND_DELETE
+                elif name == "anchor_pos":
+                    unresolved &= p.kind[:k] == KIND_ADD
+                todo = np.nonzero(unresolved & (refs != 0))[0]
+                profiling.count("packed.index_lookups", int(todo.size))
+                for i in todo:
+                    h[i] = _lookup(int(refs[i]))
+                getattr(out, name)[base:base + k] = h
 
-    out.ts_rank = compute_ts_rank(out.kind, out.ts)
-    out.hints_vouched = all(p.hints_vouched for p in parts)
-    return out
+        out.ts_rank = compute_ts_rank(out.kind, out.ts)
+        out.hints_vouched = all(p.hints_vouched for p in parts)
+        return out
 
 
 def load_packed_npz(path, light: bool = False):

@@ -16,19 +16,28 @@ import numpy as np
 import torch
 
 from .ops.merge import FIELDS, NodeTable
+from .utils import profiling
 
 
 def ops_from_numpy(arrs: Dict, device) -> Dict[str, torch.Tensor]:
     """Packed op columns (numpy arrays or tensors, as
     ``PackedOps.arrays()`` gives them, or a batch's ``[B, N]`` columns,
     as ``parallel.mesh.stack_packed`` stacks them) → tensors on
-    ``device``, shapes and dtypes unchanged."""
+    ``device``, shapes and dtypes unchanged.  While a profiler records,
+    the bytes of the numpy columns handed to ``.to(device)`` add to the
+    count ``convert.h2d_bytes`` of the innermost open span
+    (``utils.profiling.count``), whatever the device: on the CPU nothing
+    crosses, yet the same bytes are counted."""
     out = {}
+    sent = 0
     for k, v in arrs.items():
         if isinstance(v, torch.Tensor):
             out[k] = v.to(device)
         else:
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            v = np.ascontiguousarray(v)
+            sent += v.nbytes
+            out[k] = torch.from_numpy(v).to(device)
+    profiling.count("convert.h2d_bytes", sent)
     return out
 
 

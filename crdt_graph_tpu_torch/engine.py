@@ -69,6 +69,7 @@ from .ops import merge as merge_mod
 from .ops import view as view_mod
 from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
 from .parallel import opsaxis
+from .utils import profiling
 
 # deltas at or under this many leaves apply host-side in O(delta); larger
 # ones re-materialise through the batched merge
@@ -497,6 +498,7 @@ class TpuTree:
         return (len(self._log), self._timestamp, dict(self._replicas),
                 self._last_operation)
 
+    @profiling.span("engine.rollback_commit")
     def rollback_commit(self, saved: tuple) -> None:
         """Undo everything since :meth:`begin_commit`: truncate the log,
         restore clocks and provenance, invalidate the view."""
@@ -601,19 +603,22 @@ class TpuTree:
         # routing (host path / host-first)
         if not self.packed_route(pnew.num_ops):
             return self.apply(op_mod.from_list(packed_mod.unpack(pnew)))
-        p = self.prepare_packed(pnew)
-        return self.finish_packed(pnew, p, self._materialize(p))
+        with profiling.span("engine.apply_packed"):
+            p = self.prepare_packed(pnew)
+            return self.finish_packed(pnew, p, self._materialize(p))
 
     def packed_route(self, n: int) -> bool:
         """True when a packed delta of ``n`` leaves takes the bulk merge;
         False routes through :meth:`apply`'s object path."""
         return n >= max(4 * DELTA_THRESHOLD, len(self._log) // 8)
 
+    @profiling.span("engine.prepare_packed")
     def prepare_packed(self, pnew: PackedOps) -> PackedOps:
         """Stage 1 of the staged bulk apply: the candidate column set
         (current log ∪ delta) whose merge yields the new view."""
         return packed_mod.concat(self._ensure_packed(), pnew)
 
+    @profiling.span("engine.finish_packed")
     def finish_packed(self, pnew: PackedOps, p: PackedOps,
                       table: NodeTable) -> "TpuTree":
         """Stage 2 of the staged bulk apply: per-op status check, clock
@@ -623,47 +628,50 @@ class TpuTree:
         untouched."""
         n = pnew.num_ops
         n0 = len(self._log)
-        st = table.status[n0:n0 + n]
-        st = st.cpu().numpy() if not isinstance(st, np.ndarray) else st
-        failing = np.nonzero((st == NOT_FOUND) | (st == INVALID_PATH))[0]
-        if failing.size:
-            k = int(failing[0])
-            bad = packed_mod.unpack_rows(pnew, k, k + 1)[0]
-            if st[k] == NOT_FOUND:
-                raise OperationFailedError(bad)
-            raise InvalidPathError(f"invalid path in {bad!r}")
+        with profiling.span("engine.status_readback"):
+            st = table.status[n0:n0 + n]
+            st = st.cpu().numpy() if not isinstance(st, np.ndarray) else st
+        with profiling.span("engine.commit"):
+            failing = np.nonzero((st == NOT_FOUND) |
+                                 (st == INVALID_PATH))[0]
+            if failing.size:
+                k = int(failing[0])
+                bad = packed_mod.unpack_rows(pnew, k, k + 1)[0]
+                if st[k] == NOT_FOUND:
+                    raise OperationFailedError(bad)
+                raise InvalidPathError(f"invalid path in {bad!r}")
 
-        # vectorized clocks: LAST-APPLIED-WINS per replica, and a Delete
-        # updates the TARGET timestamp's replica (the packed ts column
-        # holds exactly that per kind)
-        kind = pnew.kind[:n]
-        ts_col = pnew.ts[:n]
-        idx = np.nonzero(st == APPLIED)[0]
-        ts_eff = ts_col[idx]
-        rids = ts_eff >> 32
-        uniq, inv = np.unique(rids, return_inverse=True)
-        last = np.zeros(uniq.size, np.int64)
-        np.maximum.at(last, inv, np.arange(idx.size))
-        for k in range(uniq.size):
-            self._replicas[int(uniq[k])] = int(ts_eff[last[k]])
+            # vectorized clocks: LAST-APPLIED-WINS per replica, and a
+            # Delete updates the TARGET timestamp's replica (the packed ts
+            # column holds exactly that per kind)
+            kind = pnew.kind[:n]
+            ts_col = pnew.ts[:n]
+            idx = np.nonzero(st == APPLIED)[0]
+            ts_eff = ts_col[idx]
+            rids = ts_eff >> 32
+            uniq, inv = np.unique(rids, return_inverse=True)
+            last = np.zeros(uniq.size, np.int64)
+            np.maximum.at(last, inv, np.arange(idx.size))
+            for k in range(uniq.size):
+                self._replicas[int(uniq[k])] = int(ts_eff[last[k]])
 
-        if idx.size == n:
-            self._log.extend_packed(pnew)
-            self._last_operation = PackedBatch(pnew)
-            self._commit_view(True, p, table)
-        elif idx.size:
-            sel = packed_mod.select_rows(pnew, idx)
-            self._log.extend_packed(sel)
-            self._last_operation = PackedBatch(sel)
-            self._commit_view(False, p, table)
-        else:
-            self._last_operation = Batch(())
-        # own-op clock: every own-replica Add in the BATCH advances it
-        self._timestamp += int(np.sum(
-            (kind == packed_mod.KIND_ADD) &
-            ((ts_col >> 32) == self._replica)))
-        self._last_applied_mask = np.asarray(st == APPLIED)
-        self._after_commit()
+            if idx.size == n:
+                self._log.extend_packed(pnew)
+                self._last_operation = PackedBatch(pnew)
+                self._commit_view(True, p, table)
+            elif idx.size:
+                sel = packed_mod.select_rows(pnew, idx)
+                self._log.extend_packed(sel)
+                self._last_operation = PackedBatch(sel)
+                self._commit_view(False, p, table)
+            else:
+                self._last_operation = Batch(())
+            # own-op clock: every own-replica Add in the BATCH advances it
+            self._timestamp += int(np.sum(
+                (kind == packed_mod.KIND_ADD) &
+                ((ts_col >> 32) == self._replica)))
+            self._last_applied_mask = np.asarray(st == APPLIED)
+            self._after_commit()
         return self
 
     def apply_packed_chunked(self, pnew: PackedOps,

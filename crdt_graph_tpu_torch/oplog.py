@@ -80,6 +80,7 @@ from .codec import packed as packed_mod
 from .codec.packed import DEFAULT_MAX_DEPTH, KIND_ADD, PackedOps
 from .core.errors import CheckpointError
 from .core.operation import Add, Batch, Delete, Operation
+from .utils import profiling
 from .utils.hostenv import env_int as _env_int
 from .wal import maybe_crash as _maybe_crash
 
@@ -2299,6 +2300,7 @@ class OpLog:
 
     # -- column export ----------------------------------------------------
 
+    @profiling.span("oplog.to_packed")
     def to_packed(self, max_depth: int = DEFAULT_MAX_DEPTH
                   ) -> PackedOps:
         """The whole log as one PackedOps — object runs pack, in-memory

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..codec.packed import KIND_ADD, KIND_DELETE, MAX_TS
-from ..utils import chainaudit, hostenv
+from ..utils import chainaudit, hostenv, profiling
 from . import fused_resolve, mono_gather, tour_scan
 from .indexing import add_drop, min_drop, set_drop
 
@@ -1179,6 +1179,7 @@ def materialize(ops: Dict, hints: Optional[str] = None, device=None,
                         host_no_deletes(ops["kind"]), probe)
 
 
+@profiling.span("merge.materialize")
 def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
                  no_deletes: bool, probe: Optional[int] = None, part=None):
     """The merge on ``dev`` with the no-deletes promise already checked
@@ -1190,8 +1191,9 @@ def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
     document)."""
     from ..convert import ops_from_numpy
     leg = select_leg(ops, hints)
-    t_ops = ops_from_numpy({k: ops[k] for k in LEG_COLS[leg] if k in ops},
-                           dev)
+    with profiling.span("merge.h2d"):
+        t_ops = ops_from_numpy(
+            {k: ops[k] for k in LEG_COLS[leg] if k in ops}, dev)
     kind = t_ops["kind"]
     n = kind.shape[-1]
     if n + 2 > 2**30:

@@ -82,6 +82,8 @@ import torch
 from torch.utils._pytree import tree_leaves
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from . import profiling
+
 # M-wide op classes by aten name (overload packet)
 _GATHERS = frozenset(("index", "index_select", "gather", "take"))
 _SCATTERS = frozenset(("index_put", "index_put_", "_index_put_impl_",
@@ -252,7 +254,8 @@ class _Mode(TorchDispatchMode):
 
 
 # ---- hooks: the audited code marks where it stands ------------------------
-# Each is one thread-local lookup when no audit runs on the thread.
+# Each is one thread-local lookup when no audit runs on the thread (a
+# stage marker adds one boolean call: whether a profiler records).
 
 def _active() -> Optional[_Run]:
     return getattr(_tls, "run", None)
@@ -275,13 +278,19 @@ def begin_merge(n: int, leg: str, deletes: bool, docs: int = 1) -> None:
         run.docs.append(int(docs))
         run.widest = max(run.widest, int(n) * int(docs))
         run.stage = 1
+    if profiling.recording():
+        profiling.phase("merge.stage1")
 
 
 def stage(k: int) -> None:
-    """The merge enters stage ``k`` (0: it ended)."""
+    """The merge enters stage ``k`` (0: it ended).  While a profiler
+    records, each stage is also a span (``merge.stage<k>``, a
+    :func:`utils.profiling.phase`) that ends at the next marker."""
     run = _active()
     if run is not None:
         run.stage = k
+    if k == 0 or profiling.recording():
+        profiling.phase(f"merge.stage{k}" if k else None)
 
 
 def note_read() -> None:
