@@ -81,6 +81,8 @@ DEFAULT_MAX_DEPTH = 16
 # them as padding.
 MAX_TS = 2**62
 
+_I64_MIN, _I64_MAX = -2**63, 2**63 - 1
+
 
 @dataclasses.dataclass
 class PackedOps:
@@ -109,9 +111,11 @@ class PackedOps:
     # (e.g. restored old checkpoints) must keep the verified auto mode.
     # ts_rank needs no flag — post_init computes it from kind/ts.
     hints_vouched: bool = False
-    # host-side ts -> first add position index, cached so engine concat
-    # chains don't rebuild it per bulk apply (not a device field)
-    ts_index: Optional[dict] = dataclasses.field(default=None, repr=False)
+    # host-side ts -> first add position index (:class:`TsIndex`),
+    # cached so engine concat chains don't rebuild it per bulk apply
+    # (not a device field)
+    ts_index: Optional["TsIndex"] = dataclasses.field(default=None,
+                                                      repr=False)
     # lazily derived SLOT-hint columns (see derive_slot_hints); cached
     # per object, invalidated by rebuild_hints (not a wire field)
     slot_hints: Optional[dict] = dataclasses.field(default=None, repr=False)
@@ -159,22 +163,82 @@ class PackedOps:
             out.update(self.slot_hints)
         return out
 
-    def index(self) -> dict:
-        """ts → first add batch position (built once, then cached).
-
-        Vectorized: a native-parsed million-op batch must not pay a
-        per-op Python loop here (np.unique's return_index gives the
-        first occurrence per timestamp)."""
+    def index(self) -> "TsIndex":
+        """ts → first add batch position (built once, then cached)."""
         if self.ts_index is None:
             with profiling.span("packed.ts_index"):
-                n = self.num_ops
-                add_pos = np.nonzero(self.kind[:n] == KIND_ADD)[0]
-                profiling.count("packed.index_rows", int(add_pos.size))
-                uniq, first_idx = np.unique(self.ts[:n][add_pos],
-                                            return_index=True)
-                self.ts_index = dict(zip(uniq.tolist(),
-                                         add_pos[first_idx].tolist()))
+                add_rows = _add_rows(self.kind, self.num_ops)
+                profiling.count("packed.index_rows", int(add_rows.size))
+                self.ts_index = TsIndex.of_adds(self.ts, add_rows)
         return self.ts_index
+
+
+class TsIndex:
+    """A batch's add timestamps → the first add row carrying each, as two
+    sorted arrays: ``keys`` (the unique add timestamps, ascending, int64)
+    and ``rows`` (each key's first add row, int64).
+
+    Built in one vectorized pass (a sort and a run-length pass): a
+    native-parsed million-op batch must not pay a per-op Python loop,
+    nor a boxed int per entry, here.  ``get`` answers one timestamp,
+    ``lookup`` a whole array of them with one ``searchsorted``."""
+
+    __slots__ = ("keys", "rows")
+
+    def __init__(self, keys: np.ndarray, rows: np.ndarray):
+        self.keys = keys
+        self.rows = rows
+
+    @classmethod
+    def of_adds(cls, ts: np.ndarray, add_rows: np.ndarray) -> "TsIndex":
+        """The index of the adds at ``add_rows`` (ascending)."""
+        add_ts = ts[add_rows]
+        order = np.argsort(add_ts)
+        keys = add_ts[order]
+        rows = add_rows[order]
+        head = np.ones(keys.size, dtype=bool)
+        np.not_equal(keys[1:], keys[:-1], out=head[1:])
+        if not head.all():
+            # duplicate timestamps: the unstable sort left each run's rows
+            # in any order, so keep each run's smallest
+            starts = np.nonzero(head)[0]
+            keys = keys[starts]
+            rows = np.minimum.reduceat(rows, starts)
+        return cls(keys, rows)
+
+    def __len__(self) -> int:
+        return int(self.keys.size)
+
+    @property
+    def nbytes(self) -> int:
+        return self.keys.nbytes + self.rows.nbytes
+
+    def get(self, t: int) -> Optional[int]:
+        """The first add row carrying timestamp ``t``, or None."""
+        keys = self.keys
+        if not keys.size or not _I64_MIN <= t <= _I64_MAX:
+            return None
+        i = int(np.searchsorted(keys, t))
+        if i < keys.size and keys[i] == t:
+            return int(self.rows[i])
+        return None
+
+    def lookup(self, refs: np.ndarray) -> np.ndarray:
+        """:meth:`get` over an int64 array: each ref's first add row, -1
+        where no add carries it."""
+        refs = np.asarray(refs, dtype=np.int64)
+        out = np.full(refs.shape, -1, dtype=np.int64)
+        if self.keys.size:
+            i = np.searchsorted(self.keys, refs)
+            np.minimum(i, self.keys.size - 1, out=i)
+            hit = self.keys[i] == refs
+            out[hit] = self.rows[i[hit]]
+        return out
+
+
+def _add_rows(kind: np.ndarray, n: int) -> np.ndarray:
+    """The add rows among rows ``[0, n)``, ascending."""
+    return np.nonzero(kind[:n] == KIND_ADD)[0]
 
 
 @profiling.span("packed.ts_rank")
@@ -494,17 +558,13 @@ def rebuild_hints(p: PackedOps) -> None:
     the columns are exhaustive and consistent with the data columns by
     construction, so the vouch is re-established."""
     p.ts_rank = compute_ts_rank(p.kind, p.ts)
-    add_rows = np.nonzero((p.kind == KIND_ADD) & (p.ts > 0))[0]
-    uniq, first = np.unique(p.ts[add_rows], return_index=True)
-    first_pos = add_rows[first].astype(np.int32)
+    # positive timestamps only, so a zero or negative ref misses
+    idx = TsIndex.of_adds(
+        p.ts, np.nonzero((p.kind == KIND_ADD) & (p.ts > 0))[0])
 
     def _lookup(want, active):
-        out = np.full(p.capacity, -1, np.int32)
-        if uniq.size:
-            i = np.minimum(np.searchsorted(uniq, want), uniq.size - 1)
-            hit = active & (want > 0) & (want < MAX_TS) & (uniq[i] == want)
-            out[hit] = first_pos[i[hit]]
-        return out
+        return np.where(active & (want < MAX_TS), idx.lookup(want),
+                        -1).astype(np.int32)
 
     p.parent_pos = _lookup(p.parent_ts, p.kind != KIND_PAD)
     p.anchor_pos = _lookup(p.anchor_ts, p.kind == KIND_ADD)
@@ -621,7 +681,8 @@ def pack(ops, max_depth: int = DEFAULT_MAX_DEPTH,
                      anchor_ts=anchor_ts, depth=depth, paths=paths,
                      value_ref=value_ref, pos=pos, values=values, num_ops=n,
                      parent_pos=parent_pos, anchor_pos=anchor_pos,
-                     target_pos=target_pos, ts_index=first,
+                     target_pos=target_pos,
+                     ts_index=TsIndex.of_adds(ts, _add_rows(kind, n)),
                      hints_vouched=True)
 
 
@@ -754,8 +815,9 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
     Row order is part order (first-arrival dedup matches sequential
     application).  Each part keeps its internal link hints (shifted);
     refs a part could not resolve internally are resolved by PROBING
-    the per-part cached ``index()`` dicts in part order — O(refs ×
-    parts) instead of materializing a merged all-timestamps dict, and
+    the per-part cached ``index()`` in part order, one vectorized
+    ``lookup`` of all still-open refs per probed part — instead of
+    materializing a merged all-timestamps index, and
     each part's index is built vectorized once and CACHED ON THE PART,
     so repeat exports of the same segments (checkpoint + snapshot +
     re-materialization) pay nothing the second time.  Typical
@@ -793,13 +855,9 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
             bases.append(b)
             b += p.num_ops
 
-        def _lookup(t: int) -> int:
-            for q, qb in zip(parts, bases):
-                hit = q.index().get(t)
-                if hit is not None:
-                    return hit + qb
-            return -1
-
+        # refs no part resolved internally: (output column, global rows,
+        # referenced timestamps)
+        open_refs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         for p, base in zip(parts, bases):
             k = p.num_ops
             for name in ("kind", "ts", "parent_ts", "anchor_ts", "depth"):
@@ -822,14 +880,39 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
                 elif name == "anchor_pos":
                     unresolved &= p.kind[:k] == KIND_ADD
                 todo = np.nonzero(unresolved & (refs != 0))[0]
-                profiling.count("packed.index_lookups", int(todo.size))
-                for i in todo:
-                    h[i] = _lookup(int(refs[i]))
                 getattr(out, name)[base:base + k] = h
+                if todo.size:
+                    open_refs.append((getattr(out, name), todo + base,
+                                      refs[todo]))
+
+        n_open = sum(rows.size for _, rows, _ in open_refs)
+        profiling.count("packed.index_lookups", n_open)
+        if n_open:
+            _resolve(open_refs, parts, bases)
 
         out.ts_rank = compute_ts_rank(out.kind, out.ts)
         out.hints_vouched = all(p.hints_vouched for p in parts)
         return out
+
+
+def _resolve(open_refs, parts: Sequence[PackedOps], bases: List[int]
+             ) -> None:
+    """Write into each ``(column, rows, refs)`` of ``open_refs`` the
+    global row of each ref's first add, probing the parts' indexes in
+    part order (first part wins); refs no part holds get -1."""
+    refs = np.concatenate([t for _, _, t in open_refs])
+    got = np.full(refs.size, -1, dtype=np.int64)
+    todo = np.arange(refs.size)
+    for q, qb in zip(parts, bases):
+        hit = q.index().lookup(refs[todo])
+        found = hit >= 0
+        got[todo[found]] = hit[found] + qb
+        todo = todo[~found]
+        if not todo.size:
+            break
+    ends = np.cumsum([rows.size for _, rows, _ in open_refs])
+    for (col, rows, _), g in zip(open_refs, np.split(got, ends[:-1])):
+        col[rows] = g
 
 
 def load_packed_npz(path, light: bool = False):

@@ -90,7 +90,6 @@ EMPTY_BATCH_BYTES = b'{"op":"batch","ops":[]}'
 # estimator prices tiered and untiered logs, so the memory-bound tests
 # and the headline bench compare apples to apples):
 _OBJ_OP_BYTES = 200          # one materialized Add/Delete + list slot
-_DICT_ENTRY_BYTES = 110      # one ts->pos dict entry incl. boxed ints
 
 
 def _values_bytes(values: List[Any]) -> int:
@@ -122,7 +121,7 @@ def _packed_resident(p: PackedOps) -> int:
         b += sum(a.nbytes for a in p.slot_hints.values())
     b += _values_bytes(p.values)
     if p.ts_index is not None:
-        b += _DICT_ENTRY_BYTES * len(p.ts_index)
+        b += p.ts_index.nbytes
     return b
 
 

@@ -144,6 +144,41 @@ def test_index_of_add_spans_segments():
         assert logs.j.index_of_add(t) == logs.t.index_of_add(t), t
 
 
+def test_index_of_add_over_an_unindexed_packed_segment():
+    """A packed segment with no cached timestamp index (one read back
+    from disk, or a union, has none) builds it on the first query: the
+    same positions as the reference's, as Python ints."""
+    ops = chain_ops(2, 7) + chain_ops(4, 5) + [JDelete((ts(2, 3),))]
+    j = joplog.OpLog(chain_ops(1, 3))
+    j.extend_packed(jpacked.pack(ops, max_depth=4))
+    t = toplog.OpLog(port(chain_ops(1, 3)))
+    p = tpacked.pack(port(ops), max_depth=4)
+    p.ts_index = None
+    t.extend_packed(p)
+    probes = [ts(2, c) for c in range(0, 9)] + \
+        [ts(4, c) for c in range(1, 7)] + [ts(1, 2), 0, ts(9, 9), 2**70]
+    for s in probes:
+        got = t.index_of_add(s)
+        assert got == j.index_of_add(s), s
+        assert got is None or type(got) is int
+    assert t.index_of_add(ts(4, 5)) == 3 + 7 + 4
+
+
+def test_packed_since_off_a_packing_with_its_index_handed_over():
+    """``pack`` hands its packing a ready index: suffixes and windows off
+    it, from every mark and an unknown one, match the reference's."""
+    _, mixed = _window_log()
+    jp = jpacked.pack(mixed, max_depth=4)
+    tp = tpacked.pack(port(mixed), max_depth=4)
+    assert isinstance(tp.ts_index, tpacked.TsIndex)
+    for since in [0] + [op.ts for op in mixed] + [ts(5, 5)]:
+        assert jengine.packed_since_bytes(jp, since) == \
+            tengine.packed_since_bytes(tp, since), since
+        for limit in (0, 3):
+            assert jengine.packed_since_window(jp, since, limit) == \
+                tengine.packed_since_window(tp, since, limit), since
+
+
 def test_to_packed_matches():
     logs = _segments(Logs())
     a = logs.j.to_packed(max_depth=4)

@@ -413,15 +413,20 @@ def test_fold_rewrites_only_trailing_partial_chunk(tmp_path):
     same_files(tmp_path / "wa-t", tmp_path / "wa-j")
 
 
-def test_hot_bytes_budget_spills_by_bytes(tmp_path):
+def test_hot_bytes_budget_spills_by_bytes(tmp_path, monkeypatch):
     ops = [Add(ts(1, c), ((ts(1, c - 1) if c > 1 else 0),), "x" * 2000)
            for c in range(1, 201)]
     budget = 100_000
     teles = []
     for mod, o in ((toplog, port(ops)), (joplog, ops)):
         log = mod.OpLog()
-        log.extend_packed((tpacked if mod is toplog else jpacked).pack(
-            o, max_depth=4))
+        p = (tpacked if mod is toplog else jpacked).pack(o, max_depth=4)
+        if mod is toplog:
+            # the port prices its timestamp index at its arrays' bytes;
+            # the reference's dict is held to the same ruler
+            monkeypatch.setattr(joplog, "_DICT_ENTRY_BYTES",
+                                p.ts_index.nbytes // len(p.ts_index))
+        log.extend_packed(p)
         log.enable_tiering(str(tmp_path / mod.__name__), hot_ops=100_000,
                            hot_bytes=budget, gc_min_segs=99)
         assert log.maybe_spill()
