@@ -6,6 +6,9 @@
 (:mod:`crdtbench.run`).  Configurations are ``configs/<config>.json``,
 traffic mixes ``traffic/<config>.<mix>.json`` (each naming the driver
 in ``drivers/`` that runs it), per-metric readers ``metrics/<metric>.py``,
-the plain reference and the check ``reference/``.  Nothing here imports
-JAX or the JAX package.
+the plain reference and the check ``reference/``; a cell's CPU test
+size ``tests/tiny/<workload>.json`` and its driver's timed-path faults
+``tests/faults/<driver>.py``.  A cell is added as such files and entries
+appended to ``BENCHMARK.json``.  Nothing here imports JAX or the JAX
+package.
 """

@@ -4,13 +4,20 @@ set-up, drives the program in a closed loop through one measured window,
 and hands back what the window produced for the check.
 
 Each driver module exposes ``Driver(config, traffic, seed, device,
-trace)`` with ``setup()``, ``window(seconds, tracer)``, ``host_tables()``
-and ``check()``, and for traced runs ``spans()``, ``audit()`` and
-``kernel_bound_ms()`` (see :mod:`crdtbench.run`).
+trace)`` with the methods of :data:`INTERFACE`: ``inputs()`` and
+``checked()`` (the cell's inputs from the seed, and the candidate
+columns of every answer the check compares, which the control reads
+too), ``setup()``, ``window(seconds, tracer)``, ``host_tables()`` and
+``check()``, and for traced runs ``spans()``, ``audit()`` and
+``kernel_bound_ms()`` (see :mod:`crdtbench.run`).  A driver's
+timed-path faults are ``crdtbench/tests/faults/<driver>.py``.
 """
 from __future__ import annotations
 
 import importlib
+
+INTERFACE = ("inputs", "checked", "setup", "window", "host_tables",
+             "check", "spans", "audit", "kernel_bound_ms")
 
 
 def load(name: str):

@@ -5,7 +5,9 @@ Copied from the port's ``bench/kerneltime.py`` (``work_of``,
 ``bound_ms``): a kernel's bound is the larger of the bytes its function
 must move at the card's memory rate and the operations it must do at its
 32-bit rate, counting each input element it needs read once and each
-output written once.
+output written once.  A batched wrapper's call (a leading document axis)
+counts as its documents' unbatched calls together, so the work is the
+same whichever form merges them.
 """
 from __future__ import annotations
 
@@ -16,14 +18,20 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 
-# the wrappers of the merge's hand kernels: (module, function)
+BATCHED = "_batched"
+
+# the wrappers of the merge's hand kernels, each with its batched form:
+# (module, function)
+_FR, _TS, _MG = (f"crdt_graph_tpu_torch.ops.{m}"
+                 for m in ("fused_resolve", "tour_scan", "mono_gather"))
 WRAPPERS = (
-    ("crdt_graph_tpu_torch.ops.fused_resolve", "plane_rows"),
-    ("crdt_graph_tpu_torch.ops.fused_resolve", "plane_rows2"),
-    ("crdt_graph_tpu_torch.ops.tour_scan", "prefix_sums"),
-    ("crdt_graph_tpu_torch.ops.mono_gather", "monotone_gather"),
+    (_FR, "plane_rows"), (_FR, "plane_rows_batched"),
+    (_FR, "plane_rows2"), (_FR, "plane_rows2_batched"),
+    (_TS, "prefix_sums"), (_TS, "prefix_sums_batched"),
+    (_MG, "monotone_gather"), (_MG, "monotone_gather_batched"),
 )
-# the CUDA kernels those wrappers launch, as the profiler names them
+# the CUDA kernels those wrappers launch (both forms), as the profiler
+# names them
 KERNEL_NAMES = ("plane_rows_kernel", "plane_rows2_kernel", "scan_lookback",
                 "mono_gather_kernel")
 
@@ -43,7 +51,14 @@ def _index(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def work_of(kname: str, args) -> tuple:
-    """(bytes, operations) the kernel's function must do for ``args``."""
+    """(bytes, operations) the kernel's function must do for ``args``;
+    a batched call's are the sums over its documents' slices."""
+    if kname.endswith(BATCHED):
+        one = kname[:-len(BATCHED)]
+        docs = [work_of(one, [a[b] if isinstance(a, torch.Tensor) else a
+                              for a in args])
+                for b in range(args[0].shape[0])]
+        return sum(w[0] for w in docs), sum(w[1] for w in docs)
     if kname in ("plane_rows", "plane_rows2"):
         plane, idx = args[0], args[1]
         r, c = plane.shape

@@ -1,7 +1,7 @@
 """Milliseconds a traced catch-up step spends building the state's
-timestamp index (``packed.ts_index``: ``np.unique`` and a dict over the
-log's adds, to resolve the delta's references), from the program's span
-log."""
+timestamp index (``packed.ts_index``: two sorted arrays from one
+``argsort`` over the log's adds, to resolve the delta's references),
+from the program's span log."""
 
 from crdtbench import spanlog
 

@@ -5,8 +5,8 @@
 
 Reads the cell from ``BENCHMARK.json`` at the checkout's root, its
 configuration from the file named there and its traffic from
-``crdtbench/traffic/<config>.<traffic>.json``; the traffic names the
-driver (``crdtbench/drivers/``) that runs it.  Set-up (imports, the
+``crdtbench/traffic/<config>.<traffic>.json`` under the same root; the
+traffic names the driver (``crdtbench/drivers/``) that runs it.  Set-up (imports, the
 card, the kernels' build or load, the inputs from the seed, the warm-up)
 is timed on the host's clock; then the driver runs one measured window
 of ``--seconds``.  ``--trace 1`` profiles the window's first
@@ -69,8 +69,8 @@ def load_cell(root: Path, workload: str) -> dict:
         raise SystemExit(f"crdtbench: no workload {workload!r}")
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     config = json.loads((root / entry["file"]).read_text())
-    traffic = json.loads((HERE / "traffic" / f"{cell['config']}."
-                          f"{cell['traffic']}.json").read_text())
+    mix = f"{cell['config']}.{cell['traffic']}.json"
+    traffic = json.loads((root / "crdtbench" / "traffic" / mix).read_text())
 
     def mine(m):
         return "workloads" not in m or workload in m["workloads"]

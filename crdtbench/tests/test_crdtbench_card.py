@@ -7,10 +7,11 @@ import sys
 import pytest
 
 from crdtbench import run
+from crdtbench.tests.conftest import listed
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["rga64x1M.catchup"])
+@pytest.mark.parametrize("workload", listed())
 def test_short_run_on_the_card(card, workload):
     out = subprocess.run(
         [sys.executable, "-m", "crdtbench", "--workload", workload,

@@ -124,3 +124,14 @@ def test_every_reader_is_listed_for_the_catchup_cell(root):
     for name in READERS:
         assert listed[name]["source"] == "program_counter"
         assert listed[name]["moves"] == "merged_ops_per_s"
+
+
+def test_a_reader_of_another_path_names_its_root(monkeypatch):
+    from crdtbench import spanlog
+    log = [dict(r, name="tier.merge") if r["parent"] is None
+           and r["name"] == spanlog.STEP else r for r in _log()]
+    monkeypatch.setattr(profiling, "span_log",
+                        lambda: {"records": log, "dropped": 0})
+    assert spanlog.ms_per_step(_rec(), "merge.materialize") is None
+    assert spanlog.ms_per_step(_rec(), "merge.materialize",
+                               root="tier.merge") == pytest.approx(50.0)
