@@ -35,6 +35,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..serve.metrics import Histogram, LATENCY_BOUNDS_MS
+from ..utils import profiling
 from ..utils.hostenv import env_float as _env_float
 from ..utils.hostenv import env_int as _env_int
 from . import wire
@@ -213,6 +214,7 @@ class MergeTierClient:
             timeout=timeout)
         return resp.status, raw
 
+    @profiling.span("mergetier.merge_one")
     def merge_one(self, doc_id: str, p, num_new: int,
                   trace_ctx: Optional[Dict] = None):
         """One document's remote merge: encode → send → verify.
@@ -223,9 +225,10 @@ class MergeTierClient:
         import socket
         from http.client import HTTPException
         t0 = time.perf_counter()
-        body = wire.encode_request(doc_id, p, num_new,
-                                   trace_meta=trace_ctx)
-        digest = wire.request_digest(p)
+        with profiling.span("mergetier.encode_request"):
+            body = wire.encode_request(doc_id, p, num_new,
+                                       trace_meta=trace_ctx)
+            digest = wire.request_digest(p)
         try:
             w = self._pick()
         except MergeFallback as e:
@@ -250,30 +253,32 @@ class MergeTierClient:
             raise MergeFallback("http_status",
                                 f"merge worker answered {status}")
         try:
-            table, meta = wire.decode_response(raw)
+            with profiling.span("mergetier.decode_response"):
+                table, meta = wire.decode_response(raw)
         except wire.MergeWireError as e:
             self._record(w, False)
             self._count_fallback("wire")
             raise MergeFallback("wire", str(e)) from e
-        if meta.get("input_digest") != digest:
-            # a response bound to some OTHER request must never be
-            # committed, however well-formed its frame is
-            self._record(w, False)
-            self._count_fallback("digest")
-            raise MergeFallback("digest",
-                                "response bound to a different request")
-        shared, width = meta["shared_capacity"], meta["width"]
-        import numpy as np
-        if shared < p.capacity or int(np.asarray(
-                table.status).shape[0]) < p.num_ops \
-                or not (0 < int(table.num_nodes)
-                        <= int(table.ts.shape[0])):
-            # the dry-check: a verified-transport frame that cannot
-            # structurally be THIS candidate set's materialization
-            self._record(w, False)
-            self._count_fallback("dry_check")
-            raise MergeFallback("dry_check",
-                                "frame inconsistent with candidate set")
+        with profiling.span("mergetier.verify"):
+            if meta.get("input_digest") != digest:
+                # a response bound to some OTHER request must never be
+                # committed, however well-formed its frame is
+                self._record(w, False)
+                self._count_fallback("digest")
+                raise MergeFallback("digest",
+                                    "response bound to a different request")
+            shared, width = meta["shared_capacity"], meta["width"]
+            import numpy as np
+            if shared < p.capacity or int(np.asarray(
+                    table.status).shape[0]) < p.num_ops \
+                    or not (0 < int(table.num_nodes)
+                            <= int(table.ts.shape[0])):
+                # the dry-check: a verified-transport frame that cannot
+                # structurally be THIS candidate set's materialization
+                self._record(w, False)
+                self._count_fallback("dry_check")
+                raise MergeFallback("dry_check",
+                                    "frame inconsistent with candidate set")
         self._record(w, True)
         with self._mu:
             self.remote_docs += 1

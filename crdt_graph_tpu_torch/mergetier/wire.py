@@ -38,6 +38,7 @@ import numpy as np
 from ..codec import packed as packed_mod
 from ..codec.packed import PackedOps
 from ..ops.merge import NodeTable
+from ..utils import profiling
 
 FORMAT_VERSION = 1
 
@@ -54,6 +55,7 @@ class MergeWireError(ValueError):
     a counted local-merge fallback; the worker answers 400."""
 
 
+@profiling.span("mergetier.digest")
 def _sha1_arrays(arrays) -> str:
     h = hashlib.sha1()
     for a in arrays:
@@ -102,7 +104,9 @@ def encode_request(doc_id: str, p: PackedOps, num_new: int,
         meta["trace"] = trace_meta
     buf = io.BytesIO()
     engine_mod.write_packed_npz(buf, p, meta, compress=False)
-    return buf.getvalue()
+    body = buf.getvalue()
+    profiling.count("mergetier.wire_bytes", len(body))
+    return body
 
 
 def decode_request(body: bytes) -> Tuple[PackedOps, Dict]:
@@ -151,7 +155,9 @@ def encode_response(table: NodeTable, shared_capacity: int, width: int,
     buf = io.BytesIO()
     np.savez(buf, meta=np.frombuffer(json.dumps(meta).encode(),
                                      np.uint8), **arrays)
-    return buf.getvalue()
+    body = buf.getvalue()
+    profiling.count("mergetier.wire_bytes", len(body))
+    return body
 
 
 def decode_response(body: bytes) -> Tuple[NodeTable, Dict]:

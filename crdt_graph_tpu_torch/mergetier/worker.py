@@ -45,6 +45,7 @@ import torch
 from ..ops import merge as merge_mod
 from ..ops.merge import FIELDS, NodeTable
 from ..serve.metrics import Histogram
+from ..utils import profiling
 from ..utils.hostenv import env_float as _env_float
 from ..utils.hostenv import env_int as _env_int
 from . import wire
@@ -91,6 +92,7 @@ class MergeWorker:
 
     # -- the epoch launch (leader thread) ---------------------------------
 
+    @profiling.span("mergetier.launch")
     def _launch(self, cargo: List[Tuple[object, Dict]]):
         """One epoch: align every request's candidate set to the shared
         capacity, stack, merge the documents as one batched merge on
@@ -102,10 +104,12 @@ class MergeWorker:
         prepared = [p for p, _ in cargo]
         stacked, aligned = mesh_mod.stack_aligned(prepared)
         btab = mesh_mod.batched_materialize(stacked, device=self.device)
-        host = read_back(btab)
+        with profiling.span("mergetier.read_back"):
+            host = read_back(btab)
         with self._lock:
             self._last_launch_ms = (time.perf_counter() - t0) * 1e3
         width = len(cargo)
+        profiling.count("mergetier.epoch_width", width)
         shared = aligned[0].capacity
         self.width_hist.observe(width)
         return [(table, shared, width) for table in host]
@@ -124,7 +128,8 @@ class MergeWorker:
                 {"error": "merge worker shutting down"}).encode(), \
                 {"Content-Type": "application/json"}
         try:
-            p, meta = wire.decode_request(body)
+            with profiling.span("mergetier.decode_request"):
+                p, meta = wire.decode_request(body)
         except wire.MergeWireError as e:
             with self._lock:
                 self.wire_errors += 1
@@ -165,8 +170,9 @@ class MergeWorker:
                          "queue": round(max(0.0, wait_ms - launch_ms),
                                         3),
                          "launch": round(launch_ms, 3)}}
-        resp = wire.encode_response(table, shared, width,
-                                    meta["input_digest"], extra=extra)
+        with profiling.span("mergetier.encode_response"):
+            resp = wire.encode_response(table, shared, width,
+                                        meta["input_digest"], extra=extra)
         return 200, resp, {"Content-Type": "application/octet-stream"}
 
     # -- lifecycle / telemetry --------------------------------------------

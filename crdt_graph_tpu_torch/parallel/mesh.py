@@ -79,6 +79,7 @@ from ..codec.packed import PackedOps, with_capacity
 from ..codec.packed import pad_arrays as packed_pad_arrays
 from ..ops import merge as merge_mod
 from ..ops.merge import FIELDS, NodeTable
+from ..utils import profiling
 from . import opsaxis
 from .opsaxis import _host
 
@@ -377,7 +378,8 @@ class LingerBatcher:
     ``launch`` receives the epoch's item list and must return one
     result per item, in order.  It runs on the leader's thread; the
     batcher itself never touches the card, so which thread launches is
-    the launch callable's business, not ours.
+    the launch callable's business, not ours.  The leader's linger wait
+    is the span ``mergetier.batch_wait`` (``utils.profiling``).
     """
 
     def __init__(self, launch: Callable[[List[Any]], List[Any]],
@@ -415,13 +417,14 @@ class LingerBatcher:
             if leader:
                 deadline = time.monotonic() + self.linger_s
                 waited = False
-                while (len(self._items) < self.max_width
-                       and not self._closed):
-                    remain = deadline - time.monotonic()
-                    if remain <= 0:
-                        break
-                    waited = True
-                    self._cv.wait(remain)
+                with profiling.span("mergetier.batch_wait"):
+                    while (len(self._items) < self.max_width
+                           and not self._closed):
+                        remain = deadline - time.monotonic()
+                        if remain <= 0:
+                            break
+                        waited = True
+                        self._cv.wait(remain)
                 cargo, self._items = self._items, []
                 self._epoch += 1
                 if waited:
