@@ -150,18 +150,24 @@ class PackedOps:
         omit them (the kernel's verified auto mode could not trust them
         anyway, and the extra host→device transfer would be dead
         weight)."""
-        out = {
+        out = self.columns()
+        if self.hints_vouched:
+            if self.slot_hints is None:
+                self.slot_hints = derive_slot_hints(out)
+            out.update(self.slot_hints)
+        return out
+
+    def columns(self) -> dict:
+        """The packed columns with the link and rank hints, without the
+        derived slot hints (the replica engine's bulk merge derives
+        those on the device)."""
+        return {
             "kind": self.kind, "ts": self.ts, "parent_ts": self.parent_ts,
             "anchor_ts": self.anchor_ts, "depth": self.depth,
             "paths": self.paths, "value_ref": self.value_ref, "pos": self.pos,
             "parent_pos": self.parent_pos, "anchor_pos": self.anchor_pos,
             "target_pos": self.target_pos, "ts_rank": self.ts_rank,
         }
-        if self.hints_vouched:
-            if self.slot_hints is None:
-                self.slot_hints = derive_slot_hints(out)
-            out.update(self.slot_hints)
-        return out
 
     def index(self) -> "TsIndex":
         """ts → first add batch position (built once, then cached)."""

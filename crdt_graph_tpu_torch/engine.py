@@ -42,7 +42,9 @@ builds, else the reference's own pure-Python paths.  Every bulk merge
 goes through the ops-axis route (``parallel.opsaxis.routed_materialize``):
 with ``GRAFT_OPSAXIS=1`` on a host with two or more cards a large merge
 is sharded across them with the same table; otherwise (the default, and
-always on one card) the merge is the single-device ``materialize``.
+always on one card) the merge is the single-device ``materialize``,
+which derives a vouched packing's slot hints on the device after the
+copy (``ops.slot_hints``).
 """
 from __future__ import annotations
 
@@ -376,8 +378,16 @@ class TpuTree:
 
     def _materialize(self, p: PackedOps) -> NodeTable:
         """One bulk merge of a candidate packing, on this replica's
-        device, in the hint mode its provenance allows."""
-        return opsaxis.routed_materialize(p.arrays(), _mode(p), self.device)
+        device, in the hint mode its provenance allows.  A vouched
+        packing on the single-device route sends its link and rank
+        columns and the merge derives the slot hints on the device; the
+        ops-axis route, which re-pads and shards host columns, and an
+        unvouched packing take ``arrays()``."""
+        mode = _mode(p)
+        if mode == "exhaustive" and not opsaxis.enabled_for(p.capacity):
+            return opsaxis.routed_materialize(p.columns(), mode, self.device,
+                                              derive_hints=True)
+        return opsaxis.routed_materialize(p.arrays(), mode, self.device)
 
     def table(self) -> NodeTable:
         """The converged node table (host numpy), re-materialised lazily

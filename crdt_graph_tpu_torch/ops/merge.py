@@ -48,9 +48,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..codec.packed import KIND_ADD, KIND_DELETE, MAX_TS
+from ..codec.packed import CROWD_HINT_COLS, KIND_ADD, KIND_DELETE, MAX_TS
 from ..utils import chainaudit, hostenv, profiling
-from . import fused_resolve, mono_gather, tour_scan
+from . import fused_resolve, mono_gather, slot_hints, tour_scan
 from .indexing import add_drop, min_drop, set_drop
 
 # Per-op result statuses (sequential parity; see the reference docstring).
@@ -1101,16 +1101,19 @@ def _crowd_cols(ops: Dict, no_deletes: bool) -> bool:
         and hostenv.flag_on("GRAFT_CROWD_HINTS")
 
 
+def _compacted(n: int) -> bool:
+    """Whether a merge of ``n`` rows sorts its crowded siblings on the
+    compacted branch (``GRAFT_S_CAP`` below the slot count): the only
+    branch with a sibling count for the crowd columns to replace."""
+    return _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT) < n + 2
+
+
 def crowding_hinted(ops: Dict, hints: Optional[str],
                     no_deletes: bool) -> bool:
     """True when the merge of these columns takes the crowding leg that
-    reads the host pre-pass columns (reference ``crowding_hinted``); the
-    count it replaces exists only on the compacted sibling branch
-    (``GRAFT_S_CAP`` below the slot count)."""
-    compacted = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT) < \
-        ops["kind"].shape[-1] + 2
-    return select_leg(ops, hints) == "slot" and compacted and \
-        _crowd_cols(ops, no_deletes)
+    reads the host pre-pass columns (reference ``crowding_hinted``)."""
+    return select_leg(ops, hints) == "slot" and \
+        _compacted(ops["kind"].shape[-1]) and _crowd_cols(ops, no_deletes)
 
 
 def select_leg(ops: Dict, hints: Optional[str]) -> str:
@@ -1133,6 +1136,10 @@ LEG_COLS = {"slot": MERGE_COLS,
             "rank": BASE_COLS + LINK_HINTS + ("ts_rank",),
             "link": BASE_COLS + LINK_HINTS,
             "join": BASE_COLS}
+# the columns a merge that derives its slot hints on the device copies:
+# what the slot leg reads less the derived columns, plus what they are
+# derived from (``ops.slot_hints.SOURCE_COLS``)
+DERIVE_COLS = BASE_COLS + LINK_HINTS + ("ts_rank",)
 
 
 def host_no_deletes(kind) -> bool:
@@ -1161,7 +1168,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def materialize(ops: Dict, hints: Optional[str] = None, device=None,
-                probe: Optional[int] = None):
+                probe: Optional[int] = None, derive_hints: bool = False):
     """ops arrays (``codec.packed.PackedOps.arrays()``: numpy columns, or
     tensors) → :class:`NodeTable` on ``device`` (default: the card).
 
@@ -1171,29 +1178,43 @@ def materialize(ops: Dict, hints: Optional[str] = None, device=None,
     ``"exhaustive"`` trusts a vouched producer's hints and never runs the
     sort or the join; ``"join"`` ignores hints.  ``probe=k`` (1-7, and
     the stage-5 sub-cuts 41-43) stops after stage k and returns the
-    reference's cumulative checksum instead of a table."""
+    reference's cumulative checksum instead of a table.
+
+    ``derive_hints=True`` (under ``"exhaustive"``, one document: the
+    replica engine's vouched bulk merge) takes columns without the slot
+    hints: the merge copies :data:`DERIVE_COLS`, derives the slot hints
+    on the device (``ops.slot_hints``) and takes the slot leg, with the
+    table ``arrays()``'s host-derived hints would give."""
     if hints not in HINT_MODES:
         raise ValueError(f"unknown hints mode {hints!r}; expected None, "
                          "'auto', 'exhaustive', or 'join'")
+    if derive_hints and (hints != "exhaustive" or ops["kind"].ndim != 1
+                         or not all(k in ops for k in DERIVE_COLS)):
+        raise ValueError("derive_hints takes one document's vouched "
+                         f"columns {DERIVE_COLS} under 'exhaustive'")
     return _materialize(ops, hints, resolve_device(device),
-                        host_no_deletes(ops["kind"]), probe)
+                        host_no_deletes(ops["kind"]), probe,
+                        derive_hints=derive_hints)
 
 
 @profiling.span("merge.materialize")
 def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
-                 no_deletes: bool, probe: Optional[int] = None, part=None):
+                 no_deletes: bool, probe: Optional[int] = None, part=None,
+                 derive_hints: bool = False):
     """The merge on ``dev`` with the no-deletes promise already checked
     (for a batch, in every document).  ``ops`` are one document's ``[N]``
     columns or a batch's ``[B, N]`` (``parallel.mesh``): a batch is ONE
     merge, one chain of dispatches and host reads, whose table carries
     the leading document axis.  ``part`` is the ops-axis partition
     context, which only ``parallel.opsaxis.materialize`` passes (one
-    document)."""
+    document).  ``derive_hints``: see :func:`materialize`."""
     from ..convert import ops_from_numpy
-    leg = select_leg(ops, hints)
+    leg = "slot" if derive_hints else select_leg(ops, hints)
+    cols = DERIVE_COLS if derive_hints else LEG_COLS[leg]
     with profiling.span("merge.h2d"):
-        t_ops = ops_from_numpy(
-            {k: ops[k] for k in LEG_COLS[leg] if k in ops}, dev)
+        t_ops = ops_from_numpy({k: ops[k] for k in cols if k in ops}, dev)
+    if derive_hints:
+        t_ops.update(_derive_slot_hints(t_ops, no_deletes))
     kind = t_ops["kind"]
     n = kind.shape[-1]
     if n + 2 > 2**30:
@@ -1211,3 +1232,24 @@ def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
         return _finish(t_ops, sel, no_deletes, probe, acc, part)
     finally:
         chainaudit.stage(0)
+
+
+def _derive_slot_hints(t_ops: Dict[str, torch.Tensor],
+                       no_deletes: bool) -> Dict[str, torch.Tensor]:
+    """The slot-hint columns of one document's vouched columns, derived
+    on their device (span ``packed.slot_hints``, count
+    ``merge.slot_hints_on_card``).  The crowd columns are derived only
+    where the merge would read them (no deletes, the compacted sibling
+    branch, ``GRAFT_CROWD_HINTS`` on), and kept only where their
+    verification holds: one counted read, and a refusal counted in
+    ``merge.crowd_hints_refused``."""
+    crowding = no_deletes and _compacted(t_ops["kind"].shape[-1]) and \
+        hostenv.flag_on("GRAFT_CROWD_HINTS")
+    with profiling.span("packed.slot_hints"), chainaudit.hints():
+        cols, ok = slot_hints.derive(t_ops, crowding)
+        profiling.count("merge.slot_hints_on_card")
+        if ok is not None and not _read(ok):
+            profiling.count("merge.crowd_hints_refused")
+            for k in CROWD_HINT_COLS:
+                del cols[k]
+    return cols

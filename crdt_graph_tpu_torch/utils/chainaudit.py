@@ -30,7 +30,9 @@ width, bytes, note)``:
 - ``note``: ``"loop"`` inside one of the merge's data-dependent loops
   (the fixpoint chases, the NSA chase, binary lifting, the Wyllie
   doubling: the reference's ``"scan-body"``), ``"shard"`` inside an
-  ops-axis shard's window (the reference's ``[shard]`` path tag), else
+  ops-axis shard's window (the reference's ``[shard]`` path tag),
+  ``"hints"`` inside a merge's derivation of its slot hints on the
+  device (``ops.merge._derive_slot_hints``, before stage 1), else
   ``""``.
 
 What counts as a memory pass carries over from the reference: gathers
@@ -133,6 +135,12 @@ FAST_PATH_BUDGETS = {        # leg: (no delete stage, delete stage)
     "join": (33, 36),
 }
 SYNC_BUDGET = 7
+# M-wide passes of one derivation of a merge's slot hints on the device
+# (``ops.slot_hints.derive``): a fixed chain with no loop, 17 passes, 20
+# with its crowding pre-pass over paths wider than one column (the same
+# count on either device: no kernel call).  Counted apart from the
+# merge's fast path, and held to this budget per derivation.
+HINT_PASS_BUDGET = 20
 
 _tls = threading.local()
 
@@ -147,6 +155,8 @@ class _Run:
         self.stage = 0
         self.loop = 0
         self.shard = 0
+        self.hints = 0
+        self.derived = 0
         self.suppress = 0
         self.pending_read = False
         self.legs: List[str] = []
@@ -155,7 +165,8 @@ class _Run:
         self.widest = 0
 
     def note(self) -> str:
-        return "shard" if self.shard else "loop" if self.loop else ""
+        return "shard" if self.shard else "loop" if self.loop else \
+            "hints" if self.hints else ""
 
     def add(self, op: str, width: int, nbytes: int) -> None:
         self.rows.append((self.stage, op, int(width), int(nbytes),
@@ -316,6 +327,22 @@ def loop():
 
 
 @contextlib.contextmanager
+def hints():
+    """Rows inside carry ``note="hints"``: one derivation of a merge's
+    slot hints on the device."""
+    run = _active()
+    if run is None:
+        yield
+        return
+    run.hints += 1
+    run.derived += 1
+    try:
+        yield
+    finally:
+        run.hints -= 1
+
+
+@contextlib.contextmanager
 def shard():
     """Rows inside carry ``note="shard"``: one ops-axis shard's work."""
     run = _active()
@@ -402,11 +429,13 @@ class ChainAudit:
     """Result of :func:`count_mwide`.
 
     ``fast_path``: M-wide memory passes outside the merge's loops (it
-    does not grow with log M).  ``static``: every M-wide pass that ran,
-    loop trips included.  ``rows``: ``(stage, op, width, bytes, note)``
-    per dispatched op, in order.  ``legs``: the resolution leg of each
-    merge the run held and ``deletes`` whether it ran its delete stage
-    (the budgets are per merge, by both)."""
+    does not grow with log M) and outside its derivation of its slot
+    hints, which ``hint_passes`` counts (``derived`` derivations ran).
+    ``static``: every M-wide pass that ran, loop trips included.
+    ``rows``: ``(stage, op, width, bytes, note)`` per dispatched op, in
+    order.  ``legs``: the resolution leg of each merge the run held and
+    ``deletes`` whether it ran its delete stage (the budgets are per
+    merge, by both)."""
     fast_path: int
     static: int
     threshold: int
@@ -419,6 +448,7 @@ class ChainAudit:
     legs: List[str] = dataclasses.field(default_factory=list)
     deletes: List[bool] = dataclasses.field(default_factory=list)
     docs: List[int] = dataclasses.field(default_factory=list)
+    derived: int = 0
 
     @property
     def merges(self) -> int:
@@ -434,6 +464,11 @@ class ChainAudit:
 
     def _mwide(self, r) -> bool:
         return _klass(r[1]) is not None and r[2] >= self.threshold
+
+    @property
+    def hint_passes(self) -> int:
+        """M-wide passes of the run's slot-hint derivations."""
+        return sum(1 for r in self.rows if r[4] == "hints" and self._mwide(r))
 
     @property
     def compact_fast(self) -> int:
@@ -557,13 +592,17 @@ class ChainAudit:
         """The stats record the runner's rows, the flight recorder's
         sampled commits and the opsaxis report carry."""
         sync_budget = SYNC_BUDGET * max(1, self.merges)
+        hint_budget = HINT_PASS_BUDGET * self.derived
         out = {
             "fast_path": self.fast_path,
             "static": self.static,
             "budget": self.budget,
             "sync_budget": sync_budget,
+            "hint_passes": self.hint_passes,
+            "hint_budget": hint_budget,
             "ok": bool(self.fast_path <= self.budget and
-                       self.fast_syncs <= sync_budget),
+                       self.fast_syncs <= sync_budget and
+                       self.hint_passes <= hint_budget),
             "host_syncs": self.host_syncs,
             "fast_syncs": self.fast_syncs,
             "outer_syncs": self.outer_syncs,
@@ -620,9 +659,11 @@ class Audit:
         audit = ChainAudit(fast_path=0, static=0, threshold=threshold,
                            rows=rows, width_ref=widest,
                            compact_floor=floor, legs=list(run.legs),
-                           deletes=list(run.deletes), docs=list(run.docs))
+                           deletes=list(run.deletes), docs=list(run.docs),
+                           derived=run.derived)
         mwide = [r for r in rows if audit._mwide(r)]
-        audit.fast_path = sum(1 for r in mwide if r[4] != "loop")
+        audit.fast_path = sum(1 for r in mwide
+                              if r[4] not in ("loop", "hints"))
         audit.static = len(mwide)
         return audit
 

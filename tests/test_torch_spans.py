@@ -32,9 +32,9 @@ PARENT = {
     "packed.concat": "engine.prepare_packed",
     "packed.ts_index": "packed.concat",
     "packed.ts_rank": "packed.concat",
-    "packed.slot_hints": "engine.apply_packed",
     "merge.materialize": "engine.apply_packed",
     "merge.h2d": "merge.materialize",
+    "packed.slot_hints": "merge.materialize",
     **{s: "merge.materialize" for s in STAGES},
     "engine.finish_packed": "engine.apply_packed",
     "engine.status_readback": "engine.finish_packed",
@@ -178,18 +178,62 @@ def test_index_counters_count_the_base_adds_and_the_chain_heads(replica):
     for r in recs:
         counted.update(r["counts"])
     assert set(counted) == {"packed.index_rows", "packed.index_lookups",
-                            "convert.h2d_bytes"}
+                            "convert.h2d_bytes", "merge.slot_hints_on_card"}
     assert counted["packed.index_rows"] == CHAINS * BASE
     assert counted["packed.index_lookups"] == CHAINS
+
+
+@pytest.mark.parametrize("s_cap", [None, "1024"])
+def test_each_step_derives_its_slot_hints_on_the_device(replica, s_cap,
+                                                        monkeypatch):
+    """One derivation a step, after the copy, and its crowd columns
+    (derived where the merge sorts siblings on the compacted branch, as
+    with a sort width of 1,024) verified: no refusal, one counted read."""
+    if s_cap is not None:
+        monkeypatch.setenv("GRAFT_S_CAP", s_cap)
+    t, delta = replica
+    syncs0 = tmerge.host_syncs
+    _step(t, delta)
+    plain_reads = tmerge.host_syncs - syncs0
+    with profile(activities=[ProfilerActivity.CPU]):
+        _step(t, delta)
+        _step(t, delta)
+    recs = tprof.span_log()["records"]
+    hints = [r for r in recs if r["name"] == "packed.slot_hints"]
+    assert len(hints) == 2
+    assert all(r["counts"] == {"merge.slot_hints_on_card": 1}
+               for r in hints)
+    assert not any("merge.crowd_hints_refused" in r["counts"] for r in recs)
+    h2d = {r["id"]: r for r in recs if r["name"] == "merge.h2d"}
+    for r in hints:
+        first_stage = min((x for x in recs if x["parent"] == r["parent"]
+                           and x["name"].startswith("merge.stage")),
+                          key=lambda x: x["start_ns"])
+        (copy,) = [x for x in h2d.values() if x["parent"] == r["parent"]]
+        assert copy["end_ns"] <= r["start_ns"] <= r["end_ns"] \
+            <= first_stage["start_ns"]
+    syncs0 = tmerge.host_syncs
+    with chainaudit.Audit() as a:
+        _step(t, delta)
+    assert tmerge.host_syncs - syncs0 == plain_reads
+    res = a.result()
+    assert res.derived == 1
+    assert res.summary()["ok"]
+    # the crowd columns' verification is the derivation's one read
+    hint_reads = [x for x in res.rows if x[4] == "hints"
+                  and x[1].endswith("[read]")]
+    assert len(hint_reads) == (1 if s_cap else 0)
 
 
 def test_h2d_bytes_are_the_columns_the_leg_sends(replica):
     t, delta = replica
     cand = tpacked.concat(t.packed_state(), delta)
+    assert tengine._mode(cand) == "exhaustive"
+    # the link and rank columns: the slot hints are derived after the copy
+    cols = cand.columns()
+    sent = sum(cols[k].nbytes for k in tmerge.DERIVE_COLS)
     arrs = cand.arrays()
-    leg = tmerge.select_leg(arrs, tengine._mode(cand))
-    assert leg == "slot"
-    sent = sum(arrs[k].nbytes for k in tmerge.LEG_COLS[leg] if k in arrs)
+    assert sent < sum(arrs[k].nbytes for k in tmerge.LEG_COLS["slot"])
     tprof.reset_spans()
     with profile(activities=[ProfilerActivity.CPU]):
         _step(t, delta)
