@@ -474,9 +474,9 @@ def audit_phase(dev, record, adds, dels, card):
 
     import torch
 
-    from crdt_graph_tpu_torch import convert, engine as engine_mod, kernels
+    from crdt_graph_tpu_torch import convert, kernels
     from crdt_graph_tpu_torch.bench import honest, workloads
-    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.codec import json_codec, packed as packed_mod
     from crdt_graph_tpu_torch.core.operation import Add, Batch
     from crdt_graph_tpu_torch.obs import flight as flight_mod
     from crdt_graph_tpu_torch.ops import merge
@@ -565,9 +565,9 @@ def audit_phase(dev, record, adds, dels, card):
     adds_on = [Add(200 * 2**32 + c, (last if c == 1 else
                                      200 * 2**32 + c - 1,), f"r{c}")
                for c in range(1, N_AUDIT + 1)]
-    commits = [("a0", engine_mod.packed_since_bytes(
+    commits = [("a0", packed_mod.packed_since_bytes(
                     packed_chain(small["config5"][0], N_AUDIT), 0)),
-               ("d0", engine_mod.packed_since_bytes(
+               ("d0", packed_mod.packed_since_bytes(
                     packed_chain(darrs, n_del), 0)),
                ("d0", json_codec.dumps(Batch(tuple(adds_on))))]
     try:
@@ -1252,7 +1252,7 @@ def durability_phase(dev, record, twins):
         view = r.log_view()
         for seam, row in seams.items():
             since = int(ts_col[row])
-            if view.window(since, 4096) != engine.packed_since_window(
+            if view.window(since, 4096) != packed.packed_since_window(
                     ref_full, since, 4096):
                 raise RuntimeError(f"recovery {name}: window at {seam}")
             if since not in ref_dumps:
@@ -1722,7 +1722,7 @@ def serve_phase(dev, record, twins, card):
     import numpy as np
     from crdt_graph_tpu_torch import engine as engine_mod, kernels
     from crdt_graph_tpu_torch.bench import workloads
-    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.codec import json_codec, packed as packed_mod
     from crdt_graph_tpu_torch.core.operation import Add, Batch
     from crdt_graph_tpu_torch.obs import prom
     from crdt_graph_tpu_torch.service import make_server
@@ -1769,7 +1769,7 @@ def serve_phase(dev, record, twins, card):
         if rid != N_REPLICAS:
             raise RuntimeError(f"replica ids ran to {rid}")
         arrs = workloads.chain_workload(N_REPLICAS, N_OPS)
-        wire = engine_mod.packed_since_bytes(packed_chain(arrs, N_OPS), 0)
+        wire = packed_mod.packed_since_bytes(packed_chain(arrs, N_OPS), 0)
         t0 = time.perf_counter()
         ack = c.json("POST", "/docs/d0/ops", body=wire)
         out["giant_commit_ms"] = (time.perf_counter() - t0) * 1e3
@@ -2622,7 +2622,7 @@ def fleet_phase(dev, record, twins, card):
     from crdt_graph_tpu_torch.bench import workloads
     from crdt_graph_tpu_torch.cluster import FileKV, FleetServer, mergepool
     from crdt_graph_tpu_torch.cluster import kv as kv_mod
-    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.codec import json_codec, packed as packed_mod
     from crdt_graph_tpu_torch.core.operation import Add, Batch, Delete
     from crdt_graph_tpu_torch.mergetier import MergeTierClient, MergeWorker
     from crdt_graph_tpu_torch.mergetier.worker import MergeWorkerServer
@@ -2690,9 +2690,9 @@ def fleet_phase(dev, record, twins, card):
             n_rep[d] = 4 << (i % 8)
             p = packed_chain(workloads.chain_workload(n_rep[d], N_MESH),
                              N_MESH)
-            sent[d].append(engine_mod.packed_since_bytes(p, 0))
+            sent[d].append(packed_mod.packed_since_bytes(p, 0))
         n_rep[big] = N_REPLICAS
-        sent[big].append(engine_mod.packed_since_bytes(
+        sent[big].append(packed_mod.packed_since_bytes(
             packed_chain(workloads.chain_workload(N_REPLICAS, N_OPS), N_OPS),
             0))
         # the bootstrap's replicas hold their fleet-unique ids first (the
@@ -3483,9 +3483,9 @@ def walshared_phase(dev, record, twins, card):
     numbers beside them.  Returns the kernel launches of the phase."""
     import os
     import shutil
-    from crdt_graph_tpu_torch import engine as engine_mod, kernels
+    from crdt_graph_tpu_torch import kernels
     from crdt_graph_tpu_torch.bench import workloads
-    from crdt_graph_tpu_torch.codec import json_codec
+    from crdt_graph_tpu_torch.codec import json_codec, packed as packed_mod
     from crdt_graph_tpu_torch.core.operation import Add, Batch
     from crdt_graph_tpu_torch.serve import ServingEngine
 
@@ -3494,7 +3494,7 @@ def walshared_phase(dev, record, twins, card):
     t_phase = time.perf_counter()
     out = {"card": card}
     try:
-        wire = engine_mod.packed_since_bytes(packed_chain(
+        wire = packed_mod.packed_since_bytes(packed_chain(
             workloads.chain_workload(N_REPLICAS, N_OPS), N_OPS), 0)
         kernels.reset_launches()
         # ---- the shared stream ------------------------------------------
@@ -3624,8 +3624,9 @@ def shmcache_phase(dev, record, card):
     import os
     import signal
     import uuid
-    from crdt_graph_tpu_torch import engine as engine_mod, kernels
+    from crdt_graph_tpu_torch import kernels
     from crdt_graph_tpu_torch.bench import workloads
+    from crdt_graph_tpu_torch.codec import packed as packed_mod
     from crdt_graph_tpu_torch.obs import prom
     from crdt_graph_tpu_torch.serve import ServingEngine
     from crdt_graph_tpu_torch.service import make_server
@@ -3664,7 +3665,7 @@ def shmcache_phase(dev, record, card):
             raise RuntimeError(f"the child server did not start: {line!r}")
         ports = {"this": srv.server_port,
                  "child": int(line.rsplit(":", 1)[1])}
-        wire = engine_mod.packed_since_bytes(packed_chain(
+        wire = packed_mod.packed_since_bytes(packed_chain(
             workloads.chain_workload(N_REPLICAS, N_OPS), N_OPS), 0)
         kernels.reset_launches()
 

@@ -31,33 +31,6 @@ kernel, its twin and its library call, and kernel 4 again with seven
 value rows (the merge's V when two weight lanes exist).  One JSON line a
 root, also appended to ``build/kerneltime.jsonl``.  Needs a CUDA device.
 
-``csrc/variants/mono_gather_staged.cu`` is kernel 4 with its monotone
-window staged in shared memory; it is timed against the checkout in a
-copy of the package that builds it in place of ``csrc/mono_gather.cu``:
-
-    mkdir -p build/staged
-    cp -r crdt_graph_tpu_torch tests build/staged/
-    cp crdt_graph_tpu_torch/csrc/variants/mono_gather_staged.cu \
-        build/staged/crdt_graph_tpu_torch/csrc/mono_gather.cu
-    python -m crdt_graph_tpu_torch.bench.kerneltime \
-        --roots . build/staged build/staged .
-
-Kernel 1's two alternatives to ``csrc/plane_rows.cu`` are timed the same
-way: plain stores in place of its evict-first ones
-(``PLANE_ROWS_STREAMING_STORES`` set to 0) and
-``csrc/variants/plane_rows_shfl.cu`` (each row's index broadcast by warp
-shuffle), each built in a copy in place of the checkout's file:
-
-    mkdir -p build/plain build/shfl
-    cp -r crdt_graph_tpu_torch tests build/plain/
-    cp -r crdt_graph_tpu_torch tests build/shfl/
-    sed -i 's/STREAMING_STORES 1/STREAMING_STORES 0/' \
-        build/plain/crdt_graph_tpu_torch/csrc/plane_rows.cu
-    cp crdt_graph_tpu_torch/csrc/variants/plane_rows_shfl.cu \
-        build/shfl/crdt_graph_tpu_torch/csrc/plane_rows.cu
-    python -m crdt_graph_tpu_torch.bench.kerneltime \
-        --roots build/parent . build/plain build/shfl . build/parent
-
 This module imports only torch at its top: a run loads it by file path
 beside an older checkout's package.
 """

@@ -6,7 +6,7 @@ This is the reference's ``operationsSince`` contract
 (CRDTree.elm:390-418) run server-to-server: each (peer, doc) pair keeps
 a **high-water mark** — the timestamp of the last Add served by THAT
 peer — and each round pulls ``GET /docs/{d}/ops?since=<hw>&limit=<cap>``
-off the peer's published snapshot (``engine.packed_since_window``: the
+off the peer's published snapshot (``codec.packed.packed_since_window``: the
 window is bounded, always ends on an Add so the mark stays a valid
 ``since`` terminator, and the ``X-Since-More`` header makes a giant
 catch-up resume immediately instead of waiting a round per window).
@@ -64,14 +64,13 @@ import time
 from http.client import HTTPConnection, HTTPException
 from typing import Dict, Optional
 
+from ..codec.packed import EMPTY_BATCH_BYTES
 from ..obs.trace import (AE_PEER_HEADER, SINCE_FOUND_HEADER,
                          SINCE_MORE_HEADER, SINCE_NEXT_HEADER,
                          TRACE_FRONTIER_HEADER)
 from ..serve.metrics import Histogram, LATENCY_BOUNDS_MS
 from ..serve.queue import QueueFull, SchedulerStopped
 from . import netchaos as netchaos_mod
-
-EMPTY_BATCH = b'{"op":"batch","ops":[]}'
 
 # health EWMA weight: score = (1-w)·score + w·outcome — ~8 recent
 # outcomes dominate, so a healed peer recovers visibly within a few
@@ -471,7 +470,7 @@ class AntiEntropy(threading.Thread):
                     return          # peer genuinely has nothing
                 st.hw[doc] = 0      # peer lost our mark: full resync
                 continue
-            if body != EMPTY_BATCH:
+            if body != EMPTY_BATCH_BYTES:
                 etag = f'"{hashlib.sha1(body).hexdigest()}"'
                 if st.hw_digest.get(doc) == (since, etag):
                     # byte-identical to the window already applied

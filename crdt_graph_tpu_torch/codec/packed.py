@@ -61,6 +61,7 @@ sort path, so wrong ranks cost speed, never correctness.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,6 +69,7 @@ import numpy as np
 from ..core import operation as op_mod
 from ..core.operation import Add, Batch, Delete, Operation
 from ..utils import profiling
+from . import json_codec
 
 KIND_ADD = 0
 KIND_DELETE = 1
@@ -140,16 +142,14 @@ class PackedOps:
         return int(self.paths.shape[1])
 
     def arrays(self) -> dict:
-        """The device-bound fields (everything but the value table).
-
-        Vouched batches additionally carry the derived SLOT-hint columns
-        (:func:`derive_slot_hints`): with them, the kernel's exhaustive
-        mode resolves every timestamp reference ELEMENTWISE — zero
-        M-wide resolution gathers on the production trace (the
-        chain-length budget, utils/chainaudit.py).  Unvouched batches
-        omit them (the kernel's verified auto mode could not trust them
-        anyway, and the extra host→device transfer would be dead
-        weight)."""
+        """The reference's device-bound fields (everything but the value
+        table): :meth:`columns` plus, for a vouched batch, the SLOT-hint
+        columns derived on the host (:func:`derive_slot_hints`, cached on
+        the object).  Unvouched batches omit them (the kernel's verified
+        auto mode could not trust them).  The port's merges take
+        :meth:`columns` and derive the slot hints they lack on the
+        device; this form serves what must equal the reference's (the
+        merge tier's request digest) and callers that hold given hints."""
         out = self.columns()
         if self.hints_vouched:
             if self.slot_hints is None:
@@ -159,8 +159,8 @@ class PackedOps:
 
     def columns(self) -> dict:
         """The packed columns with the link and rank hints, without the
-        derived slot hints (the replica engine's bulk merge derives
-        those on the device)."""
+        derived slot hints (an exhaustive merge derives those on its
+        device)."""
         return {
             "kind": self.kind, "ts": self.ts, "parent_ts": self.parent_ts,
             "anchor_ts": self.anchor_ts, "depth": self.depth,
@@ -781,7 +781,7 @@ def with_capacity(p: PackedOps, cap: int) -> PackedOps:
     if cap < p.num_ops:
         raise ValueError(f"capacity {cap} below op count {p.num_ops}")
     n = p.num_ops
-    cols = pad_arrays({k: v[:n] for k, v in p.arrays().items()}, cap)
+    cols = pad_arrays({k: v[:n] for k, v in p.columns().items()}, cap)
     return PackedOps(
         kind=cols["kind"], ts=cols["ts"], parent_ts=cols["parent_ts"],
         anchor_ts=cols["anchor_ts"], depth=cols["depth"],
@@ -921,8 +921,34 @@ def _resolve(open_refs, parts: Sequence[PackedOps], bases: List[int]
         col[rows] = g
 
 
+def write_packed_npz(path, p: PackedOps, meta: dict,
+                     compress: bool = True) -> None:
+    """Write the packed-checkpoint npz format: ``p``'s real rows plus a
+    JSON ``meta`` sidecar — the reference's format, field for field.
+    One format serves the checkpoint, the op log's cold segments, the
+    WAL's records and the merge tier's requests; :func:`load_packed_npz`
+    reads it back.  ``path`` may be a filesystem path or a binary
+    file-like."""
+    f = path if hasattr(path, "write") else open(path, "wb")
+    n = p.num_ops
+    try:
+        (np.savez_compressed if compress else np.savez)(
+            f, kind=p.kind[:n], ts=p.ts[:n],
+            parent_ts=p.parent_ts[:n],
+            anchor_ts=p.anchor_ts[:n], depth=p.depth[:n],
+            paths=p.paths[:n], value_ref=p.value_ref[:n],
+            pos=p.pos[:n], parent_pos=p.parent_pos[:n],
+            anchor_pos=p.anchor_pos[:n], target_pos=p.target_pos[:n],
+            ts_rank=p.ts_rank[:n],
+            values=np.frombuffer(json.dumps(p.values).encode(), np.uint8),
+            meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+    finally:
+        if f is not path:
+            f.close()
+
+
 def load_packed_npz(path, light: bool = False):
-    """Load one packed-ops npz (the ``engine.write_packed_npz`` wire/
+    """Load one packed-ops npz (the :func:`write_packed_npz` wire/
     disk format) back into a :class:`PackedOps` — the segment-grade
     loader behind the tiered op log (oplog.py): cold segments and the
     checkpoint base round-trip through this, re-padded to the jit
@@ -940,7 +966,6 @@ def load_packed_npz(path, light: bool = False):
     CheckpointError`: a spilled segment that cannot be read back MUST
     surface loudly (a silent partial log would serve wrong
     ``operations_since`` answers and wrong fingerprints forever)."""
-    import json
     import struct
     import zipfile
     import zlib
@@ -1003,7 +1028,6 @@ def verify_packed_npz(path, expect_ops: Optional[int] = None
     descriptor's.  Returns None when healthy, else a short reason
     string (the scrub quarantines on ANY non-None answer — missing
     file included: lost history must never pass a scrub silently)."""
-    import json
     import struct
     import zipfile
     import zlib
@@ -1040,3 +1064,122 @@ def pack_json(payload, max_depth: int = DEFAULT_MAX_DEPTH,
         payload = payload.decode()
     return pack(json_codec.loads(payload), max_depth=max_depth,
                 capacity=capacity)
+
+
+# -- the anti-entropy egress ------------------------------------------------
+
+EMPTY_BATCH_BYTES = b'{"op":"batch","ops":[]}'
+
+
+def packed_since_bytes(p: PackedOps, initial_timestamp: int) -> bytes:
+    """Anti-entropy wire JSON straight off packed columns: the suffix
+    from the Add matching ``initial_timestamp`` (inclusive; 0 = full
+    log; no match = empty batch), streamed through the native egress
+    encoder (``native.encode_pack``), with the Python codec for a
+    payload the native encoder refuses and when it is unavailable.  The
+    applied log holds each add timestamp at most once, so the cached
+    first-occurrence index IS the terminator."""
+    from .. import native
+    n = p.num_ops
+    if initial_timestamp == 0:
+        start = 0
+    else:
+        start = p.index().get(initial_timestamp)
+        if start is None or start >= n:
+            return EMPTY_BATCH_BYTES
+    if native.available():
+        try:
+            return native.encode_pack(p, start)
+        except ValueError:
+            pass  # non-JSON-native payload: take the Python path
+    return json_codec.dumps(op_mod.from_list(
+        unpack_rows(p, start, n))).encode()
+
+
+def window_bounds(log, since: int, limit: int):
+    """The rows of a bounded, resumable anti-entropy window: ``(start,
+    stop, None)`` for a window of rows ``[start, stop)``, or ``(0, 0,
+    meta)`` when the answer is the empty batch (an unresolved mark, a
+    caught-up log), ``meta`` being the window's meta for that case.
+    ``limit`` ≤ 0 serves the unbounded suffix.  The reference's trimming
+    rules:
+
+    - a window ends on its last Add (the resume terminator; the
+      trailing deletes re-serve next window), unless that Add is the
+      inclusive terminator itself: a resumed window must make progress;
+    - a window without such an Add extends through the next Add;
+    - an all-delete log tail ships with its window (no later Add would
+      carry it).
+
+    ``log`` is one packing (``packed_since_window``) or an op log's
+    view of its tiers (``oplog.LogView``): ``length``,
+    ``index_of_add(ts)``, ``kinds(start, stop)``,
+    ``next_add_at_or_after(pos)`` and ``last_add_pos``."""
+    n = log.length
+    if since == 0:
+        start = 0
+    else:
+        start = log.index_of_add(since)
+        if start is None or start >= n:
+            return 0, 0, {"found": False, "more": False,
+                          "next_since": None, "count": 0}
+    if start >= n:
+        return 0, 0, {"found": True, "more": False, "next_since": None,
+                      "count": 0}
+    stop = n
+    if 0 < limit < n - start:
+        window_adds = np.nonzero(
+            log.kinds(start, start + limit) == KIND_ADD)[0]
+        if len(window_adds) and (since == 0 or int(window_adds[-1]) > 0):
+            stop = start + int(window_adds[-1]) + 1
+        else:
+            nxt = log.next_add_at_or_after(start + limit)
+            stop = nxt + 1 if nxt is not None else n
+        last = log.last_add_pos
+        if stop < n and (last is None or last < stop):
+            stop = n
+    return start, stop, None
+
+
+class _Rows:
+    """One packing's real rows as the log :func:`window_bounds` reads."""
+
+    def __init__(self, p: PackedOps):
+        self.p = p
+        self.length = p.num_ops
+
+    def index_of_add(self, ts: int) -> Optional[int]:
+        return self.p.index().get(ts)
+
+    def kinds(self, start: int, stop: int) -> np.ndarray:
+        return self.p.kind[start:stop]
+
+    def next_add_at_or_after(self, pos: int) -> Optional[int]:
+        later = np.nonzero(self.p.kind[pos:self.length] == KIND_ADD)[0]
+        return pos + int(later[0]) if len(later) else None
+
+    @property
+    def last_add_pos(self) -> Optional[int]:
+        adds = np.nonzero(self.p.kind[:self.length] == KIND_ADD)[0]
+        return int(adds[-1]) if len(adds) else None
+
+
+def packed_since_window(p: PackedOps, initial_timestamp: int,
+                        limit: int = 0):
+    """Bounded, resumable anti-entropy window over one packing:
+    ``(wire_bytes, {"found", "more", "next_since", "count"})``, its rows
+    those of :func:`window_bounds`."""
+    start, stop, early = window_bounds(_Rows(p), initial_timestamp, limit)
+    if early is not None:
+        return EMPTY_BATCH_BYTES, early
+    n = p.num_ops
+    if stop >= n:
+        body = packed_since_bytes(p, initial_timestamp)
+    else:
+        body = packed_since_bytes(select_rows(p, np.arange(start, stop)),
+                                  0)
+    served_adds = np.nonzero(p.kind[start:stop] == KIND_ADD)[0]
+    next_since = int(p.ts[start + int(served_adds[-1])]) \
+        if len(served_adds) else None
+    return body, {"found": True, "more": stop < n,
+                  "next_since": next_since, "count": stop - start}

@@ -5,7 +5,7 @@ This system's "weights" are data: a packed op batch going in and a
 cursor).  These functions move them between numpy (what the JAX package
 takes and returns on the host) and the port's tensors, column for column
 with the dtypes unchanged, so the two packages' results compare field by
-field.  A replica's binary checkpoint (``engine.write_packed_npz``) is
+field.  A replica's binary checkpoint (``codec.packed.write_packed_npz``) is
 the same file in both packages and restores in either.
 """
 from __future__ import annotations

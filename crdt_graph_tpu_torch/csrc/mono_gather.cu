@@ -20,10 +20,10 @@
 // next column, so a warp's reads of a value row fall on one or two cache
 // lines that L1 and L2 already hold, and every byte of DRAM traffic left
 // is rid in and the output rows out.  Staging the window in shared memory,
-// with 16-byte loads and stores (variants/mono_gather_staged.cu), was
-// built and measured on an H100 (PERF.md, section 6): it adds a barrier a
-// tile and moves no fewer bytes, and took 0.0075 ms against this design's
-// 0.0063 at V = 4 and 0.0149 against 0.0110 at V = 7.  So one block of
+// with 16-byte loads and stores, was built and measured on an H100
+// (PERF.md, section 6): it adds a barrier a tile and moves no fewer
+// bytes, and took 0.0075 ms against this design's 0.0063 at V = 4 and
+// 0.0149 against 0.0110 at V = 7.  So one block of
 // 256 threads takes 1,024 tokens, 4 a thread striped by the block width:
 // each thread loads its 4 rid values at once (coalesced 4-byte loads, 4
 // in flight), then for each value row reads the 4 values and writes them

@@ -33,8 +33,7 @@
 //     k-th row of every thread lies k * blockDim.y rows on, so each of a
 //     warp's index loads and stores is contiguous;
 //   - the threads of one row each read its index; they share the L1 line
-//     (a warp-shuffle broadcast, csrc/variants/plane_rows_shfl.cu,
-//     measured slower);
+//     (a warp-shuffle broadcast was measured slower, PERF.md section 6);
 //   - stores are evict-first (__stcs): the output is not read again by
 //     this kernel, so the L2 keeps the plane and the index (measured
 //     faster than plain stores, PERF.md section 6).
@@ -54,7 +53,6 @@
 #define PLANE_ROWS_THREADS 256      // threads a block of kernel 1
 #define PLANE_ROWS_PER_THREAD 4     // rows in flight a thread of kernel 1
 #define PLANE_ROWS_VEC_BYTES 16     // kernel 1's wide access: two columns
-#define PLANE_ROWS_STREAMING_STORES 1   // 0: plain stores, not __stcs
 #define PLANE_ROWS2_THREADS 256     // threads a block of kernel 2
 
 // Kernel 1's launch geometry for C columns: the access width in bytes,
@@ -74,15 +72,6 @@ static RowPlan plane_rows_plan(int64_t C, bool aligned16) {
   p.rows_per_block = PLANE_ROWS_THREADS / p.threads_per_row;
   p.rows_per_thread = PLANE_ROWS_PER_THREAD;
   return p;
-}
-
-template <typename V>
-__device__ __forceinline__ void store_row(V* p, const V& v) {
-#if PLANE_ROWS_STREAMING_STORES
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
 }
 
 // out[t, :] = plane[jax_row(idx[t]), :] for one document, the row cut
@@ -115,7 +104,7 @@ __device__ __forceinline__ void doc_rows(const V* __restrict__ plane,
         if (t0 + k * ny < T) v[k] = __ldg(plane + src[k] + x);
 #pragma unroll
       for (int k = 0; k < PLANE_ROWS_PER_THREAD; ++k)
-        if (t0 + k * ny < T) store_row(out + (t0 + k * ny) * W + x, v[k]);
+        if (t0 + k * ny < T) __stcs(out + (t0 + k * ny) * W + x, v[k]);
     }
   }
 }

@@ -36,9 +36,10 @@ either package recovers in the other.  A restored
 replica's first full merge (no matz, or a WAL tail past the bulk
 crossover) runs on its device like any other bulk merge.
 
-The wire paths (``apply_wire``, ``dumps_since_bytes``,
-``packed_since_bytes``) take the native codec (``native``) when it
-builds, else the reference's own pure-Python paths.  Every bulk merge
+The wire paths (``apply_wire``, ``dumps_since_bytes``) take the native
+codec (``native``) when it builds, else the reference's own pure-Python
+paths.  The packed formats (the checkpoint npz and the anti-entropy
+egress) are ``codec.packed``'s.  Every bulk merge
 goes through the ops-axis route (``parallel.opsaxis.routed_materialize``):
 with ``GRAFT_OPSAXIS=1`` on a host with two or more cards a large merge
 is sharded across them with the same table; otherwise (the default, and
@@ -66,7 +67,7 @@ from .core.errors import (CheckpointError, InvalidPathError, NotFound,
                           OperationFailedError)
 from .core.operation import Add, Batch, Delete, Operation
 from .host_tree import NIL, HostTree
-from .oplog import EMPTY_BATCH_BYTES, OpLog, PackedBatch, ViewSpanBatch
+from .oplog import OpLog, PackedBatch, ViewSpanBatch
 from .ops import merge as merge_mod
 from .ops import view as view_mod
 from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
@@ -103,29 +104,15 @@ def _mode(p: PackedOps) -> Optional[str]:
     A violated vouch silently mis-resolves references (that is the
     mode's contract), so ``GRAFT_DEBUG_VOUCH=1`` arms the reference's
     host-side tripwire: every vouched batch is re-audited before it
-    reaches the exhaustive mode, and its cached slot hints are checked
-    against a fresh derivation."""
+    reaches the exhaustive mode."""
     if not p.hints_vouched:
         return None
-    if os.environ.get("GRAFT_DEBUG_VOUCH"):
-        if not packed_mod.verify_hints(p):
-            raise RuntimeError(
-                "hints_vouched batch failed the host hint audit — a "
-                "producer (pack/concat/restore) broke the vouch "
-                "invariant; the exhaustive mode would silently "
-                "mis-resolve")
-        if p.slot_hints is not None:
-            fresh = packed_mod.derive_slot_hints(
-                {k: getattr(p, k) for k in
-                 ("kind", "ts", "parent_ts", "anchor_ts", "depth",
-                  "paths", "parent_pos", "anchor_pos", "target_pos",
-                  "ts_rank")})
-            if any(not np.array_equal(p.slot_hints.get(k), fresh[k])
-                   for k in fresh):
-                raise RuntimeError(
-                    "cached slot-hint columns diverge from the audited "
-                    "base columns — stale derivation cache; the fused "
-                    "exhaustive resolution would silently mis-resolve")
+    if os.environ.get("GRAFT_DEBUG_VOUCH") and not packed_mod.verify_hints(p):
+        raise RuntimeError(
+            "hints_vouched batch failed the host hint audit — a "
+            "producer (pack/concat/restore) broke the vouch "
+            "invariant; the exhaustive mode would silently "
+            "mis-resolve")
     return "exhaustive"
 
 
@@ -378,16 +365,10 @@ class TpuTree:
 
     def _materialize(self, p: PackedOps) -> NodeTable:
         """One bulk merge of a candidate packing, on this replica's
-        device, in the hint mode its provenance allows.  A vouched
-        packing on the single-device route sends its link and rank
-        columns and the merge derives the slot hints on the device; the
-        ops-axis route, which re-pads and shards host columns, and an
-        unvouched packing take ``arrays()``."""
-        mode = _mode(p)
-        if mode == "exhaustive" and not opsaxis.enabled_for(p.capacity):
-            return opsaxis.routed_materialize(p.columns(), mode, self.device,
-                                              derive_hints=True)
-        return opsaxis.routed_materialize(p.arrays(), mode, self.device)
+        device, in the hint mode its provenance allows.  The merge takes
+        the packing's columns with their link and rank hints; under the
+        exhaustive mode it derives the slot hints on the device."""
+        return opsaxis.routed_materialize(p.columns(), _mode(p), self.device)
 
     def table(self) -> NodeTable:
         """The converged node table (host numpy), re-materialised lazily
@@ -882,7 +863,7 @@ class TpuTree:
 
     def dumps_since_bytes(self, initial_timestamp: int) -> bytes:
         """Wire JSON bytes for ``operations_since`` without per-op
-        Python encode — :func:`packed_since_bytes` over the cached
+        Python encode — ``codec.packed.packed_since_bytes`` over the cached
         packed log, byte-identical to
         ``json_codec.dumps(self.operations_since(ts))``.  Without the
         native module, the reference's no-native path: encoded from the
@@ -891,8 +872,8 @@ class TpuTree:
         if not native.available():
             return json_codec.dumps(
                 self.operations_since(initial_timestamp)).encode()
-        return packed_since_bytes(self._ensure_packed(),
-                                  initial_timestamp)
+        return packed_mod.packed_since_bytes(self._ensure_packed(),
+                                             initial_timestamp)
 
     def dumps_since(self, initial_timestamp: int) -> str:
         return self.dumps_since_bytes(initial_timestamp).decode()
@@ -1077,7 +1058,7 @@ class TpuTree:
             "hints_vouched": p.hints_vouched,
         }
         self._last_op_meta(meta)
-        write_packed_npz(path, p, meta, compress=compress)
+        packed_mod.write_packed_npz(path, p, meta, compress=compress)
 
     def _last_op_meta(self, meta: dict) -> None:
         """Stamp ``last_operation`` provenance into a checkpoint ``meta``:
@@ -1552,102 +1533,6 @@ class TpuTree:
         elif last_op is not None:
             tree._last_operation = last_op
         return tree
-
-
-def packed_since_bytes(p: PackedOps, initial_timestamp: int) -> bytes:
-    """Anti-entropy wire JSON straight off packed columns: the suffix
-    from the Add matching ``initial_timestamp`` (inclusive; 0 = full
-    log; no match = empty batch), streamed through the native egress
-    encoder (``native.encode_pack``), with the Python codec for a
-    payload the native encoder refuses and when it is unavailable.  The
-    applied log holds each add timestamp at most once, so the cached
-    first-occurrence index IS the terminator."""
-    from . import native
-    n = p.num_ops
-    if initial_timestamp == 0:
-        start = 0
-    else:
-        start = p.index().get(initial_timestamp)
-        if start is None or start >= n:
-            return EMPTY_BATCH_BYTES
-    if native.available():
-        try:
-            return native.encode_pack(p, start)
-        except ValueError:
-            pass  # non-JSON-native payload: take the Python path
-    return json_codec.dumps(op_mod.from_list(
-        packed_mod.unpack_rows(p, start, n))).encode()
-
-
-def packed_since_window(p: PackedOps, initial_timestamp: int,
-                        limit: int = 0):
-    """Bounded, resumable anti-entropy window over the packed log:
-    ``(wire_bytes, {"found", "more", "next_since", "count"})`` with the
-    reference's trimming rules (windows end on their last Add; an
-    all-delete window extends through the next Add; an all-delete tail
-    ships with its window).  ``limit`` ≤ 0 serves the unbounded
-    suffix."""
-    n = p.num_ops
-    if initial_timestamp == 0:
-        start = 0
-    else:
-        start = p.index().get(initial_timestamp)
-        if start is None or start >= n:
-            return EMPTY_BATCH_BYTES, {"found": False, "more": False,
-                                       "next_since": None, "count": 0}
-    if start >= n:
-        return EMPTY_BATCH_BYTES, {"found": True, "more": False,
-                                   "next_since": None, "count": 0}
-    stop = n
-    if 0 < limit < n - start:
-        kinds = p.kind
-        window_adds = np.nonzero(
-            kinds[start:start + limit] == packed_mod.KIND_ADD)[0]
-        # the window must contain an Add BEYOND the resume terminator, or
-        # the chain would re-serve the same window forever
-        if len(window_adds) and (initial_timestamp == 0
-                                 or int(window_adds[-1]) > 0):
-            stop = start + int(window_adds[-1]) + 1
-        else:
-            later = np.nonzero(
-                kinds[start + limit:n] == packed_mod.KIND_ADD)[0]
-            stop = start + limit + int(later[0]) + 1 if len(later) else n
-        if stop < n and not np.any(kinds[stop:n] == packed_mod.KIND_ADD):
-            stop = n
-    if stop >= n:
-        body = packed_since_bytes(p, initial_timestamp)
-        stop = n
-    else:
-        sub = packed_mod.select_rows(p, np.arange(start, stop))
-        body = packed_since_bytes(sub, 0)
-    served_adds = np.nonzero(p.kind[start:stop] == packed_mod.KIND_ADD)[0]
-    next_since = int(p.ts[start + int(served_adds[-1])]) \
-        if len(served_adds) else None
-    return body, {"found": True, "more": stop < n,
-                  "next_since": next_since, "count": stop - start}
-
-
-def write_packed_npz(path, p: PackedOps, meta: dict,
-                     compress: bool = True) -> None:
-    """Write the packed-checkpoint npz format: ``p``'s real rows plus a
-    JSON ``meta`` sidecar — the reference's format, field for field.
-    ``path`` may be a filesystem path or a binary file-like."""
-    f = path if hasattr(path, "write") else open(path, "wb")
-    n = p.num_ops
-    try:
-        (np.savez_compressed if compress else np.savez)(
-            f, kind=p.kind[:n], ts=p.ts[:n],
-            parent_ts=p.parent_ts[:n],
-            anchor_ts=p.anchor_ts[:n], depth=p.depth[:n],
-            paths=p.paths[:n], value_ref=p.value_ref[:n],
-            pos=p.pos[:n], parent_pos=p.parent_pos[:n],
-            anchor_pos=p.anchor_pos[:n], target_pos=p.target_pos[:n],
-            ts_rank=p.ts_rank[:n],
-            values=np.frombuffer(json.dumps(p.values).encode(), np.uint8),
-            meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
-    finally:
-        if f is not path:
-            f.close()
 
 
 def init(replica: int, max_depth: int = DEFAULT_MAX_DEPTH,

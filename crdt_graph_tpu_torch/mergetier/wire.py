@@ -3,7 +3,7 @@ npz-serialized :class:`~crdt_graph_tpu_torch.ops.merge.NodeTable` frames
 back, end-to-end digests on both legs.
 
 Request body — exactly the packed-checkpoint npz format
-(``engine.write_packed_npz`` / ``codec.packed.load_packed_npz``: the
+(``codec.packed.write_packed_npz`` / ``load_packed_npz``: the
 same wire unit snapshots and cold segments already ride), carrying the
 document's FULL candidate column set (current log ∪ delta, the output
 of ``TpuTree.prepare_packed``) plus meta:
@@ -90,7 +90,6 @@ def encode_request(doc_id: str, p: PackedOps, num_new: int,
     the sender's ``X-Span-Ctx`` twin) rides as one extra meta key and
     is omitted entirely when None — with ``GRAFT_FLEETTRACE=0`` the
     request bytes carry no trace key."""
-    from .. import engine as engine_mod
     meta = {
         "fmt": FORMAT_VERSION,
         "num_ops": int(p.num_ops),
@@ -103,7 +102,7 @@ def encode_request(doc_id: str, p: PackedOps, num_new: int,
     if trace_meta is not None:
         meta["trace"] = trace_meta
     buf = io.BytesIO()
-    engine_mod.write_packed_npz(buf, p, meta, compress=False)
+    packed_mod.write_packed_npz(buf, p, meta, compress=False)
     body = buf.getvalue()
     profiling.count("mergetier.wire_bytes", len(body))
     return body

@@ -16,7 +16,7 @@ stay numpy on the host and page in lazily.
   here.
 - **cold segments** — once the hot tail exceeds a configurable op/byte
   budget (``GRAFT_OPLOG_HOT_OPS``), the oldest hot ops are sealed into
-  one packed-npz file each (the ``engine.write_packed_npz`` format) and
+  one packed-npz file each (the ``codec.packed.write_packed_npz`` format) and
   drop out of memory.  Resident per cold segment: only a sorted
   add-timestamp index (8 bytes/add — how ``operations_since``
   terminators resolve without touching disk) and the file descriptor
@@ -44,7 +44,7 @@ window: the chain keeps reading the exact rows its view captured
 (spilled hot segments stay resident while a live view references them;
 GC defers deleting a segment file while any live view references its
 descriptor).  Window answers are byte-identical to the untiered
-``engine.packed_since_window`` across every tier seam.
+``codec.packed.packed_since_window`` across every tier seam.
 
 **Causal-stability watermark.**  ``set_stable_mark(pos)`` records the
 log position below which every fleet replica has already pulled (the
@@ -77,14 +77,15 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List,
 import numpy as np
 
 from .codec import packed as packed_mod
-from .codec.packed import DEFAULT_MAX_DEPTH, KIND_ADD, PackedOps
+from .codec.packed import (DEFAULT_MAX_DEPTH, EMPTY_BATCH_BYTES, KIND_ADD,
+                           PackedOps, packed_since_bytes,
+                           packed_since_window, window_bounds,
+                           write_packed_npz)
 from .core.errors import CheckpointError
 from .core.operation import Add, Batch, Delete, Operation
 from .utils import profiling
 from .utils.hostenv import env_int as _env_int
 from .wal import maybe_crash as _maybe_crash
-
-EMPTY_BATCH_BYTES = b'{"op":"batch","ops":[]}'
 
 # resident-byte accounting constants (documented estimates — the same
 # estimator prices tiered and untiered logs, so the memory-bound tests
@@ -547,11 +548,10 @@ class _ColdSeg:
         read-back).  ``fsync``: durable mode — the file must be on
         disk BEFORE the manifest references it (and before the WAL
         prefix it replaces is truncated)."""
-        from . import engine as engine_mod
         n = p.num_ops
         meta = {"num_ops": n, "hints_vouched": bool(p.hints_vouched),
                 "start": start, "kind": "oplog-segment"}
-        engine_mod.write_packed_npz(path, p, meta, compress=compress)
+        write_packed_npz(path, p, meta, compress=compress)
         if fsync:
             fd = os.open(path, os.O_RDONLY)
             try:
@@ -643,7 +643,7 @@ class _ColdSeg:
 # lands entirely on cold tiers then ships as a handful of
 # ``os.sendfile`` ranges instead of load → unpack → re-encode per
 # pull.  The concatenation property is not assumed: the build VERIFIES
-# the assembled bytes against ``engine.packed_since_bytes`` over the
+# the assembled bytes against ``codec.packed.packed_since_bytes`` over the
 # segment's own rows and permanently refuses zero-copy for the segment
 # on any mismatch (the buffered path owns it), and a sidecar reopened
 # from disk must pass a length + sha1 check before it serves.
@@ -688,7 +688,6 @@ def build_wire_sidecar(seg: "_ColdSeg") -> bool:
     ``False`` permanently when the assembled bytes fail verification
     against the buffered encoder, and back to ``None`` (retryable —
     e.g. after peer repair) when the segment itself can't load."""
-    from . import engine as engine_mod
     from .codec import json_codec
     try:
         p = seg.load()
@@ -700,7 +699,7 @@ def build_wire_sidecar(seg: "_ColdSeg") -> bool:
             for op in packed_mod.unpack_rows(p, 0, n)]
     payload = b",".join(encs)
     if WIRE_PREFIX + payload + WIRE_SUFFIX \
-            != engine_mod.packed_since_bytes(p, 0):
+            != packed_since_bytes(p, 0):
         seg.wire = False
         return False
     row_len = np.asarray([len(e) for e in encs], dtype=np.int64)
@@ -840,7 +839,7 @@ class LogView:
     physical layout (see module docstring).  Everything a read surface
     needs resolves against this: ``operations_since`` suffixes, bounded
     anti-entropy windows (byte-identical to the untiered
-    ``engine.packed_since_window``), full-column reassembly for
+    ``codec.packed.packed_since_window``), full-column reassembly for
     ``/snapshot`` bootstraps.  The log only ever REPLACES descriptors,
     so a view taken before a spill/compaction/GC keeps serving the
     exact same rows."""
@@ -1022,11 +1021,11 @@ class LogView:
 
     def since_bytes(self, since: int) -> bytes:
         """Wire JSON for ``GET /ops?since=`` — byte-identical to
-        ``engine.packed_since_bytes`` over the untiered full packing."""
-        from . import engine as engine_mod
+        ``codec.packed.packed_since_bytes`` over the untiered full
+        packing."""
         p = self._single_full_packed()
         if p is not None:
-            return engine_mod.packed_since_bytes(p, since)
+            return packed_since_bytes(p, since)
         if since == 0:
             start = 0
         else:
@@ -1035,76 +1034,29 @@ class LogView:
                 return EMPTY_BATCH_BYTES
         sub = self.to_packed() if start == 0 \
             else self.slice_packed(start, self.length)
-        return engine_mod.packed_since_bytes(sub, 0)
+        return packed_since_bytes(sub, 0)
 
     def window(self, since: int, limit: int = 0):
         """Bounded, resumable anti-entropy window over the view —
         ``(wire_bytes, {"found", "more", "next_since", "count"})``,
-        byte- and meta-identical to ``engine.packed_since_window`` over
-        the untiered full packing (the trimming rules below mirror it
-        clause for clause, across every tier seam):
-
-        - windows end on their last Add (the resume terminator; the
-          trailing deletes re-serve next window);
-        - an all-delete window extends through the next Add;
-        - an all-delete log TAIL ships with its window (there is no
-          later Add to carry it — the PR-6 chain-looping fix).
-        """
-        from . import engine as engine_mod
+        byte- and meta-identical to ``codec.packed.packed_since_window``
+        over the untiered full packing: its rows are
+        ``codec.packed.window_bounds``'s over the view, across every tier
+        seam, and a view of one whole packing is that packing's
+        window."""
         p = self._single_full_packed()
         if p is not None:
-            return engine_mod.packed_since_window(p, since, limit)
-        start, stop, early = self._window_bounds(since, limit)
+            return packed_since_window(p, since, limit)
+        start, stop, early = window_bounds(self, since, limit)
         if early is not None:
             return EMPTY_BATCH_BYTES, early
-        n = self.length
         sub = self.slice_packed(start, stop)
-        body = engine_mod.packed_since_bytes(sub, 0)
+        body = packed_since_bytes(sub, 0)
         served = np.nonzero(sub.kind[:sub.num_ops] == KIND_ADD)[0]
         next_since = int(sub.ts[int(served[-1])]) if len(served) \
             else None
-        return body, {"found": True, "more": stop < n,
+        return body, {"found": True, "more": stop < self.length,
                       "next_since": next_since, "count": stop - start}
-
-    def _window_bounds(self, since: int, limit: int):
-        """The window's row bounds — the SINGLE trimming implementation
-        behind both :meth:`window` (buffered) and :meth:`window_plan`
-        (zero-copy), so the two paths can never disagree on what a
-        window contains.  Returns ``(start, stop, None)`` for a
-        non-empty window or ``(0, 0, meta)`` when the answer is the
-        empty batch (unresolved mark / caught-up log), with ``meta``
-        exactly what :meth:`window` serves for that case."""
-        n = self.length
-        if since == 0:
-            start = 0
-        else:
-            start = self.index_of_add(since)
-            if start is None or start >= n:
-                return 0, 0, {"found": False, "more": False,
-                              "next_since": None, "count": 0}
-        if start >= n:
-            return 0, 0, {"found": True, "more": False,
-                          "next_since": None, "count": 0}
-        stop = n
-        if 0 < limit < n - start:
-            kinds = self.kinds(start, start + limit)
-            window_adds = np.nonzero(kinds == KIND_ADD)[0]
-            # mirror of engine.packed_since_window clause for clause —
-            # including the no-progress guard: a resumed window whose
-            # only Add is the inclusive terminator extends through the
-            # next Add instead of re-serving itself forever
-            if len(window_adds) and (since == 0
-                                     or int(window_adds[-1]) > 0):
-                stop = start + int(window_adds[-1]) + 1
-            else:
-                nxt = self.next_add_at_or_after(start + limit)
-                stop = nxt + 1 if nxt is not None else n
-            if stop < n and (self.last_add_pos is None
-                             or self.last_add_pos < stop):
-                # everything past the trimmed window is deletes:
-                # serve the tail NOW (PR-6 all-delete-tail rule)
-                stop = n
-        return start, stop, None
 
     def window_plan(self, since: int, limit: int):
         """Zero-copy serving plan for the same window :meth:`window`
@@ -1131,7 +1083,7 @@ class LogView:
         missing: List[_ColdSeg] = []
         if limit <= 0 or self._single_full_packed() is not None:
             return None, missing
-        start, stop, early = self._window_bounds(since, limit)
+        start, stop, early = window_bounds(self, since, limit)
         if early is not None:
             return None, missing
         parts: List[Tuple[_ColdSeg, int, int]] = []

@@ -8,8 +8,9 @@ forest, Euler tour, run-contracted list ranking), and the stage numbers
 in the comments below are its stages.
 
 Hint modes, as in the reference: ``"exhaustive"`` trusts the producer's
-hints (a vouched batch with the derived slot hints resolves every
-reference elementwise); ``None``/``"auto"`` uses the rank and link hints
+hints (a vouched batch with the slot hints resolves every reference
+elementwise; the merge derives on its device the slot hints it is not
+given); ``None``/``"auto"`` uses the rank and link hints
 but verifies them on the device and falls back to the sort+join
 construction when any is wrong (one counted predicate read, and one
 count in :data:`fallbacks`); ``"join"`` ignores every hint.
@@ -74,8 +75,9 @@ LINK_HINTS = ("parent_pos", "anchor_pos", "target_pos")
 # the columns every leg reads
 BASE_COLS = ("kind", "ts", "parent_ts", "anchor_ts", "depth", "paths",
              "value_ref", "pos")
-# the columns the slot-hinted exhaustive leg reads; the rest of a batch
-# (the position hints, parent_ts) never leaves the host
+# the columns the slot-hinted exhaustive leg reads when its slot hints
+# are given; the rest of a batch (the position hints, parent_ts) then
+# never leaves the host
 MERGE_COLS = ("kind", "ts", "anchor_ts", "depth", "paths", "value_ref",
               "pos", "ts_rank") + SLOT_HINTS + (
                   "win_row", "parent_row", "crowd_slot", "crowd_cpos")
@@ -548,7 +550,8 @@ def _finish(ops: Dict[str, torch.Tensor], sel, no_deletes: bool,
     skey = torch.where(in_forest, order_parent, NULL).to(torch.int32)
     neg_slot = torch.where(in_forest, -slot_ids, IPOS).to(torch.int32)
     S_CAP = _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT)
-    crowd_hinted = fused and _crowd_cols(ops, no_deletes)
+    crowd_hinted = fused and _crowding(N, no_deletes) and \
+        all(k in ops for k in CROWD_HINT_COLS)
     if S_CAP >= M:
         sib_next, first_child = _sib_links(skey, ggrp, neg_slot, M)
     else:
@@ -1094,52 +1097,56 @@ def _resolve(ops: Dict[str, torch.Tensor], hints: Optional[str], leg: str,
     return sorted_ops()
 
 
-def _crowd_cols(ops: Dict, no_deletes: bool) -> bool:
-    """The slot-hinted leg's crowd columns replace the sibling count:
-    no deletes, both columns present, ``GRAFT_CROWD_HINTS`` on."""
-    return no_deletes and "crowd_slot" in ops and "crowd_cpos" in ops \
+def _crowding(n: int, no_deletes: bool) -> bool:
+    """Whether the slot leg of a merge of ``n`` rows reads crowd columns
+    in place of its sibling count: no deletes, ``GRAFT_CROWD_HINTS`` on,
+    and the crowded siblings sorted on the compacted branch
+    (``GRAFT_S_CAP`` below the slot count), the only branch with a
+    sibling count to replace."""
+    return no_deletes and _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT) < n + 2 \
         and hostenv.flag_on("GRAFT_CROWD_HINTS")
 
 
-def _compacted(n: int) -> bool:
-    """Whether a merge of ``n`` rows sorts its crowded siblings on the
-    compacted branch (``GRAFT_S_CAP`` below the slot count): the only
-    branch with a sibling count for the crowd columns to replace."""
-    return _env_cap("GRAFT_S_CAP", S_CAP_DEFAULT) < n + 2
+def _derives(ops: Dict, leg: str) -> bool:
+    """Whether the merge derives the slot hints of these columns on its
+    device: the slot leg, with the slot-hint columns not given."""
+    return leg == "slot" and not all(k in ops for k in SLOT_HINTS)
 
 
 def crowding_hinted(ops: Dict, hints: Optional[str],
                     no_deletes: bool) -> bool:
-    """True when the merge of these columns takes the crowding leg that
-    reads the host pre-pass columns (reference ``crowding_hinted``)."""
-    return select_leg(ops, hints) == "slot" and \
-        _compacted(ops["kind"].shape[-1]) and _crowd_cols(ops, no_deletes)
+    """True when the merge of these columns takes the crowding leg, which
+    reads the crowd columns (reference ``crowding_hinted``): the slot leg
+    under :func:`_crowding`, with the crowd columns given, or derived
+    with the slot hints the columns lack (whose one verification may
+    still refuse them: ``merge.crowd_hints_refused``)."""
+    leg = select_leg(ops, hints)
+    return leg == "slot" and _crowding(ops["kind"].shape[-1], no_deletes) \
+        and (_derives(ops, leg) or all(k in ops for k in CROWD_HINT_COLS))
 
 
 def select_leg(ops: Dict, hints: Optional[str]) -> str:
-    """The resolution leg the reference's trace takes for these columns
-    and this hint mode: ``"slot"``, ``"rank"``, ``"link"`` or ``"join"``
-    (see :func:`_resolve`)."""
+    """The resolution leg of the merge of these columns in this hint mode:
+    ``"slot"``, ``"rank"``, ``"link"`` or ``"join"`` (see
+    :func:`_resolve`).  Under ``"exhaustive"`` the link and rank hints
+    take the slot leg, whose slot hints the merge derives where they are
+    not given."""
     if hints == "join" or not all(k in ops for k in LINK_HINTS):
         return "join"
     if "ts_rank" not in ops:
         return "link"
-    if hints == "exhaustive" and all(k in ops for k in SLOT_HINTS):
-        return "slot"
-    return "rank"
+    return "slot" if hints == "exhaustive" else "rank"
 
 
 # the columns each leg reads: the slot-hinted leg the 16 of MERGE_COLS,
 # the others the base columns plus the position and rank hints they use
-# — so each leg copies to the device only what it needs
+# — so each leg copies to the device only what it needs.  A slot leg
+# that derives its slot hints copies the rank leg's columns, which hold
+# what the hints are derived from (``ops.slot_hints.SOURCE_COLS``).
 LEG_COLS = {"slot": MERGE_COLS,
             "rank": BASE_COLS + LINK_HINTS + ("ts_rank",),
             "link": BASE_COLS + LINK_HINTS,
             "join": BASE_COLS}
-# the columns a merge that derives its slot hints on the device copies:
-# what the slot leg reads less the derived columns, plus what they are
-# derived from (``ops.slot_hints.SOURCE_COLS``)
-DERIVE_COLS = BASE_COLS + LINK_HINTS + ("ts_rank",)
 
 
 def host_no_deletes(kind) -> bool:
@@ -1168,52 +1175,45 @@ def resolve_device(device=None) -> torch.device:
 
 
 def materialize(ops: Dict, hints: Optional[str] = None, device=None,
-                probe: Optional[int] = None, derive_hints: bool = False):
-    """ops arrays (``codec.packed.PackedOps.arrays()``: numpy columns, or
-    tensors) → :class:`NodeTable` on ``device`` (default: the card).
+                probe: Optional[int] = None):
+    """ops arrays (``codec.packed.PackedOps.columns()`` or ``arrays()``:
+    numpy columns, or tensors) → :class:`NodeTable` on ``device``
+    (default: the card).
 
     ``hints`` is the reference's hint policy: ``None``/``"auto"`` use the
     hints and verify them, falling back to the sort+join construction
     when any is wrong (so wrong hints cost time, never correctness);
     ``"exhaustive"`` trusts a vouched producer's hints and never runs the
-    sort or the join; ``"join"`` ignores hints.  ``probe=k`` (1-7, and
+    sort or the join: slot hints given are used as given, and those not
+    given are derived from the link and rank hints on the device
+    (``ops.slot_hints``), with the table the host-derived ones
+    (``arrays()``) give; ``"join"`` ignores hints.  ``probe=k`` (1-7, and
     the stage-5 sub-cuts 41-43) stops after stage k and returns the
-    reference's cumulative checksum instead of a table.
-
-    ``derive_hints=True`` (under ``"exhaustive"``, one document: the
-    replica engine's vouched bulk merge) takes columns without the slot
-    hints: the merge copies :data:`DERIVE_COLS`, derives the slot hints
-    on the device (``ops.slot_hints``) and takes the slot leg, with the
-    table ``arrays()``'s host-derived hints would give."""
+    reference's cumulative checksum instead of a table."""
     if hints not in HINT_MODES:
         raise ValueError(f"unknown hints mode {hints!r}; expected None, "
                          "'auto', 'exhaustive', or 'join'")
-    if derive_hints and (hints != "exhaustive" or ops["kind"].ndim != 1
-                         or not all(k in ops for k in DERIVE_COLS)):
-        raise ValueError("derive_hints takes one document's vouched "
-                         f"columns {DERIVE_COLS} under 'exhaustive'")
     return _materialize(ops, hints, resolve_device(device),
-                        host_no_deletes(ops["kind"]), probe,
-                        derive_hints=derive_hints)
+                        host_no_deletes(ops["kind"]), probe)
 
 
 @profiling.span("merge.materialize")
 def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
-                 no_deletes: bool, probe: Optional[int] = None, part=None,
-                 derive_hints: bool = False):
+                 no_deletes: bool, probe: Optional[int] = None, part=None):
     """The merge on ``dev`` with the no-deletes promise already checked
     (for a batch, in every document).  ``ops`` are one document's ``[N]``
     columns or a batch's ``[B, N]`` (``parallel.mesh``): a batch is ONE
     merge, one chain of dispatches and host reads, whose table carries
     the leading document axis.  ``part`` is the ops-axis partition
     context, which only ``parallel.opsaxis.materialize`` passes (one
-    document).  ``derive_hints``: see :func:`materialize`."""
+    document)."""
     from ..convert import ops_from_numpy
-    leg = "slot" if derive_hints else select_leg(ops, hints)
-    cols = DERIVE_COLS if derive_hints else LEG_COLS[leg]
+    leg = select_leg(ops, hints)
+    derive = _derives(ops, leg)
+    cols = LEG_COLS["rank" if derive else leg]
     with profiling.span("merge.h2d"):
         t_ops = ops_from_numpy({k: ops[k] for k in cols if k in ops}, dev)
-    if derive_hints:
+    if derive:
         t_ops.update(_derive_slot_hints(t_ops, no_deletes))
     kind = t_ops["kind"]
     n = kind.shape[-1]
@@ -1236,15 +1236,13 @@ def _materialize(ops: Dict, hints: Optional[str], dev: torch.device,
 
 def _derive_slot_hints(t_ops: Dict[str, torch.Tensor],
                        no_deletes: bool) -> Dict[str, torch.Tensor]:
-    """The slot-hint columns of one document's vouched columns, derived
-    on their device (span ``packed.slot_hints``, count
+    """The slot-hint columns of one document's or a batch's vouched
+    columns, derived on their device (span ``packed.slot_hints``, count
     ``merge.slot_hints_on_card``).  The crowd columns are derived only
-    where the merge would read them (no deletes, the compacted sibling
-    branch, ``GRAFT_CROWD_HINTS`` on), and kept only where their
-    verification holds: one counted read, and a refusal counted in
-    ``merge.crowd_hints_refused``."""
-    crowding = no_deletes and _compacted(t_ops["kind"].shape[-1]) and \
-        hostenv.flag_on("GRAFT_CROWD_HINTS")
+    where the merge would read them (:func:`_crowding`), and kept only
+    where their verification holds in every document: one counted read,
+    and a refusal counted in ``merge.crowd_hints_refused``."""
+    crowding = _crowding(t_ops["kind"].shape[-1], no_deletes)
     with profiling.span("packed.slot_hints"), chainaudit.hints():
         cols, ok = slot_hints.derive(t_ops, crowding)
         profiling.count("merge.slot_hints_on_card")

@@ -488,24 +488,19 @@ class LingerBatcher:
 
 
 def stack_packed(batches: Sequence[PackedOps]) -> Dict[str, np.ndarray]:
-    """Stack per-document packed ops into ``[B, N]`` arrays (N = max,
-    pad-extended; path planes widened to the widest depth bucket) for
-    :func:`batched_materialize`."""
+    """Stack per-document packed columns (``PackedOps.columns()``) into
+    ``[B, N]`` arrays (N = max, pad-extended; path planes widened to the
+    widest depth bucket) for :func:`batched_materialize`, whose
+    exhaustive merge derives the slot hints on its device."""
     n = max(p.capacity for p in batches)
     width = max(p.max_depth for p in batches)
     per = []
     for p in batches:
-        arrs = dict(p.arrays())
+        arrs = p.columns()
         if arrs["paths"].shape[1] < width:
             wide = np.zeros((arrs["paths"].shape[0], width),
                             dtype=arrs["paths"].dtype)
             wide[:, :arrs["paths"].shape[1]] = arrs["paths"]
             arrs["paths"] = wide
         per.append(packed_pad_arrays(arrs, n))
-    # derived slot-hint columns ride along only when EVERY document has
-    # them (arrays() omits them for unvouched batches; a mixed stack
-    # takes the gather-based resolution rather than trusting half)
-    keys = set(per[0])
-    for d in per[1:]:
-        keys &= set(d)
-    return {k: np.stack([d[k] for d in per]) for k in keys}
+    return {k: np.stack([d[k] for d in per]) for k in per[0]}

@@ -454,18 +454,12 @@ def enabled_for(n_ops: int) -> bool:
     return k >= 2 and n_ops >= route_min_ops() and n_ops % k == 0
 
 
-def routed_materialize(arrays: Dict, hints, device=None,
-                       derive_hints: bool = False) -> NodeTable:
+def routed_materialize(arrays: Dict, hints, device=None) -> NodeTable:
     """``merge.materialize`` or the sharded path, per :func:`enabled_for`:
-    the same columns and hint mode give the same table either way.
-    ``derive_hints``: the columns lack the slot hints, which the
-    single-device merge derives on the device (``merge.materialize``);
-    the caller has found the sharded route off for them."""
-    n = int(arrays["kind"].shape[0])
-    if not derive_hints and enabled_for(n):
+    the same columns and hint mode give the same table either way."""
+    if enabled_for(int(arrays["kind"].shape[0])):
         return materialize(arrays, hints=hints, device=device)
-    return merge_mod.materialize(arrays, hints=hints, device=device,
-                                 derive_hints=derive_hints)
+    return merge_mod.materialize(arrays, hints=hints, device=device)
 
 
 def stats() -> dict:

@@ -94,7 +94,7 @@ def run(out_path: str = None,
     ingest_flat_s = time.perf_counter() - t0
     p_flat = flat.packed_state()
     # first anti-entropy pull builds the full ts→pos index
-    engine.packed_since_bytes(p_flat, int(p.ts[n - 8]))
+    packed_mod.packed_since_bytes(p_flat, int(p.ts[n - 8]))
     untiered_resident = oplog_mod._packed_resident(p_flat)
 
     # -- tiered serving-shaped ingest (default knobs) ---------------------

@@ -72,7 +72,7 @@ from http.server import BaseHTTPRequestHandler as _BaseHandler
 from typing import Any, Deque, Dict, List, Optional, Set, Tuple
 
 from ..obs.trace import WATCH_EVENT_HEADER, WATCH_RESUME_HEADER
-from ..oplog import EMPTY_BATCH_BYTES
+from ..codec.packed import EMPTY_BATCH_BYTES
 from . import watch as watch_mod
 
 # reactor thread budget (GRAFT_REACTOR_THREADS): the whole point is a

@@ -54,6 +54,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import engine as engine_mod
+from ..codec import packed as packed_mod
 from ..oplog import LogView
 
 # default bounded window-LRU entries per published snapshot (the
@@ -371,7 +372,7 @@ class DocSnapshot:
     def ops_since_window(self, since: int, limit: int = 0):
         """Bounded resumable anti-entropy window off the pinned view:
         ``(wire_bytes, {"found", "more", "next_since", "count"})`` —
-        byte-identical to ``engine.packed_since_window`` over the
+        byte-identical to ``codec.packed.packed_since_window`` over the
         untiered full packing, at every tier seam (oplog.LogView
         window contract).  Served through the per-snapshot window LRU:
         the steady-state pull (every peer re-asking the same
@@ -412,7 +413,7 @@ class DocSnapshot:
     def ops_since_bytes(self, since: int) -> bytes:
         """Wire JSON for ``GET /ops?since=`` off the pinned view — the
         SAME egress bytes the live tree serves
-        (``engine.packed_since_bytes``): the view's descriptors and
+        (``codec.packed.packed_since_bytes``): the view's descriptors and
         indexes are immutable, so any number of readers can serve
         pulls concurrently while a merge (or a spill) is in flight.
         Deliberately NOT cached: the unbounded path is the one-shot
@@ -446,7 +447,7 @@ class DocSnapshot:
             "last_op_bare": False,
         }
         buf = io.BytesIO()
-        engine_mod.write_packed_npz(buf, p, meta, compress=compress)
+        packed_mod.write_packed_npz(buf, p, meta, compress=compress)
         return buf.getvalue()
 
     def __repr__(self) -> str:

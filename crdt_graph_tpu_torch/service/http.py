@@ -111,7 +111,7 @@ from ..obs.trace import (AE_LAG_HEADER, AE_PEER_HEADER,
                          WATCH_RESUME_HEADER, ensure_session_id,
                          ensure_trace_id, is_valid_id)
 from ..cluster.gateway import ForwardError
-from ..oplog import EMPTY_BATCH_BYTES
+from ..codec.packed import EMPTY_BATCH_BYTES
 from ..serve import (ECHO_LIMIT, QueueFull, SchedulerError,
                      SchedulerStopped, ServingEngine)
 from ..serve import watch as watch_mod
@@ -709,7 +709,7 @@ def make_handler(store: DocumentStore, max_body: int = DEFAULT_MAX_BODY):
                 # With ?limit= (anti-entropy pulls) the window is
                 # bounded + resumable and its state rides the
                 # X-Since-* headers — the body stays a plain wire
-                # batch either way (engine.packed_since_window)
+                # batch either way (codec.packed.packed_since_window)
                 try:
                     # zero-copy fast path: a catch-up
                     # window landing entirely on cold segments with

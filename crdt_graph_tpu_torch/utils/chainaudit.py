@@ -443,7 +443,7 @@ class ChainAudit:
     width_ref: int = 0
     compact_floor: int = 0
     # which sibling-crowding leg ran (``merge.crowding_hinted``: "hinted"
-    # = the host pre-pass columns replaced the count, "counted")
+    # = the crowd columns replaced the count, "counted")
     crowding_leg: str = ""
     legs: List[str] = dataclasses.field(default_factory=list)
     deletes: List[bool] = dataclasses.field(default_factory=list)
@@ -718,16 +718,17 @@ def audit_summary(ops: Dict[str, Any], hints: Optional[str],
 
 
 def audit_packed_summary(p, device=None) -> dict:
-    """The audit of one serving batch (a ``PackedOps``) in the hint mode
-    the engine elects for it (exhaustive for a vouched batch, verified
-    auto otherwise): the summary a sampled flight record carries when
-    the commit's own merge could not be audited (a grouped or remote
-    round)."""
+    """The audit of one serving batch (a ``PackedOps``) as the replica
+    engine merges it: its columns, in the hint mode the engine elects for
+    it (exhaustive for a vouched batch, which derives its slot hints on
+    the device; verified auto otherwise).  The summary a sampled flight
+    record carries when the commit's own merge could not be audited (a
+    grouped or remote round)."""
     from ..ops import merge
-    arrays = p.arrays()
+    cols = p.columns()
     hints = "exhaustive" if p.hints_vouched else None
-    return audit_summary(arrays, hints,
-                         merge.host_no_deletes(arrays["kind"]), device)
+    return audit_summary(cols, hints, merge.host_no_deletes(cols["kind"]),
+                         device)
 
 
 def _main(argv=None) -> int:  # pragma: no cover - CLI convenience

@@ -1,7 +1,7 @@
 """Per-document write-ahead log: crash-durable acked writes.
 
 The port of the reference package's ``wal`` (framework-free; its lazy
-imports point at this package's engine, codec and errors).  Records,
+imports point at this package's codec and errors).  Records,
 truncation and the crash sites are the reference's, byte for byte: a WAL
 written by either package replays into the other (pinned by
 tests/test_torch_wal.py).
@@ -17,7 +17,7 @@ released**, so the durable-ack contract holds at every kill point:
   by the payload, which is an 8-byte big-endian ``end_pos`` (the
   document's log length right after the commit — the truncation
   watermark) and the commit's applied ops as one uncompressed
-  packed-npz blob (``engine.write_packed_npz`` — the same column format
+  packed-npz blob (``codec.packed.write_packed_npz`` — the same format
   the cascade's cold segments use, so WAL replay and segment loads
   share one codec).
 - **group commit** — ``GRAFT_WAL_SYNC=batch`` (the default when a WAL
@@ -154,10 +154,10 @@ def _encode_payload(p, end_pos: int) -> bytes:
     """One commit's applied ops as the record payload (end_pos +
     uncompressed packed-npz — compression would put zlib on the ack
     path for a few hundred KB of columns)."""
-    from . import engine as engine_mod
+    from .codec import packed as packed_mod
     buf = io.BytesIO()
     buf.write(_POS.pack(end_pos))
-    engine_mod.write_packed_npz(
+    packed_mod.write_packed_npz(
         buf, p, {"num_ops": p.num_ops,
                  "hints_vouched": bool(p.hints_vouched)},
         compress=False)
@@ -184,7 +184,7 @@ def _encode_shared_payload(doc_id: str, p, end_pos: int) -> bytes:
     ``u16 doc_id_len | doc_id utf8 | u64 end_pos | packed npz`` — the
     doc id rides the record header so one file can carry every
     document's group commits (docs/DURABILITY.md §Shared WAL)."""
-    from . import engine as engine_mod
+    from .codec import packed as packed_mod
     did = doc_id.encode()
     if len(did) > 0xFFFF:
         raise ValueError(f"doc id too long for the WAL header: "
@@ -193,7 +193,7 @@ def _encode_shared_payload(doc_id: str, p, end_pos: int) -> bytes:
     buf.write(_DOC.pack(len(did)))
     buf.write(did)
     buf.write(_POS.pack(end_pos))
-    engine_mod.write_packed_npz(
+    packed_mod.write_packed_npz(
         buf, p, {"num_ops": p.num_ops,
                  "hints_vouched": bool(p.hints_vouched)},
         compress=False)

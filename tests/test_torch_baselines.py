@@ -25,7 +25,7 @@ from crdt_graph_tpu_torch.cluster.pool import ConnectionPool
 from crdt_graph_tpu_torch.codec import json_codec as tjson
 from crdt_graph_tpu_torch.core.operation import Add, Batch
 from crdt_graph_tpu_torch.obs import prom as tprom
-from crdt_graph_tpu_torch.oplog import EMPTY_BATCH_BYTES
+from crdt_graph_tpu_torch.codec.packed import EMPTY_BATCH_BYTES
 from crdt_graph_tpu_torch.serve import ServingEngine
 from crdt_graph_tpu_torch.service import make_server
 

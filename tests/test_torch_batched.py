@@ -324,13 +324,17 @@ BATCH_EXTRA_READS = 2
 def test_batch_of_eight_is_one_merge(hints):
     """A B = 8 batch makes one merge's dispatches and reads (within the
     stated constants of the costliest of its documents' own merges), not
-    eight times them; each kernel is one call."""
+    eight times them; each kernel is one call.  The columns carry no
+    slot hints, batch and singles alike: under "exhaustive" each merge
+    derives them on the device, the batch in one derivation."""
     stacked, aligned = tmesh.stack_aligned(
         [_vouched(_chain_cols(4 << i, 2048), 2048) for i in range(8)])
+    assert not set(tmerge.SLOT_HINTS) & set(stacked)
     cols = {k: stacked[k] for k in stacked
             if hints == "exhaustive" or k not in tmesh.POS_HINTS}
     batch = _audit(cols, hints)
-    singles = [_audit(p.arrays(), hints) for p in aligned]
+    singles = [_audit(p.columns(), hints) for p in aligned]
+    assert batch.derived == singles[0].derived == (hints == "exhaustive")
     assert batch.merges == 1 and batch.docs == [8]
     assert batch.device_ops <= max(s.device_ops for s in singles) + \
         BATCH_EXTRA_OPS

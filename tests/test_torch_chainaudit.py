@@ -33,7 +33,7 @@ from crdt_graph_tpu.ops import merge as jmerge  # noqa: E402
 from crdt_graph_tpu.utils import chainaudit as jaudit  # noqa: E402
 from crdt_graph_tpu.utils import profiling as jprof  # noqa: E402
 
-from crdt_graph_tpu_torch import convert, engine as tengine  # noqa: E402
+from crdt_graph_tpu_torch import convert  # noqa: E402
 from crdt_graph_tpu_torch.bench import loadgen as tloadgen  # noqa: E402
 from crdt_graph_tpu_torch.bench import runner as trunner  # noqa: E402
 from crdt_graph_tpu_torch.bench import workloads as tw  # noqa: E402
@@ -325,7 +325,7 @@ def test_audit_over_budget_counts_a_failure_and_dumps(tmp_path, monkeypatch):
     eng = ServingEngine(device="cpu", flight=rec)
     try:
         p = tw.chain_workload(64, 4096)
-        wire = tengine.packed_since_bytes(_packed(p, 4096), 0)
+        wire = tpacked.packed_since_bytes(_packed(p, 4096), 0)
         assert eng.submit("d", wire)[0]
         assert eng.flush(60)
     finally:
@@ -347,7 +347,7 @@ def test_sampled_commit_carries_its_own_merges_audit(scaled_caps):
     eng = ServingEngine(device="cpu", flight=rec)
     try:
         for doc in ("a", "b", "c"):
-            wire = tengine.packed_since_bytes(
+            wire = tpacked.packed_since_bytes(
                 _packed(tw.chain_workload(64, 4096), 4096), 0)
             assert eng.submit(doc, wire)[0]
             assert eng.flush(60)
@@ -375,7 +375,7 @@ def test_sampled_commits_on_a_document_with_deletes_pass(scaled_caps):
                                       200 * 2**32 + c - 1,), f"r{c}")
             for c in range(1, 4097)]
     try:
-        for wire in (tengine.packed_since_bytes(_packed(arrs, n), 0),
+        for wire in (tpacked.packed_since_bytes(_packed(arrs, n), 0),
                      tjson.dumps(top.Batch(tuple(adds)))):
             assert eng.submit("d", wire)[0]
             assert eng.flush(60)

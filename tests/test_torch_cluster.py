@@ -50,8 +50,8 @@ TIMING = {"Date", "Server", "X-Ae-Lag-Seconds"}
 
 TENGINE = types.SimpleNamespace(
     init=functools.partial(tengine.init, device="cpu"),
-    packed_since_window=tengine.packed_since_window,
-    packed_since_bytes=tengine.packed_since_bytes)
+    packed_since_window=tpacked.packed_since_window,
+    packed_since_bytes=tpacked.packed_since_bytes)
 
 
 @pytest.mark.parametrize("name,index",

@@ -369,8 +369,8 @@ def test_cuda_opsaxis_shards_on_distinct_cards(cuda, monkeypatch):
 
 # ---- kernel 4 and kernel 3 (the look-back scan) at their edges ----------
 
-# tokens per block of csrc/mono_gather.cu and of its staged variant
-# (csrc/variants/mono_gather_staged.cu)
+# one and two blocks' tokens of csrc/mono_gather.cu (1,024 a block): the
+# edges where a call's last block is full, one short or one over
 MG_TILES = (1024, 2048)
 
 

@@ -70,6 +70,55 @@ def test_imports_and_merges_with_jax_blocked():
     assert out.stdout.strip() == "['c', 'a', 'b']"
 
 
+def test_packed_formats_need_no_engine(tmp_path):
+    """The op log, the WAL and the merge tier's wire codec write and read
+    the packed formats (``codec.packed``) without the replica engine: with
+    the ``__init__`` of the package, of ``mergetier`` and of ``serve``
+    (which import the engine and the serving stack) left out and the
+    engine blocked, a WAL record and a merge request round-trip, a log
+    spills a cold segment, and its windows equal those of one
+    packing."""
+    stubs = {"crdt_graph_tpu_torch": str(PORT)}
+    for sub in ("mergetier", "serve"):
+        stubs[f"crdt_graph_tpu_torch.{sub}"] = str(PORT / sub)
+    code = (
+        "import sys, types\n"
+        f"for name, path in {stubs!r}.items():\n"
+        "    sys.modules[name] = types.ModuleType(name)\n"
+        "    sys.modules[name].__path__ = [path]\n"
+        "sys.modules['crdt_graph_tpu_torch.engine'] = None\n"
+        "from crdt_graph_tpu_torch import oplog, wal\n"
+        "from crdt_graph_tpu_torch.codec import packed\n"
+        "from crdt_graph_tpu_torch.core.operation import Add\n"
+        "from crdt_graph_tpu_torch.mergetier import wire\n"
+        "ops = [Add(2**32 + i, (2**32 + i - 1 if i > 1 else 0,), i)"
+        " for i in range(1, 41)]\n"
+        "p = packed.pack(ops)\n"
+        "end, q = wal._decode_payload(wal._encode_payload(p, 40))\n"
+        "assert end == 40 and q.num_ops == 40\n"
+        "r, meta = wire.decode_request(wire.encode_request('d', p, 40))\n"
+        "assert meta['doc_id'] == 'd' and r.num_ops == 40\n"
+        "log = oplog.OpLog(ops)\n"
+        f"log.enable_tiering({str(tmp_path)!r}, hot_ops=16)\n"
+        "log.maybe_spill()\n"
+        "assert log.spills >= 1\n"
+        "view = log.view()\n"
+        "full = view.to_packed()\n"
+        "for since in (0, ops[9].ts, ops[30].ts):\n"
+        "    assert view.window(since, 7) == "
+        "packed.packed_since_window(full, since, 7)\n"
+        "    assert view.since_bytes(since) == "
+        "packed.packed_since_bytes(full, since)\n"
+        "print(sorted(m for m in sys.modules"
+        " if m.startswith('crdt_graph_tpu_torch.engine')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['crdt_graph_tpu_torch.engine']"
+
+
 def test_engine_modules_import_and_run_with_jax_blocked():
     """The engine, the op log, the host mirror and the oracle import with
     ``jax`` and the reference package blocked, and a replica session runs

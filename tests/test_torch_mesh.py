@@ -156,12 +156,22 @@ def test_batches_mix_buckets_depths_and_deletes():
 
 @pytest.mark.parametrize("b", [1, 2, 4])
 def test_stack_packed_and_aligned_bit_identical(b):
+    """The port stacks each document's columns, which are the
+    reference's stack less the slot hints the port's merge derives on
+    its device: the same arrays, bit for bit."""
     jdocs, tdocs = _docs(b)
-    _assert_arrays_equal(jmesh.stack_packed(jdocs),
-                         tmesh.stack_packed(tdocs))
+
+    def columns(stacked):
+        assert set(stacked) - set(tdocs[0].columns()) <= \
+            set(tpacked.SLOT_HINT_COLS + tpacked.CROWD_HINT_COLS)
+        return {k: stacked[k] for k in tdocs[0].columns()}
+
+    ts = tmesh.stack_packed(tdocs)
+    assert set(ts) == set(tdocs[0].columns())
+    _assert_arrays_equal(columns(jmesh.stack_packed(jdocs)), ts)
     (js, jal), (ts, tal) = jmesh.stack_aligned(jdocs), \
         tmesh.stack_aligned(tdocs)
-    _assert_arrays_equal(js, ts)
+    _assert_arrays_equal(columns(js), ts)
     for jp, tp in zip(jal, tal):
         assert jp.capacity == tp.capacity == max(p.capacity for p in tdocs)
         _assert_arrays_equal(jp.arrays(), tp.arrays())
@@ -216,7 +226,8 @@ def test_materialize_each_equals_batched_slices(b):
 def test_exhaustive_hints_leg_equals_reference_and_join():
     _, tdocs = _docs(4)
     stacked, _ = tmesh.stack_aligned(tdocs)
-    assert set(tmerge.SLOT_HINTS + ("ts_rank",)) <= set(stacked)
+    # the slot hints are the merge's to derive, in one [B, N] call
+    assert "ts_rank" in stacked and not set(tmerge.SLOT_HINTS) & set(stacked)
     fast = tmesh.batched_materialize(stacked, device="cpu",
                                      exhaustive_hints=True)
     _assert_table_equal(_reference_batched(4, exhaustive=True), fast,

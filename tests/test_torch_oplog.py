@@ -173,10 +173,10 @@ def test_packed_since_off_a_packing_with_its_index_handed_over():
     assert isinstance(tp.ts_index, tpacked.TsIndex)
     for since in [0] + [op.ts for op in mixed] + [ts(5, 5)]:
         assert jengine.packed_since_bytes(jp, since) == \
-            tengine.packed_since_bytes(tp, since), since
+            tpacked.packed_since_bytes(tp, since), since
         for limit in (0, 3):
             assert jengine.packed_since_window(jp, since, limit) == \
-                tengine.packed_since_window(tp, since, limit), since
+                tpacked.packed_since_window(tp, since, limit), since
 
 
 def test_to_packed_matches():
@@ -237,12 +237,12 @@ def test_packed_since_window_matches_reference():
     tp = logs.t.to_packed(max_depth=4)
     for since in [0] + [op.ts for op in mixed] + [ts(5, 5)]:
         assert jengine.packed_since_bytes(jp, since) == \
-            tengine.packed_since_bytes(tp, since)
+            tpacked.packed_since_bytes(tp, since)
         for limit in (0, 2, 4, 5):
             s_j = s_t = since
             for _ in range(40):
                 bj, mj = jengine.packed_since_window(jp, s_j, limit)
-                bt, mt = tengine.packed_since_window(tp, s_t, limit)
+                bt, mt = tpacked.packed_since_window(tp, s_t, limit)
                 assert bj == bt and mj == mt, (since, limit)
                 if mj["next_since"] is not None:
                     s_j = s_t = mj["next_since"]

@@ -34,7 +34,7 @@ from crdt_graph_tpu.parallel import opsaxis as jopsaxis  # noqa: E402
 from crdt_graph_tpu.utils import jaxcompat  # noqa: E402
 
 import crdt_graph_tpu_torch as tc  # noqa: E402
-from crdt_graph_tpu_torch import convert, engine  # noqa: E402
+from crdt_graph_tpu_torch import convert  # noqa: E402
 from crdt_graph_tpu_torch.codec import packed as tpacked  # noqa: E402
 from crdt_graph_tpu_torch.ops import merge as tmerge  # noqa: E402
 from crdt_graph_tpu_torch.ops import tour_scan as tts  # noqa: E402
@@ -317,7 +317,7 @@ def _session(routed, monkeypatch):
             "table": {f: np.asarray(getattr(tab, f)) for f in tmerge.FIELDS},
             "mask": np.asarray(t.last_applied_mask),
             "values": t.visible_values(),
-            "windows": [engine.packed_since_window(p, s, 256)[0]
+            "windows": [tpacked.packed_since_window(p, s, 256)[0]
                         for s in (0, 5 * OFF + 1, 6 * OFF + 3, 7 * OFF + 900)],
         })
     return steps, opsaxis.stats()["merges"] - before

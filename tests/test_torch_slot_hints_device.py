@@ -1,7 +1,8 @@
 """The slot hints derived on the device (``ops.slot_hints.derive``)
 against their host statement (``codec.packed.derive_slot_hints``), and
-the replica engine's bulk merge that derives them after the copy against
-the merge of ``arrays()``'s host-derived columns.
+the merges that derive them (the replica engine's bulk merge, a batch of
+documents, the ops-axis merge) against the merge of ``arrays()``'s
+host-derived columns.
 
 Every column must be equal, dtype included; where the NumPy crowding
 pre-pass returns None, the device's verification must read false.  The
@@ -26,6 +27,8 @@ from crdt_graph_tpu_torch.codec import packed as tpacked
 from crdt_graph_tpu_torch.core.operation import Add
 from crdt_graph_tpu_torch.ops import merge as tmerge
 from crdt_graph_tpu_torch.ops import slot_hints
+from crdt_graph_tpu_torch.parallel import mesh as tmesh
+from crdt_graph_tpu_torch.parallel import opsaxis
 from crdt_graph_tpu_torch.utils import profiling as tprof
 
 torch.set_num_threads(1)
@@ -99,9 +102,12 @@ def _counted(recs, name):
     return sum(r["counts"].get(name, 0) for r in recs)
 
 
+def _source(cols):
+    return {k: v for k, v in cols.items() if k in slot_hints.SOURCE_COLS}
+
+
 def _compare(p, device):
-    src = {k: v for k, v in p.columns().items()
-           if k in slot_hints.SOURCE_COLS}
+    src = _source(p.columns())
     want = tpacked.derive_slot_hints(src)
     t = convert.ops_from_numpy(src, device)
     for crowding in (True, False):
@@ -110,19 +116,55 @@ def _compare(p, device):
             assert bool(ok) == ("crowd_slot" in want)
         else:
             assert ok is None
-        keys = [k for k in want if crowding or k in tpacked.SLOT_HINT_COLS]
-        if not ok:
-            keys = [k for k in keys if k not in tpacked.CROWD_HINT_COLS]
-        assert set(tpacked.SLOT_HINT_COLS) <= set(keys)
-        for k in keys:
-            g = got[k].cpu().numpy()
-            assert g.dtype == want[k].dtype, k
-            np.testing.assert_array_equal(g, want[k], err_msg=k)
+        _assert_hints_equal({k: v.cpu().numpy() for k, v in got.items()},
+                            want, crowding and bool(ok))
     return want
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+def _assert_hints_equal(got, want, crowd):
+    """``got`` holds ``want``'s slot-hint columns, and its crowd columns
+    where ``crowd``, dtype for dtype."""
+    keys = [k for k in want if crowd or k in tpacked.SLOT_HINT_COLS]
+    assert set(tpacked.SLOT_HINT_COLS) <= set(keys)
+    for k in keys:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _batch(names, device):
+    """The ``[B, N]`` derivation of ``stack_packed``'s columns of the
+    named cases (each re-padded to the widest capacity and depth) against
+    each document's own: row b equals document b's host derivation; the
+    crowd columns ride, and equal each document's, only where every
+    document verifies."""
+    aligned = tmesh.stack_aligned([CASES[c]() for c in names])[1]
+    stacked = tmesh.stack_packed(aligned)
+    width = stacked["paths"].shape[-1]
+    got, ok = slot_hints.derive(
+        convert.ops_from_numpy(_source(stacked), device), True)
+    wants = []
+    for p in aligned:
+        src = _source(p.columns())
+        wide = np.zeros(src["paths"].shape[:1] + (width,), np.int64)
+        wide[:, :src["paths"].shape[1]] = src["paths"]
+        wants.append(tpacked.derive_slot_hints(dict(src, paths=wide)))
+    assert bool(ok) == all("crowd_slot" in w for w in wants)
+    for b, want in enumerate(wants):
+        _assert_hints_equal({k: v[b].cpu().numpy() for k, v in got.items()},
+                            want, bool(ok))
+    return bool(ok)
+
+
+# documents derived as one [B, N] batch: each verifies, or one does not
+BATCHES = {"batch_verifies": ("nested8", "dup_union", "chain65536"),
+           "batch_one_refuses": ("dup_union", "prefix_mismatch", "nested8")}
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(BATCHES))
 def test_device_columns_equal_the_host_derivation(case):
+    if case in BATCHES:
+        assert _batch(BATCHES[case], "cpu") == (case == "batch_verifies")
+        return
     p = CASES[case]()
     want = _compare(p, "cpu")
     assert ("crowd_slot" in want) == (case in CROWD_VERIFIES)
@@ -147,8 +189,9 @@ def test_engine_merge_equals_the_merge_of_host_hints(case, s_cap,
 
     def spy(ops, sel, no_deletes, *a, **k):
         # the fused slot leg; the crowd columns replace a sibling count
-        seen.append((sel[2] is None, tmerge._crowd_cols(ops, no_deletes)
-                     and tmerge._compacted(ops["kind"].shape[-1])))
+        seen.append((sel[2] is None, sel[2] is None and tmerge._crowding(
+            ops["kind"].shape[-1], no_deletes) and all(
+                k in ops for k in tpacked.CROWD_HINT_COLS)))
         return finish(ops, sel, no_deletes, *a, **k)
 
     monkeypatch.setattr(tmerge, "_finish", spy)
@@ -179,23 +222,79 @@ def test_engine_merge_equals_the_merge_of_host_hints(case, s_cap,
     assert seen[0][1] == tmerge.crowding_hinted(arrs, "exhaustive", no_del)
     counted = {name: _counted(recs, name) for name in
                ("merge.slot_hints_on_card", "merge.crowd_hints_refused")}
-    derived = no_del and tmerge._compacted(cand.capacity)
+    derived = tmerge._crowding(cand.capacity, no_del)
     refused = derived and "crowd_slot" not in arrs
     assert counted == {"merge.slot_hints_on_card": 1,
                        "merge.crowd_hints_refused": int(refused)}
     tprof.reset_spans()
 
 
-def test_derive_hints_takes_only_vouched_single_documents():
-    p = CASES["dup_union"]()
-    cols = p.columns()
-    for bad in (dict(hints=None), dict(hints="auto")):
-        with pytest.raises(ValueError):
-            tmerge.materialize(cols, device="cpu", derive_hints=True, **bad)
-    no_rank = {k: v for k, v in cols.items() if k != "ts_rank"}
-    with pytest.raises(ValueError):
-        tmerge.materialize(no_rank, "exhaustive", device="cpu",
-                           derive_hints=True)
+def _assert_tables_equal(got, want, tag):
+    """Field for field; a batch's wider path plane holds zeros past
+    the document's own."""
+    for f in tmerge.FIELDS:
+        g, w = got[f], want[f]
+        if f == "paths":
+            assert not g[:, w.shape[1]:].any(), tag
+            g = g[:, :w.shape[1]]
+        assert g.dtype == w.dtype, (tag, f)
+        np.testing.assert_array_equal(g, w, err_msg=f"{tag} {f}")
+
+
+# the documents of the batch case, each merged alone for its want
+BATCH_DOCS = ("dup_union", "nested8", "non_causal", "deletes")
+CHOICES = ("one_document", "given_hints", "batch_of_4", "opsaxis_k2",
+           "auto", "no_rank")
+
+
+@pytest.mark.parametrize("choice", CHOICES)
+def test_merge_derives_the_slot_hints_it_lacks(choice, monkeypatch):
+    """The merge's own choice of leg and derivation: under "exhaustive"
+    the link and rank hints take the slot leg, and the merge derives the
+    slot hints on its device once (a batch's in one ``[B, N]``
+    derivation, the ops-axis merge's before its sharded stages) only
+    where they are not given; "auto" takes the rank leg and columns
+    without ranks the link leg, neither deriving.  Each table equals the
+    exhaustive merge of ``arrays()``'s host-derived hints."""
+    derived, legs = [], []
+    derive, resolve = slot_hints.derive, tmerge._resolve
+    monkeypatch.setattr(
+        slot_hints, "derive", lambda cols, crowding: derived.append(
+            tuple(cols["kind"].shape)) or derive(cols, crowding))
+    monkeypatch.setattr(
+        tmerge, "_resolve", lambda ops, hints, leg, part=None: legs.append(
+            leg) or resolve(ops, hints, leg, part))
+    docs = [CASES["nested8"]()]
+    if choice == "batch_of_4":
+        docs = tmesh.stack_aligned([CASES[c]() for c in BATCH_DOCS])[1]
+    wants = [convert.table_to_numpy(tmerge.materialize(
+        p.arrays(), "exhaustive", device="cpu")) for p in docs]
+    assert derived == [] and set(legs) == {"slot"}
+    legs.clear()
+    p, n = docs[0], docs[0].capacity
+    if choice == "batch_of_4":
+        btab = tmesh.batched_materialize(tmesh.stack_packed(docs),
+                                         device="cpu", exhaustive_hints=True)
+        gots = [convert.table_to_numpy(tmesh.doc_table(btab, i))
+                for i in range(len(docs))]
+        expect = (["slot"], [(len(docs), n)])
+    elif choice == "opsaxis_k2":
+        gots = [convert.table_to_numpy(opsaxis.materialize(
+            p.columns(), k=2, hints="exhaustive", device="cpu"))]
+        expect = (["slot"], [(n,)])
+    else:
+        no_rank = {k: v for k, v in p.columns().items() if k != "ts_rank"}
+        cols, hints, expect = {
+            "one_document": (p.columns(), "exhaustive", (["slot"], [(n,)])),
+            "given_hints": (p.arrays(), "exhaustive", (["slot"], [])),
+            "auto": (p.columns(), "auto", (["rank"], [])),
+            "no_rank": (no_rank, "exhaustive", (["link"], [])),
+        }[choice]
+        gots = [convert.table_to_numpy(
+            tmerge.materialize(cols, hints, device="cpu"))]
+    assert (legs, derived) == expect
+    for i, (got, want) in enumerate(zip(gots, wants)):
+        _assert_tables_equal(got, want, f"{choice} doc {i}")
 
 
 def test_unvouched_packing_keeps_the_verified_mode(monkeypatch):
@@ -229,15 +328,30 @@ def test_card_columns_equal_the_host_derivation(case, cuda):
 
 
 @pytest.mark.cuda
-def test_card_columns_at_the_catchup_capacity(cuda):
+@pytest.mark.parametrize("replicas", [(64,), (64, 48)],
+                         ids=["one_document", "batch_of_2"])
+def test_card_columns_at_the_catchup_capacity(replicas, cuda):
     """Config 5's 1M ops padded to 2,097,152 rows, as the catch-up
-    cell's candidate sets are."""
-    arrs = tw.chain_workload(64, 1_000_000)
-    arrs = tpacked.pad_arrays(
-        {k: arrs[k] for k in tpacked.PackedOps.__dataclass_fields__
-         if k in arrs}, 1 << 21)
-    want = _compare(_vouched(arrs), cuda)
-    assert "crowd_slot" in want
+    cell's candidate sets are; and a batch of two such documents (64 and
+    48 replicas' chains), derived as one ``[2, N]`` call."""
+    docs = []
+    for r in replicas:
+        arrs = tw.chain_workload(r, 1_000_000)
+        docs.append(tpacked.pad_arrays(
+            {k: arrs[k] for k in tpacked.PackedOps.__dataclass_fields__
+             if k in arrs}, 1 << 21))
+    if len(docs) == 1:
+        want = _compare(_vouched(docs[0]), cuda)
+        assert "crowd_slot" in want
+        return
+    src = {k: np.stack([_source(d)[k] for d in docs])
+           for k in slot_hints.SOURCE_COLS}
+    got, ok = slot_hints.derive(convert.ops_from_numpy(src, cuda), True)
+    assert bool(ok)
+    for b, d in enumerate(docs):
+        want = tpacked.derive_slot_hints(_source(d))
+        _assert_hints_equal({k: v[b].cpu().numpy() for k, v in got.items()},
+                            want, True)
 
 
 def test_audit_holds_the_derivation_apart_and_to_its_budget(monkeypatch):

@@ -229,9 +229,11 @@ def test_h2d_bytes_are_the_columns_the_leg_sends(replica):
     t, delta = replica
     cand = tpacked.concat(t.packed_state(), delta)
     assert tengine._mode(cand) == "exhaustive"
-    # the link and rank columns: the slot hints are derived after the copy
+    # the link and rank columns (the rank leg's): the slot leg derives
+    # the slot hints it is not given after the copy
     cols = cand.columns()
-    sent = sum(cols[k].nbytes for k in tmerge.DERIVE_COLS)
+    assert tmerge.select_leg(cols, tengine._mode(cand)) == "slot"
+    sent = sum(cols[k].nbytes for k in tmerge.LEG_COLS["rank"])
     arrs = cand.arrays()
     assert sent < sum(arrs[k].nbytes for k in tmerge.LEG_COLS["slot"])
     tprof.reset_spans()

@@ -153,7 +153,7 @@ def test_window_bytes_and_meta_identical_at_every_seam(tmp_path):
     adds = [op.ts for op in applied if isinstance(op, Add)]
     for since in [0] + adds[::2] + adds[-2:]:
         for limit in (0, 1, 3, 5, 8, 16, 1000):
-            want = tengine.packed_since_window(p, since, limit)
+            want = tpacked.packed_since_window(p, since, limit)
             got = view.window(since, limit)
             assert got == want, (since, limit)
             assert got == jview.window(since, limit), (since, limit)
@@ -161,7 +161,7 @@ def test_window_bytes_and_meta_identical_at_every_seam(tmp_path):
     assert not meta["found"]
     for since in [0] + adds[::2]:
         assert view.since_bytes(since) == \
-            tengine.packed_since_bytes(p, since) == \
+            tpacked.packed_since_bytes(p, since) == \
             jview.since_bytes(since), since
 
 
@@ -207,7 +207,7 @@ def test_window_chain_stable_across_concurrent_spill_and_gc(tmp_path):
                 return out
         raise AssertionError("chain did not terminate")
 
-    want = pull_chain(lambda s: tengine.packed_since_window(p, s, 7))
+    want = pull_chain(lambda s: tpacked.packed_since_window(p, s, 7))
     got, since, step = [], 0, 0
     while True:
         body, meta = view.window(since, 7)
@@ -390,7 +390,7 @@ def test_base_chunks_window_identity_at_chunk_seams(tmp_path):
     for since in [0] + adds + adds[-2:]:
         for limit in (0, 1, 3, 8, 16, 17, 1000):
             assert view.window(since, limit) == \
-                tengine.packed_since_window(p, since, limit), \
+                tpacked.packed_since_window(p, since, limit), \
                 (since, limit)
 
 
@@ -478,7 +478,7 @@ def _flip_byte(path):
 def test_verify_packed_npz_catches_flips(tmp_path):
     p = tpacked.pack(port([Add(ts(1, c), (0,), c) for c in range(1, 9)]))
     path = str(tmp_path / "seg.npz")
-    tengine.write_packed_npz(path, p, {"num_ops": p.num_ops})
+    tpacked.write_packed_npz(path, p, {"num_ops": p.num_ops})
     assert tpacked.verify_packed_npz(path) is None
     assert tpacked.verify_packed_npz(path, expect_ops=p.num_ops) is None
     assert tpacked.verify_packed_npz(path, expect_ops=99)

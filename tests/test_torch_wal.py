@@ -46,10 +46,13 @@ from crdt_graph_tpu_torch.ops import merge as tmerge  # noqa: E402
 
 OFF = 2**32
 
+# ``egress``: the module of each package that serves the anti-entropy
+# window off one packing
 J = types.SimpleNamespace(name="jax", engine=jengine, wal=jwal,
-                          packed=jpacked, dev={})
+                          packed=jpacked, egress=jengine, dev={})
 T = types.SimpleNamespace(name="torch", engine=tengine, wal=twal,
-                          packed=tpacked, dev={"device": "cpu"})
+                          packed=tpacked, egress=tpacked,
+                          dev={"device": "cpu"})
 
 
 @pytest.fixture(autouse=True)
@@ -127,10 +130,10 @@ def windows_match_untiered(pkg, tree, sinces=(0,), limits=(0, 7)):
         for limit in limits:
             if limit:
                 assert view.window(since, limit) == \
-                    pkg.engine.packed_since_window(full, since, limit)
+                    pkg.egress.packed_since_window(full, since, limit)
             else:
                 assert view.since_bytes(since) == \
-                    pkg.engine.packed_since_bytes(full, since)
+                    pkg.egress.packed_since_bytes(full, since)
 
 
 # -- raw WAL format + corruption taxonomy ----------------------------------

@@ -16,6 +16,7 @@ the reference's metric families.
 import functools
 import shutil
 import threading
+import types
 
 import pytest
 
@@ -47,10 +48,15 @@ OFF = 2**32
 JOIN_S = 30.0
 PORT_ENGINE = functools.partial(ServingEngine, device="cpu")
 
+# the reference's ``engine`` module as the port lays it out: the replica
+# engine, with the anti-entropy egress that lives in ``codec.packed``
+ENGINE_NS = types.SimpleNamespace(**{
+    **vars(tengine), "packed_since_window": tpacked.packed_since_window,
+    "packed_since_bytes": tpacked.packed_since_bytes})
 WAL_NAMES = (
     ("ServingEngine", PORT_ENGINE), ("SchedulerStopped", SchedulerStopped),
     ("WalUnavailable", WalUnavailable), ("wal_mod", twal),
-    ("json_codec", tjson), ("packed_mod", tpacked), ("engine", tengine),
+    ("json_codec", tjson), ("packed_mod", tpacked), ("engine", ENGINE_NS),
     ("Add", Add), ("Batch", Batch), ("Delete", Delete),
     ("flight_mod", tflight), ("oracle_mod", toracle), ("prom_mod", tprom))
 
