@@ -56,7 +56,10 @@ single most expensive stage on v5e.  Advisory like link hints: the
 kernel re-derives the invariants on device (dense used-slot prefix,
 strictly increasing slot timestamps, every add ranked, duplicate
 timestamps agreeing) and any violation sends the whole batch down the
-sort path, so wrong ranks cost speed, never correctness.
+sort path, so wrong ranks cost speed, never correctness.  On the host a
+rank is sorted only once: a union's rank (:func:`concat_many`) and a
+part's timestamp index (:meth:`PackedOps.index`) read the order from
+the parts' ``ts_rank`` where an O(n) check proves it the adds' rank.
 """
 from __future__ import annotations
 
@@ -170,12 +173,26 @@ class PackedOps:
         }
 
     def index(self) -> "TsIndex":
-        """ts → first add batch position (built once, then cached)."""
+        """ts → first add batch position (built once, then cached): from
+        the adds' ``ts_rank`` where :func:`_rank_keys` proves it their
+        rank, else by a sort (also where an add has ``ts <= 0``: the
+        index holds it, the rank does not)."""
         if self.ts_index is None:
             with profiling.span("packed.ts_index"):
                 add_rows = _add_rows(self.kind, self.num_ops)
                 profiling.count("packed.index_rows", int(add_rows.size))
-                self.ts_index = TsIndex.of_adds(self.ts, add_rows)
+                add_ts = self.ts[add_rows]
+                rank = self.ts_rank[add_rows].astype(np.intp)
+                keys = None
+                if not add_ts.size or add_ts.min() > 0:
+                    keys = _rank_keys(add_ts, rank, _ONE_RUN)
+                if keys is None:
+                    profiling.count("packed.rank_resorted",
+                                    int(add_rows.size))
+                    self.ts_index = TsIndex.of_adds(self.ts, add_rows)
+                else:
+                    profiling.count("packed.rank_reused", int(add_rows.size))
+                    self.ts_index = TsIndex.of_rank(keys, rank, add_rows)
         return self.ts_index
 
 
@@ -211,6 +228,22 @@ class TsIndex:
             keys = keys[starts]
             rows = np.minimum.reduceat(rows, starts)
         return cls(keys, rows)
+
+    @classmethod
+    def of_rank(cls, keys: np.ndarray, rank: np.ndarray,
+                rows: np.ndarray) -> "TsIndex":
+        """The index of the adds at ``rows`` (ascending) from their
+        timestamps' ``rank`` among ``keys`` (:func:`_rank_keys`), with no
+        sort: each key's first row by a scatter."""
+        first = np.empty(keys.size, dtype=np.int64)
+        first[rank] = rows
+        if keys.size < rows.size:
+            # duplicate timestamps: which of a rank's rows the scatter
+            # left is unspecified, so take each duplicated rank's smallest
+            dup = np.bincount(rank, minlength=keys.size)[rank] > 1
+            first[rank[dup]] = _I64_MAX
+            np.minimum.at(first, rank[dup], rows[dup])
+        return cls(keys, first)
 
     def __len__(self) -> int:
         return int(self.keys.size)
@@ -259,6 +292,101 @@ def compute_ts_rank(kind: np.ndarray, ts: np.ndarray) -> np.ndarray:
         _, inv = np.unique(ts[add_rows], return_inverse=True)
         rank[add_rows] = inv.astype(np.int32)
     return rank
+
+
+_ONE_RUN = np.zeros(1, dtype=np.intp)
+
+
+def _rank_keys(ts: np.ndarray, rank: np.ndarray,
+               runs: np.ndarray) -> Optional[np.ndarray]:
+    """The ascending unique values of each run of ``ts`` (all positive),
+    side by side, from each value's claimed ``rank``: its rank among its
+    run's values plus the run's first position (``runs``, ascending), by
+    one scatter ``keys[rank] = ts``.  None unless the scatter proves
+    the keys: every position held, the keys strictly increasing within
+    each run, and every row's key its value, so that each rank names its
+    value's position (for one run, ``compute_ts_rank``'s rank).  An O(n)
+    proof, no sort."""
+    if not rank.size:
+        return np.zeros(0, dtype=np.int64)
+    top = int(rank.max())
+    if rank.min() < 0 or top >= rank.size:
+        return None
+    keys = np.zeros(top + 1, dtype=np.int64)
+    keys[rank] = ts
+    # a position no row holds keeps its 0, below every value here: keys
+    # that start each run above 0 and increase through it hold them all
+    starts = runs[runs <= top]
+    up = keys[1:] > keys[:-1]
+    up[starts[starts > 0] - 1] = True
+    if not up.all() or (keys[starts] <= 0).any():
+        return None
+    if not np.array_equal(keys[rank], ts):
+        return None
+    return keys
+
+
+def _union_rank(out: PackedOps, bases: List[int]) -> None:
+    """Turn ``out.ts_rank`` (each part's own rank, copied with its rows
+    from ``bases``) into the rank ``compute_ts_rank`` gives the union,
+    with no sort of the timestamps: the parts' ascending unique
+    timestamps laid side by side from their ranks (:func:`_rank_keys`),
+    merged (:func:`_merged_ranks`), and each row's rank gathered through
+    its part's.  The same few passes for any number of parts.  Where a
+    part's rank fails the proof, the union is sorted as
+    ``compute_ts_rank`` does."""
+    n = out.num_ops
+    ranked = (out.kind[:n] == KIND_ADD) & (out.ts[:n] > 0)
+    own = out.ts_rank[:n].astype(np.intp)
+    own[~ranked] = -1
+    # each part's run of keys starts where the runs before it end
+    runs = np.zeros(len(bases), dtype=np.intp)
+    np.cumsum(np.maximum.reduceat(own, bases)[:-1] + 1, out=runs[1:])
+    own += np.repeat(runs, np.diff(bases + [n]))
+    rows = slice(0, n) if ranked.all() else np.flatnonzero(ranked)
+    ts, claimed = out.ts[rows], own[rows]
+    keys = _rank_keys(ts, claimed, runs)
+    if keys is None:
+        profiling.count("packed.rank_resorted", int(ts.size))
+        _, rank = np.unique(ts, return_inverse=True)
+    else:
+        profiling.count("packed.rank_reused", int(ts.size))
+        rank = _merged_ranks(keys, runs)[claimed]
+    out.ts_rank[:n] = -1
+    out.ts_rank[rows] = rank
+
+
+def _merged_ranks(keys: np.ndarray, runs: np.ndarray) -> np.ndarray:
+    """Each of ``keys``' positions' rank among its distinct values, where
+    the keys ascend within each run (first positions ``runs``).  Two
+    runs, a state and its delta, merge in O(n) by one ``searchsorted``
+    of the shorter into the longer; more runs by one stable sort, which
+    finds the runs in order and merges them."""
+    to_u = np.empty(keys.size, dtype=np.intp)
+    if runs.size > 2:
+        order = np.argsort(keys, kind="stable")
+        merged = keys[order]
+        fresh = np.empty(merged.size, dtype=np.intp)
+        fresh[:1] = 1
+        np.not_equal(merged[1:], merged[:-1], out=fresh[1:])
+        to_u[order] = np.cumsum(fresh) - 1
+        return to_u
+    cut = int(runs[1])
+    a, b = (keys[:cut], to_u[:cut]), (keys[cut:], to_u[cut:])
+    (big, big_u), (small, small_u) = (a, b) if cut >= b[0].size else (b, a)
+    below = np.searchsorted(big, small)      # big's keys below each small
+    if big.size:
+        fresh = big[np.minimum(below, big.size - 1)] != small
+    else:
+        fresh = np.ones(small.size, dtype=bool)
+    # a small key sits above its big keys and the fresh small keys
+    # before it (a key both hold takes one position); the big keys, in
+    # order, take the positions no fresh small key takes
+    np.subtract(below + np.cumsum(fresh), fresh, out=small_u)
+    held = np.ones(big.size + int(np.count_nonzero(fresh)), dtype=bool)
+    held[small_u[fresh]] = False
+    big_u[:] = np.flatnonzero(held)
+    return to_u
 
 
 @profiling.span("packed.slot_hints")
@@ -833,7 +961,9 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
     the kernel verifies ``ts[hint] == want`` and elects the canonical
     duplicate itself — so cross-part duplicate timestamps need no
     special casing; probing in part order keeps the deterministic
-    first-part-wins choice anyway."""
+    first-part-wins choice anyway.  The union's ``ts_rank`` is merged
+    from the parts' (:func:`_union_rank`), not sorted again; nothing
+    new is cached on the parts, and the union has no ``ts_index``."""
     parts = [p for p in parts if p.num_ops]
     if not parts:
         return pack([])
@@ -853,7 +983,8 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
             paths=np.zeros((cap, width), dtype=np.int64),
             value_ref=np.full(cap, -1, dtype=np.int32),
             pos=np.arange(cap, dtype=np.int32),
-            values=values, num_ops=n)
+            values=values, num_ops=n,
+            ts_rank=np.full(cap, -1, dtype=np.int32))
 
         bases: List[int] = []
         b = 0
@@ -866,7 +997,8 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
         open_refs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         for p, base in zip(parts, bases):
             k = p.num_ops
-            for name in ("kind", "ts", "parent_ts", "anchor_ts", "depth"):
+            for name in ("kind", "ts", "parent_ts", "anchor_ts", "depth",
+                         "ts_rank"):
                 getattr(out, name)[base:base + k] = getattr(p, name)[:k]
             out.paths[base:base + k, :p.max_depth] = p.paths[:k]
             shifted = p.value_ref[:k].copy()
@@ -896,7 +1028,8 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
         if n_open:
             _resolve(open_refs, parts, bases)
 
-        out.ts_rank = compute_ts_rank(out.kind, out.ts)
+        with profiling.span("packed.ts_rank"):
+            _union_rank(out, bases)
         out.hints_vouched = all(p.hints_vouched for p in parts)
         return out
 

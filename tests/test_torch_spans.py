@@ -171,16 +171,45 @@ def test_index_counters_count_the_base_adds_and_the_chain_heads(replica):
         _step(t, delta)
     recs = tprof.span_log()["records"]
     (index,) = [r for r in recs if r["name"] == "packed.ts_index"]
-    assert index["counts"] == {"packed.index_rows": CHAINS * BASE}
+    assert index["counts"] == {"packed.index_rows": CHAINS * BASE,
+                               "packed.rank_reused": CHAINS * BASE}
     (concat,) = [r for r in recs if r["name"] == "packed.concat"]
     assert concat["counts"] == {"packed.index_lookups": CHAINS}
     counted = collections.Counter()
     for r in recs:
         counted.update(r["counts"])
     assert set(counted) == {"packed.index_rows", "packed.index_lookups",
-                            "convert.h2d_bytes", "merge.slot_hints_on_card"}
+                            "packed.rank_reused", "convert.h2d_bytes",
+                            "merge.slot_hints_on_card"}
     assert counted["packed.index_rows"] == CHAINS * BASE
     assert counted["packed.index_lookups"] == CHAINS
+
+
+def test_the_step_takes_its_order_from_the_parts_ranks(replica):
+    """A catch-up step of a valid state and delta sorts nothing again:
+    the index reuses the state's rank, the union's rank reuses both
+    parts', and the union's rank is the sort's."""
+    t, delta = replica
+    seen = []
+    prepare = t.prepare_packed
+
+    def spy(pnew):
+        seen.append(prepare(pnew))
+        return seen[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t, "prepare_packed", spy)
+        with profile(activities=[ProfilerActivity.CPU]):
+            _step(t, delta)
+    (out,) = seen
+    assert out.num_ops == CHAINS * (BASE + DELTA)
+    np.testing.assert_array_equal(
+        out.ts_rank, tpacked.compute_ts_rank(out.kind, out.ts))
+    recs = tprof.span_log()["records"]
+    (rank,) = [r for r in recs if r["name"] == "packed.ts_rank"]
+    assert rank["counts"] == {
+        "packed.rank_reused": CHAINS * (BASE + DELTA)}
+    assert not any("packed.rank_resorted" in r["counts"] for r in recs)
 
 
 @pytest.mark.parametrize("s_cap", [None, "1024"])
