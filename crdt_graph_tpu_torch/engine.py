@@ -45,13 +45,16 @@ with ``GRAFT_OPSAXIS=1`` on a host with two or more cards a large merge
 is sharded across them with the same table; otherwise (the default, and
 always on one card) the merge is the single-device ``materialize``,
 which derives a vouched packing's slot hints on the device after the
-copy (``ops.slot_hints``).
+copy (``ops.slot_hints``).  :func:`apply_packed_grouped` catches several
+replicas up in one batched merge over a document axis
+(``parallel.mesh``), the serving scheduler's cross-document round.
 """
 from __future__ import annotations
 
 import json
 import os
 import struct
+import time
 import zipfile
 import zlib
 from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
@@ -63,14 +66,15 @@ from .codec import packed as packed_mod
 from .codec.packed import DEFAULT_MAX_DEPTH, PackedOps
 from .core import operation as op_mod
 from .core import timestamp as ts_mod
-from .core.errors import (CheckpointError, InvalidPathError, NotFound,
-                          OperationFailedError)
+from .core.errors import (CheckpointError, CRDTError, InvalidPathError,
+                          NotFound, OperationFailedError)
 from .core.operation import Add, Batch, Delete, Operation
 from .host_tree import NIL, HostTree
 from .oplog import OpLog, PackedBatch, ViewSpanBatch
 from .ops import merge as merge_mod
 from .ops import view as view_mod
 from .ops.merge import APPLIED, INVALID_PATH, NOT_FOUND, NodeTable
+from .parallel import mesh as mesh_mod
 from .parallel import opsaxis
 from .utils import profiling
 
@@ -1533,6 +1537,98 @@ class TpuTree:
         elif last_op is not None:
             tree._last_operation = last_op
         return tree
+
+
+def _finish_each(i: int, commit: Callable[[], None]) -> None:
+    """:func:`apply_packed_grouped`'s default stand around a commit: a
+    rejected delta is the document's own entry, never the caller's
+    exception."""
+    try:
+        commit()
+    except CRDTError:
+        pass
+
+
+def apply_packed_grouped(trees: Sequence[TpuTree],
+                         deltas: Sequence[PackedOps],
+                         times: Optional[dict] = None,
+                         each: Callable[[int, Callable[[], None]],
+                                        None] = _finish_each
+                         ) -> List[Optional[CRDTError]]:
+    """Catch several replicas up in one merge: one packed delta a tree,
+    merged as ONE batched merge over a leading document axis on the
+    trees' device (the serving scheduler's cross-document round).
+
+    Each tree's candidate set (:meth:`TpuTree.prepare_packed`) is
+    re-padded to the batch's shared capacity and stacked
+    (``parallel.mesh.stack_aligned``), the stack is merged by
+    ``mesh.batched_materialize`` on the join leg (the batched body drops
+    the position hints), and each tree commits against its own slice of
+    the one table (:meth:`TpuTree.finish_packed` on ``mesh.doc_table``),
+    in order.  A document's slice is the merge of its own op set alone.
+
+    Returns one entry per tree: None when it committed, or the
+    :class:`CRDTError` its commit raised, which leaves that tree
+    untouched while the others still commit.  Raises ``ValueError``
+    before anything runs when the deltas do not pair with the trees, the
+    trees lie on more than one device, or a delta would not take the
+    bulk route (:meth:`TpuTree.packed_route`); a failing prepare or merge
+    raises before any tree commits.
+
+    ``times``, when given, receives ``prepare_ms`` (the prepares and the
+    stack) and ``launch_ms`` (the batched merge) before the first
+    commit.  ``each(i, commit)`` stands around tree ``i``'s commit, for
+    every tree in order, and runs ``commit()``, which raises what the
+    commit raised; the serving scheduler keeps its per-document
+    bookkeeping there.
+
+    The span tree of one call::
+
+        engine.apply_grouped
+          engine.prepare_packed        (B of them: the log ∪ delta concat)
+          grouped.stack                (counts grouped.docs = B,
+                                        grouped.rows_stacked = B x the
+                                        shared capacity, grouped.rows_live
+                                        = the candidate rows)
+          merge.materialize            (merge.h2d, the stages)
+          engine.finish_packed         (B of them: read-back and commit)
+    """
+    trees, deltas = list(trees), list(deltas)
+    if not trees or len(trees) != len(deltas):
+        raise ValueError(f"{len(deltas)} deltas for {len(trees)} trees")
+    dev = trees[0].device
+    if any(t.device != dev for t in trees):
+        raise ValueError("a grouped merge runs on one device")
+    for t, d in zip(trees, deltas):
+        if not t.packed_route(d.num_ops):
+            raise ValueError(f"a delta of {d.num_ops} ops does not take "
+                             f"the bulk route on a {t.log_length}-op log")
+    errors: List[Optional[CRDTError]] = [None] * len(trees)
+    with profiling.span("engine.apply_grouped"):
+        t0 = time.perf_counter()
+        prepared = [t.prepare_packed(d) for t, d in zip(trees, deltas)]
+        with profiling.span("grouped.stack"):
+            stacked, aligned = mesh_mod.stack_aligned(prepared)
+            profiling.count("grouped.docs", len(trees))
+            profiling.count("grouped.rows_stacked",
+                            len(trees) * aligned[0].capacity)
+            profiling.count("grouped.rows_live",
+                            sum(p.num_ops for p in prepared))
+        t1 = time.perf_counter()
+        btab = mesh_mod.batched_materialize(stacked, device=dev)
+        if times is not None:
+            times["prepare_ms"] = (t1 - t0) * 1e3
+            times["launch_ms"] = (time.perf_counter() - t1) * 1e3
+        for i, (t, d) in enumerate(zip(trees, deltas)):
+            def commit(i=i, t=t, d=d):
+                try:
+                    t.finish_packed(d, aligned[i],
+                                    mesh_mod.doc_table(btab, i))
+                except CRDTError as e:
+                    errors[i] = e
+                    raise
+            each(i, commit)
+    return errors
 
 
 def init(replica: int, max_depth: int = DEFAULT_MAX_DEPTH,

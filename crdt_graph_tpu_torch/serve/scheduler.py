@@ -12,11 +12,12 @@ Scheduling policy, per round:
    ticket's row span for per-request attribution.
 3. **Route** — fused batches above the engine's kernel crossover go to
    the batched kernel; when ≥2 documents route to the kernel in the same
-   round (and each fits one chunk), their candidate sets are padded to a
-   shared capacity and materialized as ONE batched merge on the card
-   (parallel.mesh.batched_materialize: one chain of dispatches over a
-   leading document axis), each document committed from its slice of
-   the batched table at the shared capacity.  Everything
+   round (and each fits one chunk), the replica engine merges them in
+   one call (``engine.apply_packed_grouped``): their candidate sets are
+   padded to a shared capacity and materialized as ONE batched merge on
+   the card (parallel.mesh.batched_materialize: one chain of dispatches
+   over a leading document axis), each document committed from its
+   slice of the batched table at the shared capacity.  Everything
    else merges per-document, with giant pushes split into bounded chunks
    (``engine.apply_packed_chunked``) so p50 commit latency is set by the
    chunk size, not the largest client.
@@ -41,6 +42,7 @@ itself stays up.
 """
 from __future__ import annotations
 
+import functools
 import sys
 import threading
 import time
@@ -1000,25 +1002,41 @@ class MergeScheduler(threading.Thread):
 
     def _process_grouped(self, grouped: List[_WorkItem]) -> None:
         """≥2 documents' kernel merges as ONE batched merge on the
-        engine's device: candidate sets padded to a shared capacity (so
-        each document's parked table stays row-consistent with its own
-        columns), stacked on a leading doc axis.  Falls
-        back per-document only for CRDT rejections (sequential replay
-        attributes the guilty ticket); infrastructure failures surface
-        on the tickets via :meth:`_guarded`."""
-        from ..parallel import mesh as mesh_mod
+        engine's device: the replica engine's grouped merge
+        (``engine.apply_packed_grouped``), which pads the candidate sets
+        to a shared capacity (so each document's parked table stays
+        row-consistent with its own columns) and stacks them on a
+        leading doc axis.  Each document commits under :meth:`_guarded`
+        and falls back per-document only for CRDT rejections
+        (sequential replay attributes the guilty ticket); a failed
+        launch surfaces on every grouped ticket."""
+        from .. import engine as engine_mod
         t0 = time.perf_counter()
+        times: dict = {}
+
+        def each(i: int, commit) -> None:
+            item = grouped[i]
+            if i == 0:
+                self.engine.counters.add("cross_doc_batches")
+                self.engine.counters.add("cross_doc_docs", len(grouped))
+            # the group's shared wall time is billed to every member
+            # commit's breakdown (it gated all of them equally), split
+            # so "batched_launch" means the batched merge alone:
+            # prepare_packed + stack_aligned land in their own stage
+            item[4].stages_ms["batch_prepare"] = round(
+                times["prepare_ms"], 3)
+            item[4].stages_ms["batched_launch"] = round(
+                times["launch_ms"], 3)
+            item[4].batch_width = len(grouped)
+            self._guarded(self._finish_grouped, item, commit)
+
         try:
-            with profiling.span("serve.batch_prepare"):
-                prepared = [doc.tree.prepare_packed(fused)
-                            for doc, _, fused, _, _ in grouped]
-                stacked, ps = mesh_mod.stack_aligned(prepared)
-            prep_ms = (time.perf_counter() - t0) * 1e3
-            with profiling.span("serve.batched_launch"):
-                btab = mesh_mod.batched_materialize(
-                    stacked, device=self.engine.device)
+            engine_mod.apply_packed_grouped(
+                [item[0].tree for item in grouped],
+                [item[2] for item in grouped], times=times, each=each)
         except Exception as e:   # noqa: BLE001 — launch failed before any
-            # commit: every grouped document's tickets get the error
+            # commit (each commit is guarded): every grouped document's
+            # tickets get the error
             self.engine.counters.add("scheduler_errors")
             traceback.print_exc(file=sys.stderr)
             err = SchedulerError(f"batched launch failed: {e!r}")
@@ -1031,30 +1049,17 @@ class MergeScheduler(threading.Thread):
                 ct.error = repr(e)
                 ct.total_ms = (time.perf_counter() - t0) * 1e3
                 self.engine.record_commit(doc, ct)
-            return
-        launch_ms = (time.perf_counter() - t0) * 1e3 - prep_ms
-        self.engine.counters.add("cross_doc_batches")
-        self.engine.counters.add("cross_doc_docs", len(grouped))
-        for i, item in enumerate(grouped):
-            # the group's shared wall time is billed to every member
-            # commit's breakdown (it gated all of them equally), split
-            # so "batched_launch" means the same thing in the record
-            # and the serve.batched_launch span: prepare_packed +
-            # stack_aligned land in their own stage
-            item[4].stages_ms["batch_prepare"] = round(prep_ms, 3)
-            item[4].stages_ms["batched_launch"] = round(launch_ms, 3)
-            item[4].batch_width = len(grouped)
-            self._guarded(self._finish_grouped, item, ps[i],
-                          mesh_mod.doc_table(btab, i))
 
-    def _finish_grouped(self, item: _WorkItem, p, table) -> None:
+    def _finish_grouped(self, item: _WorkItem, commit) -> None:
+        """One document's commit against its slice of a batched table:
+        ``commit()`` runs its ``finish_packed``."""
         doc, tickets, fused, spans, ct = item
         doc.chunks_launched += 1
         ct.chunk_count = 1
         doc._commit_saved = doc.tree.begin_commit()
         try:
             with ct.stage("merge"):
-                doc.tree.finish_packed(fused, p, table)
+                commit()
         except CRDTError:
             self._sequential(doc, tickets, ct)
             return
@@ -1142,7 +1147,9 @@ class MergeScheduler(threading.Thread):
                                       queue_ms=sub["queue"],
                                       launch_ms=sub["launch"])
                 p = pk.with_capacity(prep, shared)
-                self._guarded(self._finish_grouped, item, p, table)
+                self._guarded(self._finish_grouped, item,
+                              functools.partial(item[0].tree.finish_packed,
+                                                item[2], p, table))
             else:
                 # MergeFallback (reason already counted by the client)
                 # or an unsendable prepare: the bit-identical local
