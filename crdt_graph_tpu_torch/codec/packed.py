@@ -940,7 +940,40 @@ def concat(a: PackedOps, b: PackedOps) -> PackedOps:
     return concat_many([a, b])
 
 
-def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
+# each column's dtype, in :meth:`PackedOps.columns` order
+COLUMN_DTYPES = {
+    "kind": np.int8, "ts": np.int64, "parent_ts": np.int64,
+    "anchor_ts": np.int64, "depth": np.int32, "paths": np.int64,
+    "value_ref": np.int32, "pos": np.int32, "parent_pos": np.int32,
+    "anchor_pos": np.int32, "target_pos": np.int32, "ts_rank": np.int32,
+}
+
+
+def union_shape(parts: Sequence[PackedOps]) -> Tuple[int, int]:
+    """The capacity and path width of ``concat_many(parts)``: the bucket
+    of the parts' rows and the widest part's width; a lone part with
+    rows keeps its own (it is returned uncopied), and no rows at all
+    give ``pack([])``'s."""
+    live = [p for p in parts if p.num_ops]
+    if len(live) == 1:
+        return live[0].capacity, live[0].max_depth
+    if not live:
+        return _bucket(0), 1
+    return (_bucket(sum(p.num_ops for p in live)),
+            max(p.max_depth for p in live))
+
+
+def frame(docs: int, n: int, width: int) -> dict:
+    """An unfilled column frame for ``docs`` documents: each column
+    ``[docs, n]``, ``paths`` ``[docs, n, width]``.  Row ``i``
+    (``{k: v[i] for k, v in frame.items()}``) is the ``out`` of one
+    :func:`concat_many`, which writes every byte of it."""
+    return {k: np.empty((docs, n, width) if k == "paths" else (docs, n),
+                        dtype=dt) for k, dt in COLUMN_DTYPES.items()}
+
+
+def concat_many(parts: Sequence[PackedOps],
+                out: Optional[dict] = None) -> PackedOps:
     """Union of several packed batches in ONE allocation — the columnar
     log's full-state export (oplog.OpLog.to_packed), where a pairwise
     concat fold re-copied the growing prefix per segment (O(s·n) row
@@ -963,28 +996,44 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
     special casing; probing in part order keeps the deterministic
     first-part-wins choice anyway.  The union's ``ts_rank`` is merged
     from the parts' (:func:`_union_rank`), not sorted again; nothing
-    new is cached on the parts, and the union has no ``ts_index``."""
+    new is cached on the parts, and the union has no ``ts_index``.
+
+    ``out``, one row of a :func:`frame` (``paths`` ``[N, W]``), builds
+    the union there instead of in fresh arrays: the live rows, then a
+    pad tail as :func:`pad_arrays` fills it (``paths`` zero past each
+    part's width).  The result's columns are views of the row, at
+    capacity ``N`` and the union's own path width; a lone part is
+    copied in too, keeping its cached ``ts_index``.  A row shorter or
+    narrower than :func:`union_shape` raises ``ValueError`` before
+    anything is written."""
     parts = [p for p in parts if p.num_ops]
-    if not parts:
-        return pack([])
-    if len(parts) == 1:
-        return parts[0]
+    cap, width = union_shape(parts)
+    if out is not None and (out["kind"].shape[0] < cap
+                            or out["paths"].shape[1] < width):
+        raise ValueError(
+            f"a {out['kind'].shape[0]}-row, {out['paths'].shape[1]}-wide "
+            f"frame row cannot hold a union of capacity {cap} and path "
+            f"width {width}")
+    if len(parts) <= 1:
+        one = parts[0] if parts else pack([])
+        return one if out is None else _copy_into(one, out)
     with profiling.span("packed.concat"):
         n = sum(p.num_ops for p in parts)
-        cap = _bucket(n)
-        width = max(p.max_depth for p in parts)
         values: List[Any] = []
-        out = PackedOps(
-            kind=np.full(cap, KIND_PAD, dtype=np.int8),
-            ts=np.zeros(cap, dtype=np.int64),
-            parent_ts=np.zeros(cap, dtype=np.int64),
-            anchor_ts=np.zeros(cap, dtype=np.int64),
-            depth=np.zeros(cap, dtype=np.int32),
-            paths=np.zeros((cap, width), dtype=np.int64),
-            value_ref=np.full(cap, -1, dtype=np.int32),
-            pos=np.arange(cap, dtype=np.int32),
-            values=values, num_ops=n,
-            ts_rank=np.full(cap, -1, dtype=np.int32))
+        if out is None:
+            u = PackedOps(
+                kind=np.full(cap, KIND_PAD, dtype=np.int8),
+                ts=np.zeros(cap, dtype=np.int64),
+                parent_ts=np.zeros(cap, dtype=np.int64),
+                anchor_ts=np.zeros(cap, dtype=np.int64),
+                depth=np.zeros(cap, dtype=np.int32),
+                paths=np.zeros((cap, width), dtype=np.int64),
+                value_ref=np.full(cap, -1, dtype=np.int32),
+                pos=np.arange(cap, dtype=np.int32),
+                values=values, num_ops=n,
+                ts_rank=np.full(cap, -1, dtype=np.int32))
+        else:
+            u = _row_ops(out, n, width, values)
 
         bases: List[int] = []
         b = 0
@@ -999,11 +1048,12 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
             k = p.num_ops
             for name in ("kind", "ts", "parent_ts", "anchor_ts", "depth",
                          "ts_rank"):
-                getattr(out, name)[base:base + k] = getattr(p, name)[:k]
-            out.paths[base:base + k, :p.max_depth] = p.paths[:k]
+                getattr(u, name)[base:base + k] = getattr(p, name)[:k]
+            u.paths[base:base + k, :p.max_depth] = p.paths[:k]
+            u.paths[base:base + k, p.max_depth:] = 0
             shifted = p.value_ref[:k].copy()
             shifted[shifted >= 0] += len(values)
-            out.value_ref[base:base + k] = shifted
+            u.value_ref[base:base + k] = shifted
             values.extend(p.values)
 
             for name, ref_col in (("parent_pos", "parent_ts"),
@@ -1018,9 +1068,9 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
                 elif name == "anchor_pos":
                     unresolved &= p.kind[:k] == KIND_ADD
                 todo = np.nonzero(unresolved & (refs != 0))[0]
-                getattr(out, name)[base:base + k] = h
+                getattr(u, name)[base:base + k] = h
                 if todo.size:
-                    open_refs.append((getattr(out, name), todo + base,
+                    open_refs.append((getattr(u, name), todo + base,
                                       refs[todo]))
 
         n_open = sum(rows.size for _, rows, _ in open_refs)
@@ -1029,9 +1079,45 @@ def concat_many(parts: Sequence[PackedOps]) -> PackedOps:
             _resolve(open_refs, parts, bases)
 
         with profiling.span("packed.ts_rank"):
-            _union_rank(out, bases)
-        out.hints_vouched = all(p.hints_vouched for p in parts)
-        return out
+            _union_rank(u, bases)
+        u.hints_vouched = all(p.hints_vouched for p in parts)
+        return u
+
+
+def _row_ops(out: dict, n: int, width: int, values: List[Any]
+             ) -> PackedOps:
+    """A PackedOps of views of the frame row ``out``, ``width`` of its
+    path columns, whose rows past ``n`` are filled as
+    :func:`pad_arrays` pads and whose path columns past ``width`` are
+    zero; rows below ``n`` are the caller's to write (``pos`` is the
+    arange throughout)."""
+    tail = slice(n, None)
+    out["kind"][tail] = KIND_PAD
+    for name in ("ts", "parent_ts", "anchor_ts", "depth", "paths"):
+        out[name][tail] = 0
+    for name in ("value_ref", "parent_pos", "anchor_pos", "target_pos",
+                 "ts_rank"):
+        out[name][tail] = -1
+    out["paths"][:n, width:] = 0
+    out["pos"][:] = np.arange(out["pos"].shape[0], dtype=np.int32)
+    return PackedOps(
+        kind=out["kind"], ts=out["ts"], parent_ts=out["parent_ts"],
+        anchor_ts=out["anchor_ts"], depth=out["depth"],
+        paths=out["paths"][:, :width], value_ref=out["value_ref"],
+        pos=out["pos"], values=values, num_ops=n,
+        parent_pos=out["parent_pos"], anchor_pos=out["anchor_pos"],
+        target_pos=out["target_pos"], ts_rank=out["ts_rank"])
+
+
+def _copy_into(p: PackedOps, out: dict) -> PackedOps:
+    """``p``'s rows in the frame row ``out``, padded to its length: what
+    :func:`with_capacity` gives, in the row."""
+    k = p.num_ops
+    u = _row_ops(out, k, p.max_depth, p.values)
+    for name in COLUMN_DTYPES:
+        getattr(u, name)[:k] = getattr(p, name)[:k]
+    u.hints_vouched, u.ts_index = p.hints_vouched, p.ts_index
+    return u
 
 
 def _resolve(open_refs, parts: Sequence[PackedOps], bases: List[int]

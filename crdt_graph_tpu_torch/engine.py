@@ -608,10 +608,12 @@ class TpuTree:
         return n >= max(4 * DELTA_THRESHOLD, len(self._log) // 8)
 
     @profiling.span("engine.prepare_packed")
-    def prepare_packed(self, pnew: PackedOps) -> PackedOps:
+    def prepare_packed(self, pnew: PackedOps,
+                       out: Optional[dict] = None) -> PackedOps:
         """Stage 1 of the staged bulk apply: the candidate column set
-        (current log ∪ delta) whose merge yields the new view."""
-        return packed_mod.concat(self._ensure_packed(), pnew)
+        (current log ∪ delta) whose merge yields the new view, built in
+        the frame row ``out`` when given (``codec.packed.concat_many``)."""
+        return packed_mod.concat_many([self._ensure_packed(), pnew], out=out)
 
     @profiling.span("engine.finish_packed")
     def finish_packed(self, pnew: PackedOps, p: PackedOps,
@@ -1559,13 +1561,19 @@ def apply_packed_grouped(trees: Sequence[TpuTree],
     merged as ONE batched merge over a leading document axis on the
     trees' device (the serving scheduler's cross-document round).
 
-    Each tree's candidate set (:meth:`TpuTree.prepare_packed`) is
-    re-padded to the batch's shared capacity and stacked
-    (``parallel.mesh.stack_aligned``), the stack is merged by
-    ``mesh.batched_materialize`` on the join leg (the batched body drops
-    the position hints), and each tree commits against its own slice of
-    the one table (:meth:`TpuTree.finish_packed` on ``mesh.doc_table``),
-    in order.  A document's slice is the merge of its own op set alone.
+    The round's ``[B, N]`` column frame (``[B, N, W]`` paths;
+    ``codec.packed.frame``) is allocated first, ``N`` and ``W`` the
+    largest capacity and path width of the B candidate sets
+    (``codec.packed.union_shape``), and each tree's candidate set
+    (:meth:`TpuTree.prepare_packed`) is built straight into its row:
+    the frame IS the stack, with no second copy of any column.  The
+    stack is merged by ``mesh.batched_materialize`` on the join leg (the
+    batched body drops the position hints), and each tree commits
+    against its own slice of the one table (:meth:`TpuTree.finish_packed`
+    on ``mesh.doc_table``), in order.  A document's slice is the merge
+    of its own op set alone.  The candidate set a tree parks is a view
+    of its row, so the round's frame lives while any document's parked
+    state refers to it; a round never reuses an earlier frame.
 
     Returns one entry per tree: None when it committed, or the
     :class:`CRDTError` its commit raised, which leaves that tree
@@ -1585,11 +1593,16 @@ def apply_packed_grouped(trees: Sequence[TpuTree],
     The span tree of one call::
 
         engine.apply_grouped
-          engine.prepare_packed        (B of them: the log ∪ delta concat)
-          grouped.stack                (counts grouped.docs = B,
-                                        grouped.rows_stacked = B x the
-                                        shared capacity, grouped.rows_live
-                                        = the candidate rows)
+          engine.prepare_packed        (B of them: the log ∪ delta concat,
+                                        written into the tree's row)
+          grouped.stack                (the frame is the stack: counts
+                                        only, grouped.docs = B,
+                                        grouped.rows_stacked = B x N,
+                                        grouped.rows_live = the candidate
+                                        rows, grouped.rows_in_place = those
+                                        written straight into the frame,
+                                        grouped.rows_restacked = rows
+                                        copied into it after the prepares)
           merge.materialize            (merge.h2d, the stages)
           engine.finish_packed         (B of them: read-back and commit)
     """
@@ -1606,16 +1619,24 @@ def apply_packed_grouped(trees: Sequence[TpuTree],
     errors: List[Optional[CRDTError]] = [None] * len(trees)
     with profiling.span("engine.apply_grouped"):
         t0 = time.perf_counter()
-        prepared = [t.prepare_packed(d) for t, d in zip(trees, deltas)]
+        shapes = [packed_mod.union_shape([t.packed_state(), d])
+                  for t, d in zip(trees, deltas)]
+        n = max(cap for cap, _ in shapes)
+        frame = packed_mod.frame(len(trees), n,
+                                 max(width for _, width in shapes))
+        aligned = [t.prepare_packed(d, out={k: v[i]
+                                            for k, v in frame.items()})
+                   for i, (t, d) in enumerate(zip(trees, deltas))]
         with profiling.span("grouped.stack"):
-            stacked, aligned = mesh_mod.stack_aligned(prepared)
             profiling.count("grouped.docs", len(trees))
-            profiling.count("grouped.rows_stacked",
-                            len(trees) * aligned[0].capacity)
+            profiling.count("grouped.rows_stacked", len(trees) * n)
             profiling.count("grouped.rows_live",
-                            sum(p.num_ops for p in prepared))
+                            sum(p.num_ops for p in aligned))
+            profiling.count("grouped.rows_in_place", sum(
+                p.num_ops for p in aligned if p.kind.base is frame["kind"]))
+            profiling.count("grouped.rows_restacked", 0)
         t1 = time.perf_counter()
-        btab = mesh_mod.batched_materialize(stacked, device=dev)
+        btab = mesh_mod.batched_materialize(frame, device=dev)
         if times is not None:
             times["prepare_ms"] = (t1 - t0) * 1e3
             times["launch_ms"] = (time.perf_counter() - t1) * 1e3

@@ -1003,13 +1003,13 @@ class MergeScheduler(threading.Thread):
     def _process_grouped(self, grouped: List[_WorkItem]) -> None:
         """≥2 documents' kernel merges as ONE batched merge on the
         engine's device: the replica engine's grouped merge
-        (``engine.apply_packed_grouped``), which pads the candidate sets
-        to a shared capacity (so each document's parked table stays
-        row-consistent with its own columns) and stacks them on a
-        leading doc axis.  Each document commits under :meth:`_guarded`
-        and falls back per-document only for CRDT rejections
-        (sequential replay attributes the guilty ticket); a failed
-        launch surfaces on every grouped ticket."""
+        (``engine.apply_packed_grouped``), which builds each candidate
+        set in its row of one column frame at a shared capacity, the
+        stack on a leading doc axis (so each document's parked table
+        stays row-consistent with its own columns).  Each document
+        commits under :meth:`_guarded` and falls back per-document only
+        for CRDT rejections (sequential replay attributes the guilty
+        ticket); a failed launch surfaces on every grouped ticket."""
         from .. import engine as engine_mod
         t0 = time.perf_counter()
         times: dict = {}
@@ -1022,7 +1022,8 @@ class MergeScheduler(threading.Thread):
             # the group's shared wall time is billed to every member
             # commit's breakdown (it gated all of them equally), split
             # so "batched_launch" means the batched merge alone:
-            # prepare_packed + stack_aligned land in their own stage
+            # the prepares, each filling its row of the stack, land in
+            # their own stage
             item[4].stages_ms["batch_prepare"] = round(
                 times["prepare_ms"], 3)
             item[4].stages_ms["batched_launch"] = round(

@@ -2,13 +2,17 @@
 several documents caught up in one batched merge, on the CPU.
 
 Three documents with disjoint replica ids, different base and delta
-sizes (so ``stack_aligned`` re-pads the smaller candidate sets to the
-shared capacity), one of them an outline nested three deep (so
-``stack_packed`` widens the flat documents' path planes).  Each
+sizes (so the smaller candidate sets are padded to the shared
+capacity), one of them an outline nested three deep (so the flat
+documents' path planes are widened).  Each candidate set is built in
+its row of the round's column frame; the stack handed to the merge, and
+each document's parked candidate set, equal what
+``mesh.stack_aligned`` makes of the separately built sets.  Each
 document's committed state equals the same delta applied alone by
-``apply_packed`` on a twin replica, table field for field, and its
-order equals the plain reference's; a rejected document is left as it
-was while the others commit; one call is one span tree; and the serving
+``apply_packed`` on a twin replica, table field for field, also when a
+second round merges on the row views the first parked, and its order
+equals the plain reference's; a rejected document is left as it was
+while the others commit; one call is one span tree; and the serving
 scheduler's cross-document round goes through this one call.
 """
 import threading
@@ -41,24 +45,34 @@ LOCAL = 99          # every replica's own id; it sends no ops
 SLOT_FIELDS = ("parent", "order", "visible_order")
 
 
-def _flat(seed, replicas, first, base, delta):
-    """(base cols, base values, delta cols, delta values) of interleaved
-    chains from replicas ``first + 1 .. first + replicas``."""
+def _flat(seed, replicas, first, base, *deltas):
+    """(base cols, base values, then each delta's cols and values) of
+    interleaved chains from replicas ``first + 1 .. first + replicas``,
+    each delta continuing the chains."""
     per = base // replicas
     bc, bv = chains.chain_rows(rng_for(seed, 1), replicas, 0, per)
-    dc, dv = chains.chain_rows(rng_for(seed, 2), replicas, per,
-                               delta // replicas)
-    return shifted(bc, first), bv, shifted(dc, first), dv
+    out = [shifted(bc, first), bv]
+    for j, delta in enumerate(deltas):
+        dc, dv = chains.chain_rows(rng_for(seed, 2 + j), replicas, per,
+                                   delta // replicas)
+        per += delta // replicas
+        out += [shifted(dc, first), dv]
+    return tuple(out)
 
 
-def _outline(seed, replicas, first, depth, base, delta):
+def _outline(seed, replicas, first, depth, base, *deltas):
     """The same for a nested outline ``depth`` deep."""
     bc, bv = nested.nested_rows(rng_for(seed, 1), replicas, depth,
                                 np.zeros(replicas, np.int64), base)
-    after = nested.counters_after(bc, replicas)
-    dc, dv = nested.nested_rows(rng_for(seed, 2), replicas, depth, after,
-                                delta)
-    return shifted(bc, first), bv, shifted(dc, first), dv
+    out, seen = [shifted(bc, first), bv], [bc["ts"]]
+    for j, delta in enumerate(deltas):
+        after = nested.counters_after({"ts": np.concatenate(seen)},
+                                      replicas)
+        dc, dv = nested.nested_rows(rng_for(seed, 2 + j), replicas, depth,
+                                    after, delta)
+        seen.append(dc["ts"])
+        out += [shifted(dc, first), dv]
+    return tuple(out)
 
 
 # candidate sets of 3,100, 6,200 and 4,608 rows: capacities 4,096,
@@ -66,16 +80,26 @@ def _outline(seed, replicas, first, depth, base, delta):
 DOCS = [_flat(11, 4, 0, 2000, 1100),
         _flat(12, 4, 4, 5000, 1200),
         _outline(13, 3, 8, 3, 3072, 1536)]
+# the same documents, each with a second delta after the first
+TWICE = [_flat(11, 4, 0, 2000, 1100, 1100),
+         _flat(12, 4, 4, 5000, 1200, 1200),
+         _outline(13, 3, 8, 3, 3072, 1536, 1536)]
+# a document whose replica starts with an empty log: its candidate set
+# is the delta alone (2,048 rows), which the union does not copy
+FRESH = _flat(14, 4, 12, 0, 1200)
 
 
 def _replica(doc):
     tree = engine.TpuTree(LOCAL, device="cpu")
+    if doc is FRESH:
+        return tree
     tree.apply_packed(packed_of(doc[0], doc[1]))
     return tree
 
 
-def _delta(doc):
-    return packed_of(doc[2], doc[3])
+def _delta(doc, j=0):
+    """The document's ``j``-th delta (its first by default)."""
+    return packed_of(doc[2 + 2 * j], doc[3 + 2 * j])
 
 
 def _prepared(doc):
@@ -126,13 +150,10 @@ def test_the_documents_need_realigning():
     assert len(caps) == 2 and len(widths) == 2
 
 
-@pytest.mark.parametrize("i", range(len(DOCS)))
-def test_each_document_equals_its_own_apply_packed(grouped, i):
-    trees, errors = grouped
-    assert errors == [None] * len(DOCS)
-    twin = _replica(DOCS[i])
-    twin.apply_packed(_delta(DOCS[i]))
-    got, want = trees[i], twin
+def _assert_same(got, want):
+    """``got``'s state and table equal ``want``'s (a table of a larger
+    capacity holds no node past the smaller's, and its flat path planes
+    may be widened with zeros)."""
     assert _state(got) == _state(want)
     assert got.last_applied_mask.tolist() == want.last_applied_mask.tolist()
     slots = min(got._table.ts.shape[0], want._table.ts.shape[0]) - 1
@@ -145,6 +166,78 @@ def test_each_document_equals_its_own_apply_packed(grouped, i):
         assert np.array_equal(a[f], b[f]), f
     # the rows past the smaller capacity hold no node
     assert not _host(got._table.exists)[slots:].any()
+
+
+@pytest.mark.parametrize("i", range(len(DOCS)))
+def test_each_document_equals_its_own_apply_packed(grouped, i):
+    trees, errors = grouped
+    assert errors == [None] * len(DOCS)
+    twin = _replica(DOCS[i])
+    twin.apply_packed(_delta(DOCS[i]))
+    _assert_same(trees[i], twin)
+
+
+@pytest.mark.parametrize("docs", [DOCS, DOCS + [FRESH]],
+                         ids=["docs", "docs+fresh"])
+def test_the_frame_is_the_stack_of_the_candidate_sets(monkeypatch, docs):
+    """The stack the merge gets, and each document's parked candidate
+    set, equal ``stack_aligned`` of the candidate sets built apart."""
+    want, aligned = mesh.stack_aligned(
+        [_replica(d).prepare_packed(_delta(d)) for d in docs])
+    seen = []
+    orig = mesh.batched_materialize
+
+    def spy(ops, **kw):
+        seen.append(ops)
+        return orig(ops, **kw)
+    monkeypatch.setattr(mesh, "batched_materialize", spy)
+    trees = [_replica(d) for d in docs]
+    errors = engine.apply_packed_grouped(trees, [_delta(d) for d in docs])
+    assert errors == [None] * len(docs) and len(seen) == 1
+    got = seen[0]
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for t, a in zip(trees, aligned):
+        p = t._packed
+        assert p.kind.base is got["kind"]
+        for k, col in a.columns().items():
+            assert getattr(p, k).shape == col.shape, k
+            assert getattr(p, k).dtype == col.dtype, k
+            np.testing.assert_array_equal(getattr(p, k), col, err_msg=k)
+        assert p.values == a.values
+        assert (p.num_ops, p.hints_vouched) == (a.num_ops, a.hints_vouched)
+
+
+def test_a_second_round_merges_on_the_rows_the_first_parked():
+    trees = [_replica(d) for d in TWICE]
+    for j in range(2):
+        errors = engine.apply_packed_grouped(
+            trees, [_delta(d, j) for d in TWICE])
+        assert errors == [None] * len(TWICE)
+    for t, d in zip(trees, TWICE):
+        twin = _replica(d)
+        twin.apply_packed(_delta(d, 0))
+        twin.apply_packed(_delta(d, 1))
+        _assert_same(t, twin)
+
+
+def test_a_rejected_document_merges_in_the_next_round():
+    trees = [_replica(d) for d in TWICE]
+    errors = engine.apply_packed_grouped(
+        trees, [_delta(TWICE[0]), _rejected(), _delta(TWICE[2])])
+    assert isinstance(errors[1], CRDTError)
+    errors = engine.apply_packed_grouped(
+        trees, [_delta(TWICE[0], 1), _delta(TWICE[1]), _delta(TWICE[2], 1)])
+    assert errors == [None] * len(TWICE)
+    for i, (t, d) in enumerate(zip(trees, TWICE)):
+        twin = _replica(d)
+        twin.apply_packed(_delta(d))
+        if i != 1:
+            twin.apply_packed(_delta(d, 1))
+        _assert_same(t, twin)
 
 
 @pytest.mark.parametrize("i", range(len(DOCS)))
@@ -164,9 +257,9 @@ def test_each_document_equals_the_reference(grouped, i):
         "status_mismatches": 0}
 
 
-def test_a_rejected_document_is_left_untouched():
-    trees = [_replica(d) for d in DOCS]
-    before = [_state(t) for t in trees]
+def _rejected():
+    """The second document's delta with one op anchored at an op no
+    replica made."""
     bad = dict(DOCS[1][2])
     # row 0 is a chain's first op in the batch whose anchor lies in the
     # base: point it at an op no replica made
@@ -176,8 +269,13 @@ def test_a_rejected_document_is_left_untouched():
     missing = 77 * OFF + 5
     bad["anchor_ts"][k] = missing
     bad["paths"][k, 0] = missing
-    deltas = [_delta(DOCS[0]), packed_of(bad, DOCS[1][3]),
-              _delta(DOCS[2])]
+    return packed_of(bad, DOCS[1][3])
+
+
+def test_a_rejected_document_is_left_untouched():
+    trees = [_replica(d) for d in DOCS]
+    before = [_state(t) for t in trees]
+    deltas = [_delta(DOCS[0]), _rejected(), _delta(DOCS[2])]
     errors = engine.apply_packed_grouped(trees, deltas)
     assert errors[0] is None and errors[2] is None
     assert isinstance(errors[1], CRDTError)
@@ -237,7 +335,9 @@ def test_one_call_is_one_span_tree():
     live = sum(t.log_length for t in trees)
     assert stack["counts"] == {"grouped.docs": b,
                                "grouped.rows_stacked": b * cap,
-                               "grouped.rows_live": live}
+                               "grouped.rows_live": live,
+                               "grouped.rows_in_place": live,
+                               "grouped.rows_restacked": 0}
     merge_kids = {r["name"] for r in recs if r["parent"] == kids[b + 1]["id"]}
     assert "merge.h2d" in merge_kids
 
